@@ -5,8 +5,12 @@ The reference's knobs are compile-time ``#define``s
 reference/inc/parameters.hpp:14-22) plus CMake options.  Here the
 settings live in one dataclass, read at call time.  A copy of
 ``mpr_tpu.config`` holding the fields the port reads so far (the 2D
-interpreter pipeline reads only ``widen_intervals``); later slices add the
-others as they port the code that reads them.
+pipeline reads ``widen_intervals``, the 3D pipeline also ``cap_div``);
+later slices add the others as they port the code that reads them.  The
+3D stage capacities of ``mpr_tpu.config`` (``p0_scale``, ``c1_scale``) and
+its batching factors (``cpi``, ``tpi``) have no counterpart: the port
+sizes each 3D stage from counts read back from the device and its kernels
+take one cell or tile per block.
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ from contextlib import contextmanager
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    # 3D pipeline: per-cell (and per-column) shortened-tape capacity =
+    # tape capacity // cap_div.  Blobby 3D models barely shorten, and a
+    # cell whose tape overflows falls back to the full tape.
+    cap_div: int = 2
     # True applies conservative outward widening (>= 1 ulp per interval
     # op, interval_math.widen) in kernel A.  Closes the documented
     # divergence from the reference's directed-rounding intrinsics

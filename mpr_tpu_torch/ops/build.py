@@ -39,6 +39,8 @@ SIGNATURES = {
     "mpr_interval_shorten": [_P] * 9 + [_I] * 4 + [_P],
     "mpr_compact": [_P] * 9 + [_I] * 3 + [_P],
     "mpr_pixel_eval": [_P] * 13 + [_I] * 3 + [_P],
+    "mpr_voxel_eval": [_P] * 13 + [_I] * 4 + [_P],
+    "mpr_deriv_eval": [_P] * 13 + [_I] * 3 + [_P],
 }
 
 

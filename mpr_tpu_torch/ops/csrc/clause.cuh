@@ -1,11 +1,12 @@
-// Clause semantics shared by the three kernels: the interval branch and the
-// float branch of all 32 opcodes.
+// Clause semantics shared by the kernels: the interval branch, the float
+// branch and the derivative (dual-number) branch of all 32 opcodes.
 //
 // This is the CUDA statement of mpr_tpu/ops/kernels.py:83-317 (interval,
-// `_interval_branch_list`) and :575-609 (float, `_float_branch_list`), kept
+// `_interval_branch_list`), :575-609 (float, `_float_branch_list`) and
+// mpr_tpu/ops/kernels3d.py:231-363 (derivative, `_deriv_branch_list`), kept
 // operation for operation so the kernels round exactly as the JAX package
-// and the plain PyTorch versions in ops/kernels.py do.  The rules that make
-// that hold:
+// and the plain PyTorch versions in ops/kernels.py and ops/kernels3d.py do.
+// The rules that make that hold:
 //   * build with --fmad=false and without --use_fast_math (no contraction,
 //     IEEE division and square root, no flush to zero);
 //   * min/max propagate NaN like jnp.minimum / torch.minimum (fminf and
@@ -140,6 +141,105 @@ __device__ __forceinline__ float float_op(float a, float b, float imm) {
     case OP_ADDSQ: return a * a + b;
     default: return a * 0.0f;  // INVALID, JUMP
   }
+}
+
+// ---- derivative branch (kernels3d.py:231-363) -------------------------------
+// A dual number: value and d/dx, d/dy, d/dz (the reference's Deriv float4,
+// reference/inc/gpu_deriv.hpp).  Every product and sum below is its own
+// rounded operation (--fmad=false): a.v * b.dx + b.v * a.dx must not fuse.
+struct __align__(16) Dv {
+  float v, dx, dy, dz;
+};
+
+// A constant: zero derivatives, spelled dx * 0 as the JAX package spells
+// them (so a NaN derivative of the operand stays NaN).
+__device__ __forceinline__ Dv dv_const(float v, const Dv& like) {
+  const float z = like.dx * 0.0f;
+  return {v, z, z, z};
+}
+// Unary: value v, derivatives scaled by the coefficient c.
+__device__ __forceinline__ Dv dv_lift(float v, float c, const Dv& a) {
+  return {v, c * a.dx, c * a.dy, c * a.dz};
+}
+
+template <int OP>
+__device__ __forceinline__ Dv deriv_op(const Dv& a, const Dv& b, float imm) {
+  switch (OP) {
+    case OP_SQUARE: return dv_lift(a.v * a.v, 2.0f * a.v, a);
+    case OP_SQRT: return dv_lift(sqrtf(a.v), 0.5f / sqrtf(a.v), a);
+    case OP_NEG: return {-a.v, -a.dx, -a.dy, -a.dz};
+    case OP_SIN: return dv_lift(sinf(a.v), cosf(a.v), a);
+    case OP_COS: return dv_lift(cosf(a.v), -sinf(a.v), a);
+    case OP_ASIN:
+      return dv_lift(c_asin(a.v), 1.0f / sqrtf(1.0f - a.v * a.v), a);
+    case OP_ACOS:
+      return dv_lift(c_acos(a.v), -1.0f / sqrtf(1.0f - a.v * a.v), a);
+    case OP_ATAN: return dv_lift(c_atan(a.v), 1.0f / (1.0f + a.v * a.v), a);
+    case OP_EXP: return dv_lift(expf(a.v), expf(a.v), a);
+    case OP_ABS: return dv_lift(fabsf(a.v), a.v < 0.0f ? -1.0f : 1.0f, a);
+    case OP_LOG: return dv_lift(logf(a.v), 1.0f / a.v, a);
+    case OP_ADD_IMM: return {a.v + imm, a.dx, a.dy, a.dz};
+    case OP_ADD: return {a.v + b.v, a.dx + b.dx, a.dy + b.dy, a.dz + b.dz};
+    case OP_MUL_IMM: return {a.v * imm, a.dx * imm, a.dy * imm, a.dz * imm};
+    case OP_MUL:
+      return {a.v * b.v, a.v * b.dx + b.v * a.dx, a.v * b.dy + b.v * a.dy,
+              a.v * b.dz + b.v * a.dz};
+    // min/max pick the winning side's whole tuple; a NaN picks the rhs
+    case OP_MIN_IMM: return a.v < imm ? a : dv_const(imm, a);
+    case OP_MIN: return a.v < b.v ? a : b;
+    case OP_MAX_IMM: return a.v > imm ? a : dv_const(imm, a);
+    case OP_MAX: return a.v > b.v ? a : b;
+    case OP_SUB_IMM: return {a.v - imm, a.dx, a.dy, a.dz};
+    case OP_SUB_IMM_RHS: return {imm - b.v, -b.dx, -b.dy, -b.dz};
+    case OP_SUB: return {a.v - b.v, a.dx - b.dx, a.dy - b.dy, a.dz - b.dz};
+    case OP_DIV_IMM: {
+      const float inv = 1.0f / imm;
+      return {a.v * inv, a.dx * inv, a.dy * inv, a.dz * inv};
+    }
+    case OP_DIV_IMM_RHS: {
+      const float v = imm / b.v;
+      const float c = -v / b.v;
+      return {v, c * b.dx, c * b.dy, c * b.dz};
+    }
+    case OP_DIV: {
+      const float inv = 1.0f / b.v;
+      const float v = a.v * inv;
+      return {v, (a.dx - v * b.dx) * inv, (a.dy - v * b.dy) * inv,
+              (a.dz - v * b.dz) * inv};
+    }
+    case OP_COPY_IMM: return dv_const(imm, a);
+    case OP_COPY_LHS: return a;
+    case OP_COPY_RHS: return b;
+    case OP_HYPOT: {
+      const float v = sqrtf(a.v * a.v + b.v * b.v);
+      const float inv = 1.0f / v;
+      return {v, (a.v * a.dx + b.v * b.dx) * inv,
+              (a.v * a.dy + b.v * b.dy) * inv,
+              (a.v * a.dz + b.v * b.dz) * inv};
+    }
+    case OP_ADDSQ: {
+      const float c = 2.0f * a.v;
+      return {a.v * a.v + b.v, c * a.dx + b.dx, c * a.dy + b.dy,
+              c * a.dz + b.dz};
+    }
+    default: return dv_const(a.v * 0.0f, a);  // INVALID, JUMP
+  }
+}
+
+// Projective mat4 transform with scalar matrix entries (kernels3d.py:51-60):
+// four dot products left to right, then three divisions by w.
+__device__ __forceinline__ void mat4_apply(const float* __restrict__ m,
+                                           float wx, float wy, float wz,
+                                           float& x, float& y, float& z) {
+  const float w = m[12] * wx + m[13] * wy + m[14] * wz + m[15];
+  x = (m[0] * wx + m[1] * wy + m[2] * wz + m[3]) / w;
+  y = (m[4] * wx + m[5] * wy + m[6] * wz + m[7]) / w;
+  z = (m[8] * wx + m[9] * wy + m[10] * wz + m[11]) / w;
+}
+
+// Voxel index along an axis -> render-space coordinate (kernels3d.py:147).
+__device__ __forceinline__ float world_coord(float idx, float size) {
+  return (idx + 0.5f) / size * 2.0f - 1.0f;
 }
 
 // ---- interval branch (kernels.py:83-317) ------------------------------------

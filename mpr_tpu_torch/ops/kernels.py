@@ -591,6 +591,53 @@ def _tile_programs(sel, nmeta, words, imms, runs_full, table, tw, ti, runs,
     return progs
 
 
+def _run_programs(progs, regs, clause):
+    """Interpret one clause list per row, in place: clause ``t`` of every
+    row steps together, operands gathered by each row's own slot numbers.
+
+    ``progs``: per-row ``(ops, words, imms)`` from :func:`_tile_programs`;
+    ``regs``: (rows, s_cap, ...) register file; ``clause(op, a, b, imm)``
+    evaluates one opcode on operands shaped ``regs[:, 0]``, with ``imm``
+    shaped (rows, 1, ...)."""
+    ga = len(progs)
+    dev = regs.device
+    lmax = max(p[0].shape[0] for p in progs)
+    op_m = np.zeros((ga, lmax), np.int64)
+    w_m = np.zeros((ga, lmax), np.int64)
+    i_m = np.zeros((ga, lmax), np.float32)
+    for r, (ops, w, imm) in enumerate(progs):
+        op_m[r, :ops.shape[0]] = ops
+        w_m[r, :ops.shape[0]] = w
+        i_m[r, :ops.shape[0]] = imm
+    out_m = torch.as_tensor((w_m >> 8) & 0xFF, device=dev)
+    lhs_m = torch.as_tensor((w_m >> 16) & 0xFF, device=dev)
+    rhs_m = torch.as_tensor((w_m >> 24) & 0xFF, device=dev)
+    imm_m = torch.as_tensor(i_m, device=dev)
+    per_row = (ga,) + (1,) * (regs.dim() - 2)
+    rows = torch.arange(ga, device=dev)
+    for t in range(lmax):
+        ops_t = op_m[:, t]
+        live = ops_t > Op.JUMP
+        if not live.any():
+            continue
+        a = regs[rows, lhs_m[:, t]]
+        b = regs[rows, rhs_m[:, t]]
+        imm = imm_m[:, t].reshape(per_row)
+        r = None
+        for op in np.unique(ops_t[live]):
+            v = clause(int(op), a, b, imm)
+            if r is None:
+                r = v
+            else:
+                m = torch.as_tensor(ops_t == op, device=dev)
+                r = torch.where(m.reshape(per_row), v, r)
+        if live.all():
+            regs[rows, out_m[:, t]] = r
+        else:
+            li = torch.as_tensor(np.flatnonzero(live), device=dev)
+            regs[li, out_m[li, t]] = r[li]
+
+
 def pixel_eval_runs_plain(nmeta, order, status, words, imms, runs_full,
                           branch_ops, tw, ti, runs, gmeta, coords, s_cap):
     """Plain PyTorch kernel B: clause ``t`` of every ambiguous tile steps
@@ -613,49 +660,14 @@ def pixel_eval_runs_plain(nmeta, order, status, words, imms, runs_full,
         return fill
     progs = _tile_programs(sel, nmeta, words, imms, runs_full,
                            bid_table(branch_ops), tw, ti, runs, gmeta)
-    ga = len(progs)
-    lmax = max(p[0].shape[0] for p in progs)
-    op_m = np.zeros((ga, lmax), np.int64)
-    w_m = np.zeros((ga, lmax), np.int64)
-    i_m = np.zeros((ga, lmax), np.float32)
-    for r, (ops, w, imm) in enumerate(progs):
-        op_m[r, :ops.shape[0]] = ops
-        w_m[r, :ops.shape[0]] = w
-        i_m[r, :ops.shape[0]] = imm
-    out_m = torch.as_tensor((w_m >> 8) & 0xFF, device=dev)
-    lhs_m = torch.as_tensor((w_m >> 16) & 0xFF, device=dev)
-    rhs_m = torch.as_tensor((w_m >> 24) & 0xFF, device=dev)
-    imm_m = torch.as_tensor(i_m, device=dev)
-
     tiles = torch.as_tensor(order_h[sel], device=dev)
     c = coords[tiles]
-    regs = torch.zeros(ga, s_cap, P, dtype=torch.float32, device=dev)
+    regs = torch.zeros(len(progs), s_cap, P, dtype=torch.float32, device=dev)
     regs[:, sx] = c[:, 0]
     regs[:, sy] = c[:, 1]
     regs[:, sz] = c[:, 2]
     regs[:, 0] = 0.0
-    rows = torch.arange(ga, device=dev)
-    for t in range(lmax):
-        ops_t = op_m[:, t]
-        live = ops_t > Op.JUMP
-        if not live.any():
-            continue
-        a = regs[rows, lhs_m[:, t]]
-        b = regs[rows, rhs_m[:, t]]
-        imm = imm_m[:, t, None]
-        r = None
-        for op in np.unique(ops_t[live]):
-            v = float_clause(int(op), a, b, imm)
-            if r is None:
-                r = v
-            else:
-                m = torch.as_tensor(ops_t == op, device=dev)
-                r = torch.where(m[:, None], v, r)
-        if live.all():
-            regs[rows, out_m[:, t]] = r
-        else:
-            li = torch.as_tensor(np.flatnonzero(live), device=dev)
-            regs[li, out_m[li, t]] = r[li]
+    _run_programs(progs, regs, float_clause)
     fill[tiles] = (regs[:, res] < 0.0).to(torch.int32)
     return fill
 

@@ -4,9 +4,10 @@ The same Cephes-style polynomial forms (~2 ulp on f32) as
 ``mpr_tpu.ops.transcendental``, with the same constants in the same order
 of operations, so the plain PyTorch kernels, the CUDA kernels
 (``csrc/clause.cuh`` repeats them) and the JAX package round alike.
-Three torch habits are avoided on purpose: ``scalar / tensor`` multiplies
+Four torch habits are avoided on purpose: ``scalar / tensor`` multiplies
 by the reciprocal (a second rounding), so the division is spelled
-``torch.div``; ``torch.sign`` maps NaN to 0, so :func:`sign` keeps NaN and
+``torch.div``; on CUDA ``tensor / scalar`` does the same, so
+:func:`div_scalar` divides by a tensor; ``torch.sign`` maps NaN to 0, so :func:`sign` keeps NaN and
 signed zeros as XLA's sign does; and the vectorised CPU ``torch.sqrt`` of
 float32 is not correctly rounded, so :func:`sqrt` is.
 """
@@ -28,6 +29,11 @@ def sqrt(x):
     if x.is_cuda:
         return torch.sqrt(x)
     return torch.sqrt(x.double()).float()
+
+
+def div_scalar(x, s: float):
+    """``x / s`` as one IEEE division on every device."""
+    return x / torch.full_like(x, s)
 
 
 def sign(x):

@@ -10,6 +10,8 @@ conftest (which sets up JAX):
 Integer outputs (status, codes, tapes, run headers, gmeta) and the fill
 must be equal: the kernels and the plain versions run the same float32
 operations, and on the card both reach CUDA's own sinf/cosf/expf/logf.
+The float outputs of the 3D kernels (field values, gradients) must be
+equal too, NaNs in the same places.
 """
 
 import pytest
@@ -22,9 +24,10 @@ import mpr_tpu_torch
 from mpr_tpu_torch.frontend import shapes
 from mpr_tpu_torch.frontend import tree as T
 from mpr_tpu_torch.ops import kernels as tk
+from mpr_tpu_torch.ops import kernels3d as tk3
 from mpr_tpu_torch.ops.tape_data import TapeData
 import mpr_tpu_torch.render
-from mpr_tpu_torch.render import pipeline2d
+from mpr_tpu_torch.render import camera, pipeline2d, pipeline3d
 from mpr_tpu_torch.tape.tape import Tape
 
 from torch_port_cases import (all_ops_clauses, random_boxes, random_trees,
@@ -141,3 +144,150 @@ def test_render2d_cuda_matches_plain_on_card(cuda, name):
         (tk.interval_shorten, tk.compact_bitshift_batched,
          tk.pixel_eval_runs) = saved
     assert np.array_equal(img, want), int((img != want).sum())
+
+
+# ---------------------------------------------------------------------------
+# The 3D path: kernels V and D, and the frame
+# ---------------------------------------------------------------------------
+
+def _scene3d(name):
+    if name == "two_spheres":
+        return shapes.two_spheres(), camera.gui3d_view()
+    if name == "gyroid":
+        return (shapes.intersection(shapes.gyroid(0.4, 0.08),
+                                    shapes.sphere(0.85)),
+                camera.gui3d_view(0.5, -0.9, 0.3))
+    if name == "extruded_stress":
+        return (shapes.extrude_z(shapes.stress_2d(40), -0.4, 0.4),
+                camera.gui3d_view())
+    if name == "all_ops":
+        return None, camera.bench3d_view()
+    raise KeyError(name)
+
+
+def _tape3d(name):
+    tree, mat = _scene3d(name)
+    if tree is None:
+        return _tape(name), mat
+    return mpr_tpu_torch.compile_tree(tree), mat
+
+
+def _frame3d_inputs(tape, mat, size, cuda, **kw):
+    """One 3D frame on the card, recording the inputs of V and D."""
+    seen = {}
+    saved = {}
+    for name in ("voxel_eval_3d", "deriv_eval_3d"):
+        fn = getattr(tk3, name)
+
+        def rec(*a, _fn=fn, _name=name, **k):
+            seen[_name] = (a, k)
+            return _fn(*a, **k)
+        saved[name] = fn
+        setattr(tk3, name, rec)
+    try:
+        td = TapeData.from_tape(tape, device=cuda)
+        out = pipeline3d.render3d_rows(td, torch.as_tensor(mat, device=cuda),
+                                       size, **kw)
+    finally:
+        for name, fn in saved.items():
+            setattr(tk3, name, fn)
+    return out, seen
+
+
+def _same(a, b):
+    return torch.equal(torch.nan_to_num(a, nan=12345.0),
+                       torch.nan_to_num(b, nan=12345.0))
+
+
+@pytest.mark.parametrize("name", ["two_spheres", "gyroid", "extruded_stress",
+                                  "all_ops"])
+@pytest.mark.parametrize("slab", [(128, 0, 2), (256, 1, 2)])
+def test_voxel_and_deriv_kernels_match_plain(cuda, name, slab):
+    size, row0, n_rows = slab
+    tape, mat = _tape3d(name)
+    (_, _, counts), seen = _frame3d_inputs(tape, mat, size, cuda, row0=row0,
+                                           n_rows=n_rows)
+    assert counts["n_amb1"] > 0 and counts["n_act"] > 0
+    a, k = seen["voxel_eval_3d"]
+    vals = tk3.voxel_eval_3d(*a, **k)
+    want = tk3.voxel_eval_3d_plain(*a, **k)
+    torch.cuda.synchronize()
+    n = counts["n_amb1"]
+    assert _same(vals[:n], want[:n])
+    a, k = seen["deriv_eval_3d"]
+    out = tk3.deriv_eval_3d(*a, **k)
+    want = tk3.deriv_eval_3d_plain(*a, **k)
+    torch.cuda.synchronize()
+    n = counts["n_act"]
+    assert _same(out[:n], want[:n])
+
+
+def test_3d_kernels_with_overflowed_rows_match_plain(cuda):
+    """A per-row capacity of 128 clauses: the cells keep 43 to 286 of the
+    373 clauses, so some overflow it and some do not; the columns keep
+    nearly all, so every one overflows.  Overflowed rows run the full tape
+    from global memory."""
+    from mpr_tpu_torch import config
+    tape, mat = _tape3d("extruded_stress")
+    with config.override(cap_div=4):
+        (_, _, counts), seen = _frame3d_inputs(tape, mat, 128, cuda, row0=0,
+                                               n_rows=2)
+    for name, n in (("voxel_eval_3d", counts["n_amb1"]),
+                    ("deriv_eval_3d", counts["n_act"])):
+        a, k = seen[name]
+        gmeta = a[11] if name == "voxel_eval_3d" else a[10]
+        over = gmeta[:n, 2] != 0
+        assert over.any()
+        if name == "voxel_eval_3d":
+            assert not over.all()
+        got = getattr(tk3, name)(*a, **k)
+        want = getattr(tk3, name + "_plain")(*a, **k)
+        assert _same(got[:n], want[:n])
+
+
+def test_3d_wrappers_raise_on_bad_inputs(cuda):
+    tape, mat = _tape3d("two_spheres")
+    _, seen = _frame3d_inputs(tape, mat, 128, cuda, row0=0, n_rows=2)
+    a, k = seen["voxel_eval_3d"]
+    bad = list(a)
+    bad[3] = a[3].double()                        # matf dtype
+    with pytest.raises(TypeError):
+        tk3.voxel_eval_3d(*bad, **k)
+    bad = list(a)
+    bad[9] = a[9][:, :-1]                         # ti shape
+    with pytest.raises(ValueError):
+        tk3.voxel_eval_3d(*bad, **k)
+    with pytest.raises(ValueError):
+        tk3.voxel_eval_3d(*a, **{**k, "s_cap": 512})
+    bad = list(a)
+    bad[1] = a[1].cpu()                           # order on another device
+    with pytest.raises(ValueError):
+        tk3.voxel_eval_3d(*bad, **k)
+    a, k = seen["deriv_eval_3d"]
+    bad = list(a)
+    bad[11] = a[11][:, :-1].contiguous()          # depth_blocks shape
+    with pytest.raises(ValueError):
+        tk3.deriv_eval_3d(*bad, **k)
+    bad = list(a)
+    bad[11] = a[11].float()                       # depth_blocks dtype
+    with pytest.raises(TypeError):
+        tk3.deriv_eval_3d(*bad, **k)
+
+
+@pytest.mark.parametrize("name", ["two_spheres", "gyroid", "extruded_stress"])
+@pytest.mark.parametrize("size", [128, 256])
+def test_render3d_matches_brute_on_card(cuda, name, size):
+    tape, mat = _tape3d(name)
+    before = tk3.deriv_eval_3d.launches
+    depth, normals = mpr_tpu_torch.render.render3d(tape, mat=mat, size=size)
+    assert tk3.deriv_eval_3d.launches == before + 1
+    want = mpr_tpu_torch.render.render3d_brute(tape, mat=mat, size=size)
+    assert depth.dtype == np.int32 and np.array_equal(depth, want)
+    m = depth > 0
+    assert m.any() and not m.all()
+    assert np.allclose(np.linalg.norm(normals[m], axis=-1), 1.0, atol=1e-3)
+    assert not normals[~m].any()
+    d2, none = mpr_tpu_torch.render.render3d(tape, mat=mat, size=size,
+                                             with_normals=False)
+    assert none is None and np.array_equal(d2, depth)
+    assert tk3.deriv_eval_3d.launches == before + 1

@@ -125,3 +125,39 @@ def unpack_codes(codes, length):
     c = np.asarray(codes).astype(np.int64) & 0xFFFFFFFF
     nib = (c[:, :, None] >> (4 * np.arange(8))) & 15
     return nib.reshape(c.shape[0], -1)[:, :length]
+
+
+FILL_BAND = 1e-5
+# sin, cos, exp, log: torch's CPU kernels round them an ulp apart from
+# XLA's and numpy's
+TRANSCENDENTAL_OPS = frozenset({5, 6, 10, 12})
+
+
+def depth_field(eval_f, tape, mat, size):
+    """The oracle's f (``eval_f(tape, x, y, z)``) over the whole volume,
+    (H, W, D), at the brute renderers' sample points."""
+    p = ((np.arange(size, dtype=np.float32) + 0.5) / size * 2.0
+         - 1.0).astype(np.float32)
+    fx, fy, fz = p[None, :, None], p[:, None, None], p[None, None, :]
+    if mat is not None:
+        w = mat[3, 0] * fx + mat[3, 1] * fy + mat[3, 2] * fz + mat[3, 3]
+        fx, fy, fz = ((mat[r, 0] * fx + mat[r, 1] * fy + mat[r, 2] * fz
+                       + mat[r, 3]) / w for r in range(3))
+    shape = (size, size, size)
+    return eval_f(tape, np.broadcast_to(fx, shape), np.broadcast_to(fy, shape),
+                  np.broadcast_to(fz, shape))
+
+
+def assert_depth(depth, want, tape, f):
+    """Depth images equal; for tapes with sin/cos/exp/log a pixel may differ
+    where some voxel of its column has |f| <= FILL_BAND (``f`` from
+    :func:`depth_field`), and there are no more such pixels than columns
+    in the band."""
+    assert depth.shape == want.shape and depth.dtype == np.int32
+    diff = depth != want
+    if set(np.unique(tape.ops).tolist()) & TRANSCENDENTAL_OPS:
+        band = (np.abs(f) <= FILL_BAND).any(axis=2)
+        assert not (diff & ~band).any(), int((diff & ~band).sum())
+        assert diff.sum() <= band.sum()
+    else:
+        assert not diff.any(), f"{int(diff.sum())} pixels differ"
