@@ -29,7 +29,22 @@ Phases (any failure exits non-zero before the final line):
      normals against unit length and autograd of the plain interpreter;
   8. time the 3D frame with and without normals, V, D and every launch of
      A and C, and profile a frame;
-  9. print the card line, one JSON ``kernels`` line, and last
+  9. kernels B1, C1 and C2 (the earlier public versions of B and C, which
+     no render path calls) on the recorded data of the 1024^2 frame: with
+     every launch count set to 0, C1 on every ambiguous tile at ``cap =
+     Tcap``, ``Tcap/8`` and ``Tcap/16`` (some tapes overflow the last), B1
+     on C1's tapes, C2 on the prepass planes in tile order; then each against its plain version, B1's signs against
+     the frame's fill, C2's outputs against kernel C's; each timed;
+ 10. the command line: ``python -m mpr_tpu_torch.cli`` as a subprocess from
+     a temporary directory (``render2d stress:600 --size 1024 --check``,
+     ``render3d`` of a ``.frep`` scene at 512^3 ``--mode all``, ``render2d
+     examples/text_demo.io --check``, ``shorten-stats``), and once in
+     process with the launch counts set to 0, where A, C, B, V and D must
+     have launched;
+ 11. the effects (``draw_ssao`` in both modes, ``draw_shaded``) on the
+     1024^2 depth and normals, on the card against the same tensors on the
+     CPU, and timed;
+ 12. print the card line, one JSON ``kernels`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present and when run outside the
@@ -61,7 +76,21 @@ KERNEL_ROWS = (
      "mpr_tpu/ops/kernels3d.py:186"),
     ("deriv_eval_3d", "kernels3d", "mpr_tpu_torch/ops/csrc/deriv_eval.cu",
      "mpr_tpu/ops/kernels3d.py:456"),
+    ("pixel_eval", "kernels", "mpr_tpu_torch/ops/csrc/pixel_eval_v1.cu",
+     "mpr_tpu/ops/kernels.py:661"),
+    ("compact_runs", "kernels", "mpr_tpu_torch/ops/csrc/compact_runs.cu",
+     "mpr_tpu/ops/kernels.py:832"),
+    ("compact_bitshift", "kernels",
+     "mpr_tpu_torch/ops/csrc/compact_order.cu",
+     "mpr_tpu/ops/kernels.py:1260"),
 )
+# no render path calls these three: the kernel phase drives them
+KERNELS_V1 = ("pixel_eval", "compact_runs", "compact_bitshift")
+# limits of the card-against-CPU comparison of the effects (the card-only
+# tests use the same): share of pixels further apart than 1e-5, and the
+# largest difference
+EFFECT_SHARE = 0.01
+EFFECT_FAR = 0.05
 KERNELS_2D = ("interval_shorten", "compact_bitshift_batched",
               "pixel_eval_runs")
 # launches a 3D frame with normals must make
@@ -514,6 +543,9 @@ def run_2d(ctx, results, launches):
         print_profile(
             f"@{size}^2",
             lambda: pipeline2d.render_tile_block(td, eye, z, size), card, 5)
+    size = CASES[0][1]
+    ctx["frame2d"] = dict(rec=recs[size], tape=tapes[size], size=size,
+                          image=images[size])
 
 
 def run_3d(ctx, results, launches):
@@ -649,6 +681,321 @@ def run_3d(ctx, results, launches):
                   + ", ".join(f"{r['plain_ms']:.1f}" for r in res[kname])
                   + f" ms  [{card}]")
         print_profile(f"{name} @{size}^3", frame, card, 3)
+    name = CASES_3D[0][0]
+    ctx["frame3d"] = dict(name=name, size=CASES_3D[0][3], frame=frames[name])
+
+
+def masked_same(a, b, lens):
+    """Mismatches of two (rows, width) tensors over ``[0, lens[row])`` of
+    each row, floats compared by their bits."""
+    import torch
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    k = torch.arange(a.shape[1], device=a.device)
+    m = k[None, :] < lens[:, None]
+    return int(((a != b) & m).sum())
+
+
+def run_v1(ctx, results, launches):
+    """Phase 9: kernels B1, C1 and C2 on the recorded 1024^2 frame."""
+    import numpy as np
+    import torch
+    tk, card, recorder = ctx["tk"], ctx["card"], ctx["rec"]
+    f = ctx["frame2d"]
+    rec, tape, size = f["rec"], f["tape"], f["size"]
+    (meta, words, imms, _), _, (status, codes) = rec["interval_shorten"][0]
+    (cmeta_c, lens_c, wrw_r, irw_r, rem_r), kc, out_c = \
+        rec["compact_bitshift_batched"][0]
+    a_b, k_b, fill = rec["pixel_eval_runs"][0]
+    nmeta_b, order, coords = a_b[0], a_b[1], a_b[11]
+    dev = codes.device
+    n_tiles, tcap = codes.shape[0], words.shape[0]
+    n = int(cmeta_c[0])
+    cap8 = out_c[0].shape[1]
+    P = coords.shape[2]
+    # the frame's own branch numbering, so that C1's run headers can be
+    # held against kernel C's where the tapes are equal
+    remap_t = torch.zeros(32, dtype=torch.int32, device=dev)
+    table = tk.bid_table(a_b[6])
+    for bid, op in enumerate(table.tolist()):
+        if op:
+            remap_t[op] = bid
+    tiles = order[:n].long()
+
+    def cmeta(*vals):
+        m = torch.zeros(8, dtype=torch.int32, device=dev)
+        m[:len(vals)] = torch.tensor(vals, dtype=torch.int32)
+        return m
+
+    # the frame's capacity, and half of it so that some tapes overflow
+    caps = (tcap, cap8, cap8 // 2)
+    c1_args = {cap: (cmeta(n, tcap // 8, cap), words, imms, order, remap_t,
+                     codes, n_tiles, cap, cap) for cap in caps}
+    # the prepass planes back in TILE order, as C2 reads them
+    planes_t = []
+    for p in (wrw_r, irw_r, rem_r):
+        t = torch.empty_like(p)
+        t[order.long()] = p
+        planes_t.append(t)
+    lens_t = torch.empty_like(lens_c)
+    lens_t[order.long()] = lens_c
+    c2_args = (cmeta(n, cap8, cap8), order, lens_t, *planes_t, n_tiles, cap8,
+               cap8)
+
+    def b1_args(c1_out):
+        tw, ti, _, gmeta = c1_out
+        w_t, i_t = torch.zeros_like(tw), torch.zeros_like(ti)
+        l_t = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+        w_t[tiles], i_t[tiles], l_t[tiles] = tw[:n], ti[:n], gmeta[:n, 0]
+        nm = nmeta_b.clone()
+        nm[0] = n
+        nm[6] = 0
+        return (nm, order, l_t, w_t, i_t, coords)
+
+    s_cap = k_b["s_cap"]
+
+    # ---- the drive: every count at 0, the chain once, the counts read ------
+    recorder.reset_counts()
+    c1 = {cap: tk.compact_runs(*c1_args[cap]) for cap in caps}
+    args_b1 = b1_args(c1[tcap])
+    vals = tk.pixel_eval(*args_b1, s_cap=s_cap)
+    c2 = tk.compact_bitshift(*c2_args)
+    torch.cuda.synchronize()
+    counts = recorder.counts()
+    launches["v1"] = counts
+    print(f"kernel phase launches: "
+          f"{ {k: counts[k] for k in KERNELS_V1} }")
+    for name in KERNELS_V1:
+        check(counts[name] >= 1, f"kernel {name} was not launched by the "
+              "kernel phase")
+
+    res = results["v1"] = {}
+    # ---- C1 against its plain version ---------------------------------------
+    mism, kept = 0, {}
+    for cap in caps:
+        got, want = c1[cap], tk.compact_runs_plain(*c1_args[cap])
+        gm = got[3][:n]
+        ln, nr = gm[:, 0], torch.clamp(gm[:, 1], max=cap)
+        m = dict(gmeta=same(gm[:, :3], want[3][:n, :3])[0],
+                 tw=masked_same(got[0][:n], want[0][:n], ln),
+                 ti=masked_same(got[1][:n], want[1][:n], ln),
+                 runs=masked_same(got[2][:n], want[2][:n], nr))
+        kept[cap] = (int(ln.sum()), int(nr.sum()))
+        print(f"  C1 compact_runs cap {cap}: {n} groups, mean len "
+              f"{kept[cap][0] / max(n, 1):.1f} of {tape.length}, "
+              f"{int(gm[:, 2].sum())} flagged; mismatches {m}")
+        mism += sum(m.values())
+    # and against the frame: at cap = Tcap the lengths are the prepass's
+    # (kernel A's codes are zero past the tape) and the run headers kernel
+    # C's, on the rows C did not flag
+    gm_c = out_c[3][:n]
+    fits = gm_c[:, 2] == 0
+    gm1 = c1[tcap][3][:n]
+    check(bool((gm1[:, 0] == lens_c[:n]).all()),
+          "C1's lengths differ from the prepass's")
+    check(bool((gm1[fits][:, 1] == gm_c[fits][:, 1]).all())
+          and masked_same(c1[tcap][2][:n][fits][:, :cap8],
+                          out_c[2][:n][fits], gm_c[fits][:, 1]) == 0,
+          "C1's run headers differ from kernel C's")
+    for cap in caps[1:]:
+        gm = c1[cap][3][:n]
+        check(bool(((lens_c[:n] >= cap) == (gm[:, 2] == 1)).all())
+              and bool((gm[:, 0] == torch.clamp(lens_c[:n], max=cap)).all()),
+              f"C1 at cap {cap}: len is not min(count, cap) or the flag is "
+              "not count >= cap")
+    check(bool(c1[caps[-1]][3][:n, 2].any()),
+          f"no tape overflowed cap {caps[-1]}")
+    k_len, k_runs = kept[tcap]
+    res["compact_runs"] = dict(
+        mismatches=mism, max_abs_err=0.0,
+        bytes=8 * tape.length + 4 * n * (tcap // 8) + 4 * n + 128 + 32
+        + 8 * k_len + 4 * k_runs + 32 * n, ops=0)
+
+    # ---- B1 against its plain version and the frame's fill -----------------
+    pvals = tk.pixel_eval_plain(*args_b1, s_cap=s_cap)
+    n_b1, e_b1 = same(vals[:n], pvals[:n])
+    ok_rows = gm1[:, 2] == 0
+    fill_rows = fill[tiles] > 0
+    n_sign = int(((vals[:n] < 0) != fill_rows)[ok_rows].sum())
+    print(f"  B1 pixel_eval: {n} groups x {P} pixels, value mismatches "
+          f"{n_b1} (max |err| {e_b1:.3g}); signs against the frame's fill "
+          f"on {int(ok_rows.sum())} unflagged tiles: {n_sign} differ")
+    lut = np.zeros(256, np.int64)
+    for o, c in FLOAT_OPS.items():
+        lut[o] = c
+    tw_h = c1[tcap][0][:n].cpu().numpy()
+    ln_h = gm1[:, 0].cpu().numpy()
+    per_px = sum(int(lut[tw_h[g, :ln_h[g]] & 0xFF].sum()) for g in range(n))
+    res["pixel_eval"] = dict(
+        mismatches=n_b1 + n_sign, max_abs_err=e_b1,
+        bytes=n * 3 * P * 4 + n * P * 4 + 8 * k_len + 8 * n + 32,
+        ops=P * per_px)
+
+    # ---- C2 against its plain version and kernel C --------------------------
+    want = tk.compact_bitshift_plain(*c2_args)
+    m = {}
+    for nm, g, w, c in zip(("tw", "ti", "runs"), c2[:3], want[:3], out_c[:3]):
+        m[nm] = same(g[:n], w[:n])[0] + same(g[:n], c[:n])[0]
+    m["gmeta"] = (same(c2[3][:n, :3], want[3][:n, :3])[0]
+                  + same(c2[3][:n, :3], out_c[3][:n, :3])[0])
+    print(f"  C2 compact_bitshift: {n} groups; mismatches against the plain "
+          f"version and kernel C {m}")
+    kept_c = int(out_c[3][:n, 0].sum())
+    res["compact_bitshift"] = dict(
+        mismatches=sum(m.values()), max_abs_err=0.0,
+        bytes=4 * n * tcap + 8 * kept_c + 8 * n + n * (12 * cap8 + 32),
+        ops=0)
+    for name, r in res.items():
+        check(r["mismatches"] == 0, f"{name} disagrees with its plain "
+              f"version or the frame ({r['mismatches']} mismatches)")
+
+    # ---- timing ---------------------------------------------------------------
+    timed = (("compact_runs", lambda: tk.compact_runs(*c1_args[tcap]),
+              lambda: tk.compact_runs_plain(*c1_args[tcap])),
+             ("pixel_eval", lambda: tk.pixel_eval(*args_b1, s_cap=s_cap),
+              lambda: tk.pixel_eval_plain(*args_b1, s_cap=s_cap)),
+             ("compact_bitshift", lambda: tk.compact_bitshift(*c2_args),
+              lambda: tk.compact_bitshift_plain(*c2_args)))
+    for name, fn, plain in timed:
+        res[name]["ms"] = cuda_ms(fn, 30, 3)
+        res[name]["plain_ms"] = plain_ms(plain)
+    res["compact_runs"]["ms_cap8"] = cuda_ms(
+        lambda: tk.compact_runs(*c1_args[cap8]), 30, 3)
+    c_ms = cuda_ms(lambda: tk.compact_bitshift_batched(
+        cmeta_c, lens_c, wrw_r, irw_r, rem_r, **kc), 30, 3)
+    b_ms = cuda_ms(lambda: tk.pixel_eval_runs(*a_b, **k_b), 30, 3)
+    print(f"kernel phase @{size}^2: C1 {res['compact_runs']['ms']:.4f} ms at "
+          f"cap {tcap}, {res['compact_runs']['ms_cap8']:.4f} ms at cap "
+          f"{cap8}; B1 {res['pixel_eval']['ms']:.4f} ms (kernel B beside it "
+          f"{b_ms:.4f}); C2 {res['compact_bitshift']['ms']:.4f} ms (kernel "
+          f"C beside it {c_ms:.4f}); plain "
+          + ", ".join(f"{res[k]['plain_ms']:.1f}" for k in
+                      ("compact_runs", "pixel_eval", "compact_bitshift"))
+          + f" ms  [{card}]")
+
+
+def run_cli(ctx, launches):
+    """Phase 10: the command line, as a subprocess and once in process."""
+    import tempfile
+    import numpy as np
+    from mpr_tpu_torch import cli
+    from mpr_tpu_torch.frontend import frep, shapes
+    from mpr_tpu_torch.io.png import read_png_gray
+    from mpr_tpu_torch.render import camera, render3d
+    import mpr_tpu_torch
+    recorder = ctx["rec"]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = shapes.intersection(shapes.gyroid(0.4, 0.08),
+                                    shapes.sphere(0.85))
+        frep.dump([frep.ArchiveShape(tree=scene, name="gyroid_sphere")],
+                  os.path.join(tmp, "scene.frep"))
+
+        def run(*argv):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "mpr_tpu_torch.cli",
+                                *argv], cwd=tmp, env=env,
+                               capture_output=True, text=True, timeout=600)
+            print(f"cli {' '.join(argv)}: exit {r.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for line in r.stdout.strip().splitlines():
+                print("    " + line)
+            check(r.returncode == 0, f"cli {argv[0]} failed:\n{r.stderr}")
+            return r.stdout
+
+        n_blobs, size = CASES[0]
+        out = run("render2d", f"stress:{n_blobs}", "--size", str(size),
+                  "--check")
+        check("oracle cross-check: mismatch 0.00e+00" in out,
+              "render2d --check printed no exact cross-check")
+        img = read_png_gray(os.path.join(tmp, "out_2d.png")) > 0
+        check(np.array_equal(img, ctx["frame2d"]["image"]),
+              "the command line's 2D image differs from render2d's")
+
+        run("render3d", "scene.frep", "--size", "512", "--mode", "all",
+            "--view", "gui")
+        tape = mpr_tpu_torch.compile_tree(scene)
+        depth, _ = render3d(tape, mat=camera.gui3d_view(), size=512)
+        pngs = {s: read_png_gray(os.path.join(tmp, f"out_3d_{s}.png"))
+                for s in ("depth", "ssao", "shaded")}
+        check(os.path.getsize(os.path.join(tmp, "out_3d_norm.png")) > 1000,
+              "no normals image")
+        check(np.array_equal(pngs["depth"], cli._depth_to_u8(depth, 512)),
+              "the command line's depth image differs from render3d's")
+        m = depth > 0
+        check(0.0 < m.mean() < 1.0 and not pngs["shaded"][~m].any()
+              and pngs["shaded"][m].min() >= int(0.2 * 255),
+              "the shaded image is not 0 off the shape and >= 0.2 on it")
+        check(not pngs["ssao"][~m].any() and pngs["ssao"][m].mean() > 64,
+              "the SSAO image is off")
+        print(f"  render3d PNGs: covered {m.mean():.4f}, shaded in "
+              f"[{pngs['shaded'][m].min()}, {pngs['shaded'][m].max()}] / "
+              f"255 on the shape, mean SSAO {pngs['ssao'][m].mean():.1f}")
+
+        out = run("render2d", os.path.join(ROOT, "examples", "text_demo.io"),
+                  "--size", "512", "--check", "--out", "text.png")
+        check("mismatch 0.00e+00" in out, "the .io scene is not exact")
+        out = run("shorten-stats", f"stress:{n_blobs}", "--size", str(size))
+        check("shortened lengths (ambiguous tiles)" in out,
+              "shorten-stats printed no distribution")
+
+        # in process, so that the launch counts can be read
+        recorder.reset_counts()
+        cli.main(["render2d", f"stress:{n_blobs}", "--size", str(size),
+                  "--out", os.path.join(tmp, "p2.png")])
+        cli.main(["render3d", os.path.join(tmp, "scene.frep"), "--size",
+                  "512", "--mode", "shaded", "--view", "gui", "--out",
+                  os.path.join(tmp, "p3.png")])
+    counts = recorder.counts()
+    launches["cli"] = counts
+    print(f"command line launches (render2d + render3d in process): "
+          f"{counts}")
+    for name, _, *_ in KERNEL_ROWS:
+        if name not in KERNELS_V1:
+            check(counts[name] >= 1, f"the command line launched kernel "
+                  f"{name} {counts[name]} times")
+
+
+def run_effects(ctx):
+    """Phase 11: SSAO and shading on the card against the CPU, and timed."""
+    import torch
+    from mpr_tpu_torch.render import effects
+    card, dev = ctx["card"], ctx["dev"]
+    f = ctx["frame3d"]
+    depth_h, normals_h = f["frame"]
+    depth = torch.as_tensor(depth_h, device=dev)
+    normals = torch.as_tensor(normals_h, device=dev)
+    rows = []
+    for label, fn in (
+            ("draw_ssao static", lambda d, n: effects.draw_ssao(
+                d, n, mode="static")),
+            ("draw_ssao gather", lambda d, n: effects.draw_ssao(
+                d, n, mode="gather")),
+            ("draw_shaded", effects.draw_shaded)):
+        got = fn(depth, normals)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fn(depth.cpu(), normals.cpu())
+        cpu_s = time.perf_counter() - t0
+        d = (got.cpu() - want).abs()
+        share = float((d > 1e-5).float().mean())
+        far = float(d.max())
+        ms = cuda_ms(lambda: fn(depth, normals), 5, 1)
+        rows.append({"name": label, "at": f"{f['name']} {f['size']}^2",
+                     "ms": ms, "max_abs_diff_vs_cpu": far,
+                     "share_over_1e-5": share, "cpu_s": cpu_s})
+        print(f"effects {label} @{f['size']}^2: {ms:.3f} ms on the card "
+              f"(events, median of 5); against the CPU ({cpu_s:.1f} s "
+              f"there): max |diff| {far:.3g}, {100 * share:.4f}% of pixels "
+              f"over 1e-5  [{card}]")
+        check(got.shape == depth.shape and got.dtype == torch.float32
+              and bool(torch.isfinite(got).all()), f"{label}: bad image")
+        check(float(got.min()) >= 0.0 and float(got.max()) <= 1.0
+              and not bool(got[depth == 0].any()), f"{label}: out of range")
+        check(share <= EFFECT_SHARE and far <= EFFECT_FAR,
+              f"{label}: the card and the CPU disagree")
+    return rows
 
 
 def bound(r):
@@ -697,8 +1044,14 @@ def main() -> int:
     run_2d(ctx, results, launches)
     sys.stdout.flush()
     run_3d(ctx, results, launches)
+    sys.stdout.flush()
+    run_v1(ctx, results, launches)
+    sys.stdout.flush()
+    run_cli(ctx, launches)
+    sys.stdout.flush()
+    effect_rows = run_effects(ctx)
 
-    # ---- 9. report -------------------------------------------------------------
+    # ---- 12. report -------------------------------------------------------------
     size = CASES[0][1]
     name3 = CASES_3D[0][0]
     n3 = len(CASES_3D)
@@ -707,7 +1060,17 @@ def main() -> int:
         per_3d = [results[c][name] for c, *_ in CASES_3D if name in results[c]]
         flat_3d = [r for x in per_3d for r in (x if isinstance(x, list)
                                                else [x])]
-        if name in KERNELS_2D:
+        if name in KERNELS_V1:
+            # no render path calls it: launched by the kernel phase, on the
+            # 2D cell's recorded data
+            r = results["v1"][name]
+            at = f"stress_2d({CASES[0][0]}) {size}^2"
+            errs = [r["max_abs_err"]]
+            extra = {"launches_per_frame": 0,
+                     "launched_by": "kernel phase (no render path calls it)"}
+            if "ms_cap8" in r:
+                extra["ms_cap8"] = r["ms_cap8"]
+        elif name in KERNELS_2D:
             # timed at the 2D cell, as before; the 3D launches ride along
             r = results[size][name]
             at = f"stress_2d({CASES[0][0]}) {size}^2"
@@ -732,16 +1095,20 @@ def main() -> int:
         b_ms, b_by = bound(r)
         per_frame = max(launches["2d"][name] // len(CASES),
                         launches["3d"][name] // n3)
+        if name in KERNELS_V1:
+            per_frame = launches["v1"][name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": per_frame,
             "launches_2d_path": launches["2d"][name],
             "launches_3d_path": launches["3d"][name],
+            "launches_cli": launches["cli"][name],
             "max_abs_err": max(errs + [x["max_abs_err"] for x in flat_3d]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "at": at, **extra,
         })
+    print(json.dumps({"effects": effect_rows}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

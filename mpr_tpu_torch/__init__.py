@@ -7,12 +7,18 @@ anything of ``mpr_tpu``: it keeps its own copies of the JAX-free layers.
 
 Layers (bottom-up):
 
-  frontend/  expression DSL (hash-consed trees), .frep archive I/O, shape lib
-  tape/      tape compiler: Tree -> flat register program (struct-of-arrays)
+  frontend/  expression DSL (hash-consed trees), .frep archive I/O, shape
+             lib, the Scheme (.io) and vector-font frontends
+  tape/      tape compiler: Tree -> flat register program (struct-of-arrays),
+             and the decompiler back to a Tree
+  oracle.py  pure-NumPy reference interpreters (float / interval / deriv)
   ops/       device tape, CUDA kernels (csrc/) with their plain PyTorch
              versions, the plain tape interpreters, and the nvcc build
   render/    the staged 2D and 3D interpreter render pipelines, the brute
-             renderers and the work heatmaps
+             renderers, the work heatmaps, SSAO and shading
+  io/        PNG output, tape checkpoints
+  utils/     frame timing
+  cli.py     the command line (``python -m mpr_tpu_torch.cli``)
 
 Entry points run on ``cuda`` unless the caller passes ``device=...``.
 """
@@ -23,6 +29,7 @@ from .frontend import frep
 from .tape.tape import Tape, compile_tree
 from .tape.opcodes import Op
 from .render import (render2d, render3d, render2d_brute, render3d_brute,
-                     render2d_heatmap, render3d_heatmap)
+                     render2d_heatmap, render3d_heatmap, draw_ssao,
+                     draw_shaded)
 
 __version__ = "0.1.0"

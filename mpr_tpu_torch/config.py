@@ -5,7 +5,8 @@ The reference's knobs are compile-time ``#define``s
 reference/inc/parameters.hpp:14-22) plus CMake options.  Here the
 settings live in one dataclass, read at call time.  A copy of
 ``mpr_tpu.config`` holding the fields the port reads so far (the 2D
-pipeline reads ``widen_intervals``, the 3D pipeline also ``cap_div``);
+pipeline reads ``widen_intervals``, the 3D pipeline also ``cap_div``,
+the effects ``ssao_mode`` and ``ao_scale``, the oracle ``tight_sincos``);
 later slices add the others as they port the code that reads them.  The
 3D stage capacities of ``mpr_tpu.config`` (``p0_scale``, ``c1_scale``) and
 its batching factors (``cpi``, ``tpi``) have no counterpart: the port
@@ -33,6 +34,19 @@ class Config:
     # endpoints cannot.  Cost: slightly looser boxes -> marginally more
     # ambiguous tiles.
     widen_intervals: bool = False
+    # True gives the oracle's interval sin/cos their tight monotone-piece
+    # bounds instead of the reference's always-[-1, 1] quirk.
+    tight_sincos: bool = False
+    # -- SSAO (render/effects.py) ---------------------------------------------
+    # "static": gather-free sphere-sampling AO: per-sample screen offsets
+    # are constants, so every depth lookup is a shifted-image read.
+    # "gather": the reference's exact per-pixel TBN-rotated hemisphere
+    # mechanism (reference/src/effects.cu:17-89), for mechanism parity.
+    ssao_mode: str = "static"
+    # Raw-AO downsample factor before the full-res edge-aware blur.
+    # 0 = auto: 1 (full-res) for static mode and small images; 2 for
+    # gather mode at >= 512^2.
+    ao_scale: int = 0
 
 
 _active = Config()

@@ -41,6 +41,9 @@ SIGNATURES = {
     "mpr_pixel_eval": [_P] * 13 + [_I] * 3 + [_P],
     "mpr_voxel_eval": [_P] * 13 + [_I] * 4 + [_P],
     "mpr_deriv_eval": [_P] * 13 + [_I] * 3 + [_P],
+    "mpr_pixel_eval_v1": [_P] * 7 + [_I] * 4 + [_P],
+    "mpr_compact_runs": [_P] * 10 + [_I] * 6 + [_P],
+    "mpr_compact_order": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 

@@ -12,6 +12,16 @@ CUDA for Hopper (sources in ``csrc/``, built by ``build.py``):
     ambiguous tile with its shortened tape, and writes the interval
     decision of every other tile.
 
+Three more are the earlier public versions of kernels B and C, which no
+render path calls any more; they are public functions here as they are in
+``mpr_tpu.ops.kernels``:
+
+  * kernel B1, :func:`pixel_eval` — the values of each group's pixels on
+    its tile's own tape, one opcode dispatch per clause;
+  * kernel C1, :func:`compact_runs` — compaction straight from kernel A's
+    codes (no prepass), opcodes kept in the words, run headers;
+  * kernel C2, :func:`compact_bitshift` — kernel C with order indirection.
+
 Each wrapper launches its kernel for CUDA tensors (and raises if it
 cannot), and runs the plain PyTorch version beside it, with the same
 signature and outputs, only when its inputs lie on the CPU.  The plain
@@ -407,6 +417,82 @@ _interval_shorten = interval_shorten
 
 
 # ---------------------------------------------------------------------------
+# The run-preserving rewrites of a shortened clause
+# ---------------------------------------------------------------------------
+
+_NEG_INF_BITS = int(np.float32(-np.inf).view(np.int32))
+_POS_INF_BITS = int(np.float32(np.inf).view(np.int32))
+
+
+def rewrite_clauses(nib, words, imms):
+    """Apply shorten codes to clauses, keeping opcode runs whole.
+
+    ``nib``: (L, T) int32 shorten codes; ``words`` (T,) int32 and ``imms``
+    (T,) f32 the shared tape.  choice=LHS on a two-operand min/max
+    duplicates the operand (min(a, a) == a), choice=LHS on
+    MIN/MAX_LHS_IMM sets the imm to +inf/-inf, choice=RHS moves rhs to lhs,
+    and COPY_IMM, the one run breaker, changes the opcode.
+
+    Returns ``(new_op, body, imm_bits)``, each (L, T) int32: the opcode, the
+    word without its opcode byte (``out << 8 | lhs << 16 | rhs << 24``) and
+    the immediate's bits."""
+    word = words[None, :]
+    op = word & 0xFF
+    lhs = (word >> 16) & 0xFF
+    rhs = (word >> 24) & 0xFF
+    is_min_imm = op == int(Op.MIN_LHS_IMM)
+    is_max_imm = op == int(Op.MAX_LHS_IMM)
+    imm_form = is_min_imm | is_max_imm
+    dup_rhs = (nib == CODE_COPY_LHS) & ~imm_form
+    take_rhs = nib == CODE_COPY_RHS
+    inf_imm = (nib == CODE_COPY_LHS) & imm_form
+    new_lhs = torch.where(take_rhs, rhs, lhs)
+    new_rhs = torch.where(dup_rhs, lhs, rhs)
+    new_op = torch.where(nib == CODE_COPY_IMM, int(Op.COPY_IMM), op)
+    body = (word & 0xFF00) | (new_lhs << 16) | (new_rhs << 24)
+    imm_bits = torch.where(
+        inf_imm, torch.where(is_min_imm, _POS_INF_BITS, _NEG_INF_BITS),
+        imms.view(torch.int32)[None, :])
+    return new_op, body.to(torch.int32), imm_bits.to(torch.int32)
+
+
+def unpack_codes(codes, n_clauses: int):
+    """(L, TW) packed code words -> (L, n_clauses) int32 nibbles."""
+    shifts = 4 * torch.arange(8, dtype=torch.int32, device=codes.device)
+    nib = (codes[:, :, None] >> shifts) & 15
+    return nib.reshape(codes.shape[0], -1)[:, :n_clauses]
+
+
+def _run_headers(cb, n, rcap: int):
+    """Opcode-run headers of compacted branch ids.
+
+    ``cb``: (G, T) int64 branch ids, meaningful over ``[0, n[g])``; a run
+    starts where the id differs from the one before.  Returns ``(runs (G,
+    rcap) int32 headers bid | count << 8, zero past the last run; n_runs
+    (G,) int64)``."""
+    G, T = cb.shape
+    dev = cb.device
+    k = torch.arange(T, device=dev)
+    valid = k[None, :] < n[:, None]
+    prev = torch.roll(cb, 1, dims=1)
+    head = valid & ((k[None, :] == 0) | (cb != prev))
+    n_runs = head.sum(dim=1)
+    ridx = torch.where(head, head.long().cumsum(dim=1) - 1, T)
+    width = max(T, rcap) + 1
+    starts = torch.zeros(G, width, dtype=torch.long, device=dev)
+    starts.scatter_(1, ridx.clamp(max=width - 1),
+                    k[None, :].expand(G, T).contiguous())
+    q = torch.arange(rcap, device=dev)
+    s = starts[:, :rcap]
+    nxt = torch.where(q[None, :] + 1 < n_runs[:, None],
+                      starts[:, 1:rcap + 1], n[:, None])
+    hbid = torch.gather(cb, 1, s.clamp(max=T - 1))
+    runs = torch.where(q[None, :] < n_runs[:, None],
+                       hbid | ((nxt - s) << 8), 0).to(torch.int32)
+    return runs, n_runs
+
+
+# ---------------------------------------------------------------------------
 # Kernel C: tape compaction + run extraction
 # ---------------------------------------------------------------------------
 
@@ -433,19 +519,7 @@ def compact_bitshift_batched_plain(cmeta, lens, wrw, irw, rem, cap: int):
         return torch.where(valid, out[:, :tcap], 0)
 
     cw, ci, cb = scatter(w), scatter(irw.reshape(G, tcap)), scatter(bid)
-    prev = torch.roll(cb, 1, dims=1)
-    head = valid & ((k[None, :] == 0) | (cb != prev))
-    n_runs = head.sum(dim=1)
-    ridx = torch.where(head, head.long().cumsum(dim=1) - 1, tcap)
-    starts = torch.zeros(G, tcap + 1, dtype=torch.long, device=dev)
-    starts.scatter_(1, ridx, k[None, :].expand(G, tcap).contiguous())
-    q = torch.arange(cap, device=dev)
-    s = starts[:, :cap]
-    nxt = torch.where(q[None, :] + 1 < n_runs[:, None],
-                      starts[:, 1:cap + 1], n[:, None])
-    hbid = torch.gather(cb, 1, s.clamp(max=tcap - 1)).long()
-    runs = torch.where(q[None, :] < n_runs[:, None],
-                       hbid | ((nxt - s) << 8), 0).to(torch.int32)
+    runs, n_runs = _run_headers(cb.long(), n, cap)
     gmeta = torch.zeros(G, 8, dtype=torch.int32, device=dev)
     gmeta[:, 0] = lens
     gmeta[:, 1] = n_runs.to(torch.int32)
@@ -591,18 +665,21 @@ def _tile_programs(sel, nmeta, words, imms, runs_full, table, tw, ti, runs,
     return progs
 
 
-def _run_programs(progs, regs, clause):
+def _run_programs(progs, regs, clause, min_op=int(Op.JUMP)):
     """Interpret one clause list per row, in place: clause ``t`` of every
     row steps together, operands gathered by each row's own slot numbers.
 
     ``progs``: per-row ``(ops, words, imms)`` from :func:`_tile_programs`;
     ``regs``: (rows, s_cap, ...) register file; ``clause(op, a, b, imm)``
     evaluates one opcode on operands shaped ``regs[:, 0]``, with ``imm``
-    shaped (rows, 1, ...)."""
+    shaped (rows, 1, ...).  Clauses with an opcode at or under ``min_op``
+    do nothing (-1: every clause of a row runs)."""
     ga = len(progs)
     dev = regs.device
     lmax = max(p[0].shape[0] for p in progs)
-    op_m = np.zeros((ga, lmax), np.int64)
+    if lmax == 0:
+        return
+    op_m = np.full((ga, lmax), -1, np.int64)
     w_m = np.zeros((ga, lmax), np.int64)
     i_m = np.zeros((ga, lmax), np.float32)
     for r, (ops, w, imm) in enumerate(progs):
@@ -617,7 +694,7 @@ def _run_programs(progs, regs, clause):
     rows = torch.arange(ga, device=dev)
     for t in range(lmax):
         ops_t = op_m[:, t]
-        live = ops_t > Op.JUMP
+        live = ops_t > min_op
         if not live.any():
             continue
         a = regs[rows, lhs_m[:, t]]
@@ -731,3 +808,263 @@ def pixel_eval_runs(nmeta, order, status, words, imms, runs_full,
 pixel_eval_runs.launches = 0
 # the counter's home, kept if the module attribute is rebound (a recorder)
 _pixel_eval_runs = pixel_eval_runs
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1: per-pixel values, one dispatch per clause
+# ---------------------------------------------------------------------------
+
+def _float_clause_all(op: int, a, b, imm):
+    """:func:`float_clause` over the full branch list of kernel B1: the
+    opcodes INVALID and JUMP give ``a * 0`` and an opcode past the list
+    runs the last branch (a switch index clamps)."""
+    if op <= Op.JUMP:
+        return a * 0.0
+    return float_clause(min(op, NUM_OPS - 1), a, b, imm)
+
+
+def pixel_eval_plain(nmeta, order, lens, tape_words, tape_imms, coords,
+                     s_cap=SLOT_CAP):
+    """Plain PyTorch kernel B1: clause ``t`` of every group steps together.
+    Same signature and outputs as :func:`pixel_eval`; rows at or past
+    ``nmeta[0]`` come back zero."""
+    n_tiles, cap = tape_words.shape
+    gcap = order.shape[0]
+    P = coords.shape[2]
+    dev = coords.device
+    nm = [int(v) for v in nmeta.tolist()]
+    n_groups, res, sx, sy, sz = min(nm[0], gcap), nm[2], nm[3], nm[4], nm[5]
+    vals = torch.zeros(gcap, P, dtype=torch.float32, device=dev)
+    if n_groups <= 0:
+        return vals
+    tiles = order[:n_groups].long()
+    n_h = lens[tiles].clamp(0, cap).cpu().numpy()
+    w_h = tape_words[tiles].cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    i_h = tape_imms[tiles].cpu().numpy()
+    progs = [(w_h[r, :n] & 0xFF, w_h[r, :n], i_h[r, :n])
+             for r, n in enumerate(n_h)]
+    c = coords[tiles]
+    regs = torch.zeros(n_groups, s_cap, P, dtype=torch.float32, device=dev)
+    regs[:, sx] = c[:, 0]
+    regs[:, sy] = c[:, 1]
+    regs[:, sz] = c[:, 2]
+    regs[:, 0] = 0.0
+    _run_programs(progs, regs, _float_clause_all, min_op=-1)
+    vals[:n_groups] = regs[:, res]
+    return vals
+
+
+def pixel_eval(nmeta, order, lens, tape_words, tape_imms, coords,
+               s_cap: int = SLOT_CAP):
+    """Kernel B1: evaluate each group's pixels with its tile's own tape.
+
+    Args:
+      nmeta: (8,) int32 [n_groups, S, result_slot, sx, sy, sz, 0, 0]
+      order: (gcap,) int32 tile index of each group
+      lens: (n_tiles,) int32 tape length per TILE
+      tape_words: (n_tiles, cap) int32, the opcode in the low byte;
+      tape_imms: (n_tiles, cap) f32 (kernel C1's outputs when gcap ==
+      n_tiles and order is the identity, else rows gathered by the caller)
+      coords: (n_tiles, 3, P) f32 pixel x/y/z per tile
+
+    Returns vals: (gcap, P) f32 pixel values of tile ``order[g]`` in row
+    ``g``; rows ``g >= n_groups`` are unspecified.
+    """
+    if not _on_cuda(nmeta, order, lens, tape_words, tape_imms, coords):
+        return pixel_eval_plain(nmeta, order, lens, tape_words, tape_imms,
+                                coords, s_cap)
+    n_tiles, cap = tape_words.shape
+    gcap = order.shape[0]
+    P = coords.shape[2]
+    _check(nmeta, "nmeta", torch.int32, (8,))
+    _check(order, "order", torch.int32, (gcap,))
+    _check(lens, "lens", torch.int32, (n_tiles,))
+    _check(tape_words, "tape_words", torch.int32, (n_tiles, cap))
+    _check(tape_imms, "tape_imms", torch.float32, (n_tiles, cap))
+    _check(coords, "coords", torch.float32, (n_tiles, 3, P))
+    if not 8 <= s_cap <= REG_CAP or cap < 1:
+        raise ValueError(f"bad s_cap {s_cap} or cap {cap}")
+    vals = torch.empty(gcap, P, dtype=torch.float32, device=coords.device)
+    if gcap:
+        with torch.cuda.device(coords.device):
+            _launch(build.lib().mpr_pixel_eval_v1, nmeta.data_ptr(),
+                    order.data_ptr(), lens.data_ptr(), tape_words.data_ptr(),
+                    tape_imms.data_ptr(), coords.data_ptr(), vals.data_ptr(),
+                    gcap, n_tiles, cap, P, _stream())
+        _pixel_eval.launches += 1
+    return vals
+
+
+pixel_eval.launches = 0
+# the counter's home, kept if the module attribute is rebound (a recorder)
+_pixel_eval = pixel_eval
+
+
+# ---------------------------------------------------------------------------
+# Kernel C1: compaction straight from the shorten codes
+# ---------------------------------------------------------------------------
+
+def compact_runs_plain(cmeta, words, imms, order, remap, codes, gcap: int,
+                       cap: int, rcap: int):
+    """Plain PyTorch kernel C1, vectorized over groups.  Same signature and
+    outputs as :func:`compact_runs`; rows at or past ``cmeta[0]``, tape
+    slots past ``len`` and headers past ``n_runs`` come back zero."""
+    n_tiles, tw_words = codes.shape
+    tcap = words.shape[0]
+    dev = codes.device
+    cm = [int(v) for v in cmeta.tolist()]
+    n_groups = min(cm[0], gcap)
+    n_words = max(0, min(cm[1], tw_words, tcap // 8))
+    capm = max(0, min(cm[2], cap))
+    tw = torch.zeros(gcap, cap, dtype=torch.int32, device=dev)
+    ti = torch.zeros(gcap, cap, dtype=torch.float32, device=dev)
+    runs = torch.zeros(gcap, rcap, dtype=torch.int32, device=dev)
+    gmeta = torch.zeros(gcap, 8, dtype=torch.int32, device=dev)
+    T = n_words * 8
+    if n_groups <= 0 or T == 0:
+        gmeta[:max(n_groups, 0), 2] = int(capm <= 0)
+        return tw, ti, runs, gmeta
+    G = n_groups
+    nib = unpack_codes(codes[order[:G].long(), :n_words], T)
+    nz = nib != 0
+    # a clause's place: the non-zero nibbles before it; kept while < cap
+    place = torch.cumsum(nz.long(), dim=1) - nz.long()
+    keep = nz & (place < capm)
+    n = keep.sum(dim=1)
+    new_op, body, imm_bits = rewrite_clauses(nib, words[:T], imms[:T])
+    bid = remap[new_op.long().clamp(max=remap.shape[0] - 1)].long()
+    width = max(T, cap)
+    dest = torch.where(keep, place, width)    # dropped: a spill column
+
+    def scatter(src):
+        out = torch.zeros(G, width + 1, dtype=src.dtype, device=dev)
+        out.scatter_(1, dest, src)
+        return out[:, :width]
+
+    tw[:G] = scatter(new_op | body)[:, :cap]
+    ti[:G] = scatter(imm_bits)[:, :cap].contiguous().view(torch.float32)
+    runs[:G], n_runs = _run_headers(scatter(bid), n, rcap)
+    gmeta[:G, 0] = n.to(torch.int32)
+    gmeta[:G, 1] = n_runs.to(torch.int32)
+    gmeta[:G, 2] = (n >= capm).to(torch.int32)
+    return tw, ti, runs, gmeta
+
+
+def compact_runs(cmeta, words, imms, order, remap, codes, gcap: int,
+                 cap: int, rcap: int):
+    """Kernel C1: compact each group's tape from kernel A's codes.
+
+    Args:
+      cmeta: (8,) int32 [n_groups, n_words, cap, ..]: groups to compact,
+        code words to walk per tile (8 clauses each; the codes are not
+        masked by the tape's length), and the capacity (<= ``cap``)
+      words: (Tcap,) int32; imms: (Tcap,) f32, the shared tape
+      order: (Gcap >= gcap,) int32 tile index of each group
+      remap: (32,) int32 opcode -> branch id (build_remap)
+      codes: (n_tiles, Tcap/8) int32 from kernel A
+      gcap, cap, rcap: rows, tape slots and run-header slots of the outputs
+
+    Returns (tw (gcap, cap) i32 with the OPCODE in the low byte, ti (gcap,
+    cap) f32, runs (gcap, rcap) i32 headers ``branch id | count << 8``,
+    gmeta (gcap, 8) i32 [len, n_runs, len >= cap, ..]).  Only ``[0, len)``
+    of a tape, ``[0, n_runs)`` of the headers and rows ``g < n_groups`` are
+    specified.  A tape of exactly ``cap`` clauses is flagged as overflowed.
+    """
+    if not _on_cuda(cmeta, words, imms, order, remap, codes):
+        return compact_runs_plain(cmeta, words, imms, order, remap, codes,
+                                  gcap, cap, rcap)
+    n_tiles, tw_words = codes.shape
+    tcap = words.shape[0]
+    _check(cmeta, "cmeta", torch.int32, (8,))
+    _check(words, "words", torch.int32, (tcap,))
+    _check(imms, "imms", torch.float32, (tcap,))
+    _check(order, "order", torch.int32, (order.shape[0],))
+    _check(remap, "remap", torch.int32, (NUM_OPS,))
+    _check(codes, "codes", torch.int32, (n_tiles, tw_words))
+    if (order.shape[0] < gcap or not 1 <= cap <= 16384
+            or not 1 <= rcap <= 16384):
+        raise ValueError(f"bad shapes: {order.shape[0]} order rows for gcap "
+                         f"{gcap}, cap {cap}, rcap {rcap}")
+    dev = codes.device
+    tw = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
+    ti = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
+    runs = torch.empty(gcap, rcap, dtype=torch.int32, device=dev)
+    gmeta = torch.empty(gcap, 8, dtype=torch.int32, device=dev)
+    if gcap:
+        with torch.cuda.device(dev):
+            _launch(build.lib().mpr_compact_runs, cmeta.data_ptr(),
+                    words.data_ptr(), imms.data_ptr(), order.data_ptr(),
+                    remap.data_ptr(), codes.data_ptr(), tw.data_ptr(),
+                    ti.data_ptr(), runs.data_ptr(), gmeta.data_ptr(), gcap,
+                    n_tiles, tw_words, tcap, cap, rcap, _stream())
+        _compact_runs.launches += 1
+    return tw, ti.view(torch.float32), runs, gmeta
+
+
+compact_runs.launches = 0
+# the counter's home, kept if the module attribute is rebound (a recorder)
+_compact_runs = compact_runs
+
+
+# ---------------------------------------------------------------------------
+# Kernel C2: kernel C with order indirection
+# ---------------------------------------------------------------------------
+
+def compact_bitshift_plain(cmeta, order, lens, wrw, irw, rem, gcap: int,
+                           cap: int, rcap: int):
+    """Plain PyTorch kernel C2: gathers the planes of tiles ``order[:gcap]``
+    into row order and runs the plain kernel C on them.  Same signature and
+    outputs as :func:`compact_bitshift`."""
+    sel = order[:gcap].long().clamp(0, wrw.shape[0] - 1)
+    return compact_bitshift_batched_plain(cmeta, lens[sel], wrw[sel],
+                                          irw[sel], rem[sel], cap)
+
+
+def compact_bitshift(cmeta, order, lens, wrw, irw, rem, gcap: int, cap: int,
+                     rcap: int):
+    """Kernel C2: kernel C over planes in TILE order.
+
+    cmeta: (8,) int32, cmeta[0] = groups to compact; order: (Gcap >= gcap,)
+    int32 tile index of each group; lens: (n_tiles,) int32 kept clauses per
+    TILE; wrw/irw/rem: (n_tiles, R, W) int32 planes from the prepass
+    (pipeline2d._shorten_prepass).  ``cap`` (<= R*W) is the per-tile
+    capacity; ``rcap`` is accepted for the JAX signature's sake (the
+    headers have ``cap`` slots).
+
+    Returns (tw, ti_bits, runs (gcap, cap) i32, gmeta (gcap, 8) i32 [len,
+    n_runs, len > cap, 0..]) with group ``g`` = tile ``order[g]`` in row
+    ``g``; rows ``g >= cmeta[0]`` are unspecified.
+    """
+    if not _on_cuda(cmeta, order, lens, wrw, irw, rem):
+        return compact_bitshift_plain(cmeta, order, lens, wrw, irw, rem,
+                                      gcap, cap, rcap)
+    n_tiles, R, W = wrw.shape
+    tcap = R * W
+    _check(cmeta, "cmeta", torch.int32, (8,))
+    _check(order, "order", torch.int32, (order.shape[0],))
+    _check(lens, "lens", torch.int32, (n_tiles,))
+    for name, p in (("wrw", wrw), ("irw", irw), ("rem", rem)):
+        _check(p, name, torch.int32, (n_tiles, R, W))
+    if (order.shape[0] < gcap or not 1 <= cap <= tcap or tcap > 16384
+            or tcap % 32):
+        raise ValueError(f"bad shapes: {order.shape[0]} order rows for gcap "
+                         f"{gcap}, cap {cap} for a {tcap}-clause plane")
+    dev = wrw.device
+    tw = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
+    ti = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
+    runs = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
+    gmeta = torch.empty(gcap, 8, dtype=torch.int32, device=dev)
+    if gcap:
+        with torch.cuda.device(dev):
+            _launch(build.lib().mpr_compact_order, cmeta.data_ptr(),
+                    order.data_ptr(), lens.data_ptr(), wrw.data_ptr(),
+                    irw.data_ptr(), rem.data_ptr(), tw.data_ptr(),
+                    ti.data_ptr(), runs.data_ptr(), gmeta.data_ptr(), gcap,
+                    n_tiles, tcap, cap, _stream())
+        _compact_bitshift.launches += 1
+    return tw, ti, runs, gmeta
+
+
+compact_bitshift.launches = 0
+# the counter's home, kept if the module attribute is rebound (a recorder)
+_compact_bitshift = compact_bitshift

@@ -30,7 +30,6 @@ from ..ops import interval_math as im
 from ..ops import kernels
 from ..ops.kernels import ST_AMBIG
 from ..ops.tape_data import TapeData, resolve_device
-from ..tape.opcodes import Op
 from ..tape.tape import Tape
 from . import camera
 
@@ -115,10 +114,6 @@ def _pixel_coords_2d(n_side: int, mat, z, row0=0, n_rows: int = None,
     return torch.stack([x, y, zz], dim=1).contiguous()   # (n_tiles, 3, 4096)
 
 
-_NEG_INF_BITS = int(np.float32(-np.inf).view(np.int32))
-_POS_INF_BITS = int(np.float32(np.inf).view(np.int32))
-
-
 def _shorten_prepass(codes, words, imms, length, remap, rows: int = 8):
     """Plain PyTorch prepass for the compaction kernel.
 
@@ -136,33 +131,13 @@ def _shorten_prepass(codes, words, imms, length, remap, rows: int = 8):
     L = codes.shape[0]
     tcap = words.shape[0]
     dev = codes.device
-    shifts = 4 * torch.arange(8, dtype=torch.int32, device=dev)
-    nib = ((codes[:, :, None] >> shifts) & 15).reshape(L, tcap)
+    nib = kernels.unpack_codes(codes, tcap)
     t_idx = torch.arange(tcap, dtype=torch.int32, device=dev)
     nib = torch.where(t_idx[None, :] < length, nib, 0)
     keep = nib > 0
-
-    word = words[None, :]
-    op = word & 0xFF
-    lhs = (word >> 16) & 0xFF
-    rhs = (word >> 24) & 0xFF
-    is_min_imm = op == int(Op.MIN_LHS_IMM)
-    is_max_imm = op == int(Op.MAX_LHS_IMM)
-    imm_form = is_min_imm | is_max_imm
-    dup_rhs = (nib == kernels.CODE_COPY_LHS) & ~imm_form
-    take_rhs = nib == kernels.CODE_COPY_RHS
-    inf_imm = (nib == kernels.CODE_COPY_LHS) & imm_form
-    to_copy_imm = nib == kernels.CODE_COPY_IMM
-    new_lhs = torch.where(take_rhs, rhs, lhs)
-    new_rhs = torch.where(dup_rhs, lhs, rhs)
-    new_op = torch.where(to_copy_imm, int(Op.COPY_IMM), op)
-    bid = remap[new_op.long()]
-    wrw = torch.where(keep, bid | (word & 0xFF00) | (new_lhs << 16)
-                      | (new_rhs << 24), 0)
-    imm_bits = imms.view(torch.int32)[None, :]
-    new_imm = torch.where(inf_imm, torch.where(is_min_imm, _POS_INF_BITS,
-                                               _NEG_INF_BITS), imm_bits)
-    irw = torch.where(keep, new_imm, 0)
+    new_op, body, imm_bits = kernels.rewrite_clauses(nib, words, imms)
+    wrw = torch.where(keep, remap[new_op.long()] | body, 0)
+    irw = torch.where(keep, imm_bits, 0)
     incl = torch.cumsum(keep.to(torch.int32), dim=1, dtype=torch.int32)
     rem = torch.where(keep, t_idx[None, :] - (incl - 1), 0)
     lens = incl[:, -1].contiguous()

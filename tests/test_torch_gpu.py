@@ -291,3 +291,193 @@ def test_render3d_matches_brute_on_card(cuda, name, size):
                                              with_normals=False)
     assert none is None and np.array_equal(d2, depth)
     assert tk3.deriv_eval_3d.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# Kernels B1, C1, C2 (the earlier versions of B and C), on a frame's data
+# ---------------------------------------------------------------------------
+
+def _v1_inputs(tape, size, cuda):
+    """The 2D frame's kernel A outputs, order and coordinates on the card,
+    as the chain A -> C1 -> B1 (and the prepass -> C2) takes them."""
+    from mpr_tpu_torch.render.pipeline2d import (TILE, _pixel_coords_2d,
+                                                 _shorten_prepass,
+                                                 _tile_boxes_2d)
+    td = TapeData.from_tape(tape, device=cuda)
+    n_side = size // TILE
+    eye = torch.eye(3, device=cuda)
+    z = torch.tensor(0.0, device=cuda)
+    s_cap = max(8, -(-td.num_slots // 8) * 8)
+    status, codes = tk.interval_shorten(td.meta(), td.packed, td.imms,
+                                        _tile_boxes_2d(n_side, eye, z),
+                                        s_cap=s_cap)
+    amb = status == tk.ST_AMBIG
+    order = torch.argsort((~amb).to(torch.int32), stable=True).to(torch.int32)
+    _, remap = tk.build_remap(td.ops_present)
+    remap_t = torch.as_tensor(remap, device=cuda)
+    planes = _shorten_prepass(codes, td.packed, td.imms, td.length, remap_t)
+    return dict(td=td, status=status, codes=codes, order=order,
+                n_amb=int(amb.sum()), remap=remap_t, s_cap=s_cap,
+                planes=planes, coords=_pixel_coords_2d(n_side, eye, z))
+
+
+def _cmeta(cuda, *vals):
+    m = torch.zeros(8, dtype=torch.int32, device=cuda)
+    m[:len(vals)] = torch.tensor(vals, dtype=torch.int32)
+    return m
+
+
+@pytest.mark.parametrize("name", ["stress40", "all_ops", "random2"])
+@pytest.mark.parametrize("cap_div", [1, 8])
+def test_compact_runs_kernel_matches_plain(cuda, name, cap_div):
+    f = _v1_inputs(_tape(name), 512, cuda)
+    td, n = f["td"], f["n_amb"]
+    cap = td.capacity // cap_div
+    gcap = f["order"].shape[0]
+    args = (_cmeta(cuda, n, td.capacity // 8, cap), td.packed, td.imms,
+            f["order"], f["remap"], f["codes"], gcap, cap, cap)
+    before = tk.compact_runs.launches
+    got = tk.compact_runs(*args)
+    assert tk.compact_runs.launches == before + 1
+    want = tk.compact_runs_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3][:n, :3], want[3][:n, :3])
+    gm = got[3][:n].cpu().numpy()
+    for g in range(n):
+        ln, nr = gm[g, 0], min(gm[g, 1], cap)
+        assert torch.equal(got[0][g, :ln], want[0][g, :ln])
+        assert torch.equal(got[1][g, :ln].view(torch.int32),
+                           want[1][g, :ln].view(torch.int32))
+        assert torch.equal(got[2][g, :nr], want[2][g, :nr])
+
+
+@pytest.mark.parametrize("name", ["stress40", "all_ops", "random2",
+                                  "random0"])
+def test_pixel_eval_kernel_matches_plain(cuda, name):
+    f = _v1_inputs(_tape(name), 512, cuda)
+    td, n = f["td"], f["n_amb"]
+    cap = td.capacity
+    gcap = f["order"].shape[0]
+    tw, ti, _, gmeta = tk.compact_runs(
+        _cmeta(cuda, n, cap // 8, cap), td.packed, td.imms, f["order"],
+        f["remap"], f["codes"], gcap, cap, cap)
+    # B1 reads its tapes by TILE: scatter the group rows back
+    tiles = f["order"][:n].long()
+    words = torch.zeros_like(tw)
+    imms = torch.zeros_like(ti)
+    lens = torch.zeros(gcap, dtype=torch.int32, device=cuda)
+    words[tiles], imms[tiles], lens[tiles] = tw[:n], ti[:n], gmeta[:n, 0]
+    nmeta = td.meta()
+    nmeta[0] = n
+    args = (nmeta, f["order"], lens, words, imms, f["coords"])
+    before = tk.pixel_eval.launches
+    got = tk.pixel_eval(*args, s_cap=f["s_cap"])
+    assert tk.pixel_eval.launches == before + 1
+    want = tk.pixel_eval_plain(*args, s_cap=f["s_cap"])
+    torch.cuda.synchronize()
+    assert _same(got[:n], want[:n])
+    # and the chain gives the frame's fill on its ambiguous tiles
+    img, _ = pipeline2d.render_tile_block(
+        td, torch.eye(3, device=cuda), torch.tensor(0.0, device=cuda), 512)
+    n_side = 512 // 64
+    fill = img.reshape(n_side, 64, n_side, 64).permute(0, 2, 1, 3).reshape(
+        n_side * n_side, 4096)
+    assert torch.equal(got[:n] < 0, fill[tiles])
+
+
+@pytest.mark.parametrize("name", ["stress40", "all_ops", "random2"])
+def test_compact_bitshift_kernel_matches_plain_and_kernel_c(cuda, name):
+    f = _v1_inputs(_tape(name), 512, cuda)
+    td, n = f["td"], f["n_amb"]
+    cap = td.capacity // 8
+    gcap = f["order"].shape[0]
+    wrw, irw, rem, lens = f["planes"]
+    cmeta = _cmeta(cuda, n, cap, cap)
+    args = (cmeta, f["order"], lens, wrw, irw, rem, gcap, cap, cap)
+    before = tk.compact_bitshift.launches
+    got = tk.compact_bitshift(*args)
+    assert tk.compact_bitshift.launches == before + 1
+    want = tk.compact_bitshift_plain(*args)
+    sel = f["order"].long()
+    c = tk.compact_bitshift_batched(cmeta, lens[sel].contiguous(),
+                                    wrw[sel].contiguous(),
+                                    irw[sel].contiguous(),
+                                    rem[sel].contiguous(), cap)
+    torch.cuda.synchronize()
+    for g, w, k in zip(got[:3], want[:3], c[:3]):
+        assert torch.equal(g[:n], w[:n]) and torch.equal(g[:n], k[:n])
+    assert torch.equal(got[3][:n, :3], want[3][:n, :3])
+    assert torch.equal(got[3][:n, :3], c[3][:n, :3])
+
+
+def test_v1_wrappers_raise_on_bad_inputs(cuda):
+    f = _v1_inputs(_tape("stress40"), 256, cuda)
+    td = f["td"]
+    cap = td.capacity
+    gcap = f["order"].shape[0]
+    good = (_cmeta(cuda, 1, cap // 8, cap), td.packed, td.imms, f["order"],
+            f["remap"], f["codes"], gcap, cap, cap)
+    bad = list(good)
+    bad[5] = f["codes"].long()
+    with pytest.raises(TypeError):
+        tk.compact_runs(*bad)
+    bad = list(good)
+    bad[3] = f["order"].cpu()
+    with pytest.raises(ValueError):
+        tk.compact_runs(*bad)
+    with pytest.raises(ValueError):
+        tk.compact_runs(*good[:6], gcap, 1 << 20, cap)
+    wrw, irw, rem, lens = f["planes"]
+    with pytest.raises(ValueError):
+        tk.compact_bitshift(_cmeta(cuda, 1, 64, 64), f["order"], lens, wrw,
+                            irw, rem, gcap, cap * 2, cap)
+    with pytest.raises(TypeError):
+        tk.pixel_eval(td.meta(), f["order"], lens,
+                      torch.zeros(gcap, cap, dtype=torch.int32, device=cuda),
+                      torch.zeros(gcap, cap, dtype=torch.float64,
+                                  device=cuda), f["coords"])
+
+
+# ---------------------------------------------------------------------------
+# Effects and the command line on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["two_spheres", "gyroid"])
+@pytest.mark.parametrize("size", [128, 256])
+def test_effects_on_the_card_match_the_cpu(cuda, name, size):
+    """The same tensors through the effects on the card and on the CPU:
+    both run the same IEEE operations, so the images agree to rounding of
+    the few library calls that differ (none is expected to)."""
+    from mpr_tpu_torch.render import effects
+    tape, mat = _tape3d(name)
+    depth, normals = mpr_tpu_torch.render.render3d(tape, mat=mat, size=size)
+    for mode, scale in (("static", 1), ("gather", 1), ("gather", 2)):
+        got = effects.draw_ssao(depth, normals, scale, mode).cpu()
+        want = effects.draw_ssao(depth, normals, scale, mode, device="cpu")
+        d = (got - want).abs()
+        assert float((d > 1e-5).float().mean()) <= 0.01, mode
+        assert float(d.max()) <= 0.05, mode
+        assert got.min() >= 0 and got.max() <= 1
+    got = effects.draw_shaded(depth, normals).cpu()
+    want = effects.draw_shaded(depth, normals, device="cpu")
+    d = (got - want).abs()
+    assert float((d > 1e-5).float().mean()) <= 0.01
+    assert float(d.max()) <= 0.05
+    m = torch.as_tensor(depth > 0)
+    assert not got[~m].any() and got[m].min() >= 0.2 - 1e-6
+
+
+def test_cli_renders_on_the_card(cuda, tmp_path, capsys):
+    from mpr_tpu_torch import cli
+    from mpr_tpu_torch.io.png import read_png_gray
+    before = tk.pixel_eval_runs.launches
+    out = tmp_path / "a.png"
+    cli.main(["render2d", "stress:40", "--size", "256", "--check", "--out",
+              str(out)])
+    assert "mismatch 0.00e+00" in capsys.readouterr().out
+    assert tk.pixel_eval_runs.launches == before + 1
+    assert read_png_gray(str(out)).shape == (256, 256)
+    cli.main(["render3d", "stress:12", "--size", "128", "--out",
+              str(tmp_path / "b.png")])
+    for suffix in ("depth", "norm", "ssao", "shaded"):
+        assert (tmp_path / f"b_{suffix}.png").exists()

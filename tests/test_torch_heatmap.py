@@ -84,3 +84,80 @@ def test_heatmaps_need_a_device_or_a_card():
         render2d_heatmap(tt, size=128)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render3d_heatmap(tt, size=128)
+
+
+def _brute_heat3d(tape, size):
+    """The 3D heatmap under the identity camera counted independently of
+    the port's pipeline: every 64^3 tile and every child of every ambiguous
+    tile classified by the NumPy oracle's interval interpreter, a child's
+    tape length taken from the oracle's own mark-and-sweep.  Returns (heat
+    (size, size) float64, ambiguous tiles, ambiguous children)."""
+    from mpr_tpu_torch import oracle
+    n = size // 64
+    T = float(tape.length)
+    cap = 256 // 2                  # the tape's capacity bucket, halved
+
+    def boxes(k, ix, iy, iz):
+        lo = lambda i: (-1.0 + 2.0 * i / k).astype(np.float32)
+        return (lo(ix), lo(ix + 1), lo(iy), lo(iy + 1), lo(iz), lo(iz + 1))
+
+    t = np.arange(n ** 3)
+    tx, ty, tz = t % n, (t // n) % n, t // (n * n)
+    lo, hi, _ = oracle.eval_i(tape, *boxes(n, tx, ty, tz))
+    amb0 = ~(lo > 0) & ~(hi < 0)
+    heat = np.full((size, size), n * T / 4096.0)
+    heat16 = np.zeros((4 * n, 4 * n))
+    n_children = 0
+    for p in np.flatnonzero(amb0):
+        heat[ty[p] * 64:(ty[p] + 1) * 64, tx[p] * 64:(tx[p] + 1) * 64] += \
+            64.0 * T / 256.0 / 16.0
+        c = np.arange(64)
+        cx = tx[p] * 4 + c % 4
+        cy = ty[p] * 4 + (c // 4) % 4
+        cz = tz[p] * 4 + c // 16
+        lo, hi, ch = oracle.eval_i(tape, *boxes(4 * n, cx, cy, cz))
+        for k in np.flatnonzero(~(lo > 0) & ~(hi < 0)):
+            ln = oracle.shorten(tape, ch[:, k]).length
+            heat16[cy[k], cx[k]] += 16.0 * (T if ln > cap else ln)
+            n_children += 1
+    heat += np.repeat(np.repeat(heat16, 16, 0), 16, 1)
+    return heat / T, int(amb0.sum()), n_children
+
+
+def test_heatmap3d_past_the_static_tile_capacity():
+    """A frame with more ambiguous 64^3 tiles than ``mpr_tpu`` holds.
+
+    ``mpr_tpu.render.pipeline3d._caps`` allows min(n^3, max(64, p0_scale *
+    n^2)) ambiguous tiles, which is every tile up to 512^3 at the default
+    ``p0_scale`` of 8; the smallest frame that can exceed it is 512^3 with
+    ``p0_scale`` 1 (64 of 512 tiles).  There the JAX heatmap drops the
+    children of every ambiguous tile past the 64th (it has no retry); the
+    port sizes the child stage from the count and is held to a count made
+    independently of its pipeline."""
+    from mpr_tpu import config as jconfig
+    from mpr_tpu.render import pipeline3d as jp3d
+    size = 512
+    tt = mpr_tpu_torch.compile_tree(shapes.sphere(0.8))
+    got = render3d_heatmap(tt, size=size, device="cpu")
+    want, n_amb0, n_children = _brute_heat3d(tt, size)
+    # the capacities are read while the frame is traced and are no part of
+    # the jit's cache key: trace anew under each config
+    jheat._heatmap3d_jit.clear_cache()
+    with jconfig.override(p0_scale=1):
+        p0_cap, _ = jp3d._caps(size // 64)
+        jax_heat = jheat.render3d_heatmap(
+            mpr_tpu.compile_tree(jshapes.sphere(0.8)), size=size)
+    jheat._heatmap3d_jit.clear_cache()
+    print(f"ambiguous tiles {n_amb0} (capacity {p0_cap}), ambiguous "
+          f"children {n_children}; heat summed over the image: port "
+          f"{got.sum(dtype=np.float64):.1f}, independent count "
+          f"{want.sum():.1f}, mpr_tpu {jax_heat.sum(dtype=np.float64):.1f}")
+    assert p0_cap == 64 < n_amb0
+    assert np.allclose(got, want, rtol=RTOL, atol=0.0)
+    # mpr_tpu agrees wherever it counted, and counted less in all
+    assert (jax_heat <= got * (1 + RTOL)).all()
+    assert jax_heat.sum(dtype=np.float64) < 0.9 * got.sum(dtype=np.float64)
+    # at the default capacity (all 512 tiles) the two packages agree
+    full = jheat.render3d_heatmap(mpr_tpu.compile_tree(jshapes.sphere(0.8)),
+                                  size=size)
+    assert np.allclose(got, full, rtol=RTOL, atol=0.0)

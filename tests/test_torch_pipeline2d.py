@@ -170,8 +170,13 @@ def test_no_device_and_no_card_raises():
 
 
 def test_port_imports_neither_jax_nor_mpr_tpu():
-    code = ("import sys, mpr_tpu_torch.render, mpr_tpu_torch.ops.kernels, "
-            "mpr_tpu_torch.ops.build\n"
+    # every module of the port, the command line and the copied frontends
+    # included
+    code = ("import importlib, pkgutil, sys, mpr_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "mpr_tpu_torch.__path__, 'mpr_tpu_torch.')]\n"
+            "assert 'mpr_tpu_torch.cli' in mods and len(mods) > 30, mods\n"
+            "for m in mods: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mpr_tpu' "
             "or m.startswith('mpr_tpu.'))\n"
