@@ -6,7 +6,12 @@
 Phases (any failure exits non-zero before the final line):
 
   1. print the card (``nvidia-smi`` name and power limit) and build the
-     CUDA kernels from ``mpr_tpu_torch/ops/csrc`` (nvcc, first use);
+     CUDA kernels from ``mpr_tpu_torch/ops/csrc`` (nvcc, first use): the
+     main library (every kernel, V and D at the shapes the render path
+     picks; its seconds are the render path's first-use build) and then
+     the extra one (V and D at the other shapes, for phase 8b), with
+     ptxas's registers, stack frame and spills for every instantiation of
+     V and D (a spill fails the run at its end);
   2. the 2D path: with every launch count set to 0, render the
      ``stress_2d(600)`` model at 1024^2 and ``stress_2d(1500)`` at 2048^2
      through ``mpr_tpu_torch.render.render2d``, recording each kernel's
@@ -29,6 +34,13 @@ Phases (any failure exits non-zero before the final line):
      normals against unit length and autograd of the plain interpreter;
   8. time the 3D frame with and without normals, V, D and every launch of
      A and C, and profile a frame;
+  8b. the launch shapes of V and D: print the shape ``voxel_launch`` and
+     ``deriv_launch`` picked at each 3D cell, then call both wrappers
+     again on the recorded inputs of each cell with forced shapes that
+     reach every branch (each home of the register file, K = 1/2/4, P = 1
+     and the most, D's full tape staged and read from global memory), hold
+     each output bit for bit against the plain output of phase 7, and time
+     each shape;
   9. kernels B1, C1 and C2 (the earlier public versions of B and C, which
      no render path calls) on the recorded data of the 1024^2 frame: with
      every launch count set to 0, C1 on every ambiguous tile at ``cap =
@@ -44,8 +56,9 @@ Phases (any failure exits non-zero before the final line):
  11. the effects (``draw_ssao`` in both modes, ``draw_shaded``) on the
      1024^2 depth and normals, on the card against the same tensors on the
      CPU, and timed;
- 12. print the card line, one JSON ``kernels`` line, and last
-     ``{"ok": true, "device": {...}}``.
+ 12. print the kernel times of the previous design of V and D (recorded,
+     labelled as such; not measured here), the card line, one JSON
+     ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present and when run outside the
 repository (it needs the ``mpr_tpu_torch`` package beside it).
@@ -126,6 +139,14 @@ DERIV_OPS = {2: 5, 3: 6, 4: 4, 5: 5, 6: 6, 7: 21, 8: 22, 9: 21, 10: 5,
              29: 0, 30: 17, 31: 9}
 # per voxel or pixel: three index-to-coordinate conversions and the mat4
 COORD_OPS = 42
+# Kernel times of the design of V and D before the register-file redesign,
+# at the two 3D cells: recorded by this script on NVIDIA H100 80GB HBM3,
+# 700.00 W, and printed on a line of their own as recorded values, apart
+# from this run's measurements.
+PREVIOUS_DESIGN_MS = {"voxel_eval_3d": {"gyroid_sphere": 15.221,
+                                        "extruded_stress": 8.575},
+                      "deriv_eval_3d": {"gyroid_sphere": 0.250,
+                                        "extruded_stress": 8.057}}
 
 
 class SmokeError(RuntimeError):
@@ -350,10 +371,11 @@ def compare_kernels(tk, rec, tape, size):
     return res
 
 
-def compare_kernels_3d(tk, tk3, rec, tape, name):
+def compare_kernels_3d(tk, tk3, rec, tape, name, keep):
     """Hold every launch of A, C, V and D that one 3D frame recorded against
     the plain versions on the same CUDA inputs.  Returns per-kernel dicts
-    (for A and C a list, one per launch)."""
+    (for A and C a list, one per launch); the plain outputs of V and D go
+    to ``keep`` for the launch-shape phase."""
     res = {"interval_shorten": [], "compact_bitshift_batched": []}
     stages = ("64^3 tiles", "16^3 cells", "z columns")
     for entry, stage in zip(rec["interval_shorten"], stages):
@@ -373,7 +395,7 @@ def compare_kernels_3d(tk, tk3, rec, tape, name):
     pvals = tk3.voxel_eval_3d_plain(*a, **k)
     n_v, e_v = same(vals[:n_amb1], pvals[:n_amb1])
     n_sign = int(((vals[:n_amb1] < 0) != (pvals[:n_amb1] < 0)).sum())
-    del pvals
+    keep["voxel_eval_3d"] = pvals
     table = tk.bid_table(a[7])
     full_f = sum(FLOAT_OPS.get(int(o), 0) for o in tape.ops)
     flops = 4096 * (row_ops(gmeta, runs_h, table, full_f, FLOAT_OPS)
@@ -393,6 +415,7 @@ def compare_kernels_3d(tk, tk3, rec, tape, name):
     gmeta, runs_h, kept = c_rows[1]
     pout = tk3.deriv_eval_3d_plain(*a, **k)
     n_d, e_d = same(out[:n_act], pout[:n_act])
+    keep["deriv_eval_3d"] = pout
     full_d = sum(DERIV_OPS.get(int(o), 0) for o in tape.ops)
     flops = 4096 * (row_ops(gmeta, runs_h, table, full_d, DERIV_OPS)
                     + n_act * COORD_OPS)
@@ -503,10 +526,10 @@ def run_2d(ctx, results, launches):
     img = render2d(edited, size=1024)
     check(np.array_equal(img, render2d_brute(edited, size=1024)),
           "edited tape renders wrong")
-    check(build.BuildStats.loads == 1 and build.BuildStats.compiles <= 1,
-          "the edited tape caused a new build")
+    check((build.BuildStats.loads, build.BuildStats.compiles)
+          == ctx["builds"], "the edited tape caused a new build")
     print(f"edited tape ({edited.length} clauses, another op set): exact, "
-          f"builds still {build.BuildStats.loads}")
+          f"libraries loaded still {build.BuildStats.loads}")
 
     # ---- timing ----------------------------------------------------------------
     for _, size in CASES:
@@ -594,6 +617,18 @@ def run_3d(ctx, results, launches):
         recorder.remove()
     launches["3d"] = recorder.counts()
     print(f"3D path launches over {len(CASES_3D)} frames: {launches['3d']}")
+    ctx["recs3d"] = recs
+    for name, *_ in CASES_3D:
+        a, k, _ = recs[name]["voxel_eval_3d"][0]
+        v = tk3.voxel_launch(k["s_cap"], a[8].shape[1])
+        a, k, _ = recs[name]["deriv_eval_3d"][0]
+        d = tk3.deriv_launch(k["s_cap"], a[7].shape[1], a[7].shape[0],
+                             a[3].shape[0])
+        results[name] = {"shapes": {"voxel_eval_3d": shape_label(v),
+                                    "deriv_eval_3d": shape_label(d)}}
+        print(f"launch shapes {name}: V {shape_label(v)} (s_cap "
+              f"{k['s_cap']}, cap {a[7].shape[1]}); D {shape_label(d)} "
+              f"({a[7].shape[0]} rows, full tape {a[3].shape[0]})")
     check(launches["3d"]["pixel_eval_runs"] == 0,
           "the 3D path launched the 2D pixel kernel")
 
@@ -615,8 +650,10 @@ def run_3d(ctx, results, launches):
               f"{(depth > 0).mean():.6f}, {a_v[2].numel()} of "
               f"{(size // 64) ** 3} tiles and {int(a_v[0][0])} of "
               f"{(size // 16) ** 3} cells ambiguous after the culls")
-        results[name] = res = compare_kernels_3d(tk, tk3, recs[name],
-                                                 tapes[name], name)
+        keep = ctx.setdefault("plain3d", {})[name] = {}
+        res = compare_kernels_3d(tk, tk3, recs[name], tapes[name], name,
+                                 keep)
+        results[name].update(res)
         for kname, r in res.items():
             for j, rr in enumerate(r if isinstance(r, list) else [r]):
                 check(rr["mismatches"] == 0, f"{kname} (launch {j}) "
@@ -1005,6 +1042,171 @@ def bound(r):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ptxas_rows(log):
+    """(kernel, K, bucket, registers, stack bytes, spill stores, spill
+    loads) for each instantiation of kernels V and D in nvcc's -Xptxas -v
+    output; bucket 0 is the shared home."""
+    import re
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(voxel_eval_kernel|"
+                      r"deriv_eval_kernel)ILi(\d+)ELi(\d+)E", line)
+        if m:
+            cur = [m.group(1), int(m.group(2)), int(m.group(3))]
+            continue
+        if "Function properties for" in line:
+            cur = None
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur += [int(m.group(1)), int(m.group(2)), int(m.group(3))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and len(cur) == 6:
+            rows.append((cur[0], cur[1], cur[2], int(m.group(1)), *cur[3:]))
+            cur = None
+    return rows
+
+
+def print_ptxas(tk3, logs):
+    """Registers, stack frame and spills of every instantiation of V and
+    D in the libraries' nvcc logs (``{library: log}``; bucket 0: the
+    files in shared memory; else local, or for D split by warps).  Every
+    (kernel, K, bucket) must be built, those of ``tk3.MAIN_K`` in the
+    main library.  Returns the instantiations that spill: the run fails
+    on them once every phase has run."""
+    names = {"voxel_eval_kernel": "voxel_eval_3d",
+             "deriv_eval_kernel": "deriv_eval_3d"}
+    spills, built = [], {}
+    for lib_name, log in sorted(logs.items()):
+        for kern, k, bucket, regs, stack, st, ld in sorted(ptxas_rows(log)):
+            built.setdefault((kern, k, bucket), set()).add(lib_name)
+            home = "shared" if bucket == 0 else (
+                f"local/split {bucket} slots" if kern.startswith("deriv")
+                else f"local {bucket} slots")
+            print(f"  ptxas [{lib_name}] {kern} K={k} {home}: {regs} "
+                  f"registers, {stack} B stack frame, {st} B spill stores, "
+                  f"{ld} B spill loads")
+            if st + ld:
+                spills.append(f"{kern} K={k} bucket {bucket}")
+    for kern, name in names.items():
+        for k in tk3.KS:
+            for bucket in (0,) + tk3.BUCKETS:
+                want = ("main" if k == tk3.MAIN_K[name][bucket != 0]
+                        else "extra")
+                check(want in built.get((kern, k, bucket), ()),
+                      f"{kern} K={k} bucket {bucket} is not in the {want} "
+                      f"library (ptxas saw {sorted(built)})")
+    return spills
+
+
+# Forced launch shapes of phase 8b, as keyword arguments of voxel_launch
+# and deriv_launch ("most" P: 4096 / (threads x K)); shapes that do not
+# fit the cell are printed as refused and not run, and repeats are left
+# out.
+EDGE_V = ([dict(home="shared", k=kk) for kk in (1, 2, 4)]
+          + [dict(home="shared", k=4, threads=128)]
+          + [dict(home="local", k=kk, threads=t) for kk, t in
+             ((1, 256), (1, 512), (2, 256), (2, 512), (4, 256))])
+EDGE_D = ([dict(home=h, k=kk, parts=p) for h in ("shared", "local")
+           for kk in (1, 2, 4) for p in (None, 1, "most")]
+          + [dict(home="split", k=kk, threads=t, shared_warps=sw, parts=p)
+             for kk, t, sw, p in ((1, 256, 1, None), (1, 256, None, None),
+                                  (1, 256, None, 1), (1, 256, None, "most"),
+                                  (1, 128, None, None), (2, 256, None, None))]
+          + [dict(home="local", stage_full=False),
+             dict(home="split", stage_full=False)])
+
+
+def edge_shapes(tk3, kname, a, k):
+    """(label, launch) for the forced shapes of phase 8b at one recorded
+    launch of V or D; launch is the reason, a string, where the shape does
+    not fit."""
+    tw = a[8] if kname == "voxel_eval_3d" else a[7]
+    gcap, cap = tw.shape
+    s_cap = k["s_cap"]
+    out = []
+
+    def add(label, fn):
+        try:
+            launch = fn()
+        except ValueError as e:
+            out.append((label, str(e)))
+            return
+        if all(launch != x for _, x in out):
+            out.append((label, launch))
+
+    if kname == "voxel_eval_3d":
+        add("picked", lambda: tk3.voxel_launch(s_cap, cap))
+        for kw in EDGE_V:
+            add(str(kw), lambda kw=kw: tk3.voxel_launch(s_cap, cap, **kw))
+        return out
+    tcap = a[3].shape[0]
+    add("picked", lambda: tk3.deriv_launch(s_cap, cap, gcap, tcap))
+    for kw in EDGE_D:
+        def forced(kw=kw):
+            kw = dict(kw)
+            if kw.get("parts") == "most":
+                base = tk3.deriv_launch(s_cap, cap, gcap, tcap,
+                                        **{**kw, "parts": None})
+                kw["parts"] = 4096 // (base.threads * base.k)
+            return tk3.deriv_launch(s_cap, cap, gcap, tcap, **kw)
+        add(str(kw), forced)
+    return out
+
+
+def bit_mismatches(a, b):
+    """Elements whose float bits differ, NaNs in the same places equal."""
+    import torch
+    nan = torch.isnan(a) & torch.isnan(b)
+    return int(((a.view(torch.int32) != b.view(torch.int32)) & ~nan).sum())
+
+
+def shape_label(launch):
+    return (f"{launch.home} threads={launch.threads} K={launch.k} "
+            f"P={launch.blocks_per_row} smem={launch.smem}"
+            + (f" shared_warps={launch.shared_warps}"
+               if launch.home == "split" else "")
+            + (f" bucket={launch.bucket}" if launch.bucket else "")
+            + (" full-tape-staged" if launch.stage_full else ""))
+
+
+def run_edges(ctx, results):
+    """Phase 8b: kernels V and D at forced launch shapes on the recorded
+    inputs of both 3D cells, each output against the plain output of
+    phase 7, each shape timed."""
+    import torch
+    tk3, card = ctx["tk3"], ctx["card"]
+    for name, *_ in CASES_3D:
+        rec, plain = ctx["recs3d"][name], ctx["plain3d"][name]
+        sweep = results[name]["sweep"] = []
+        for kname in ("voxel_eval_3d", "deriv_eval_3d"):
+            a, k, _ = rec[kname][0]
+            n = int(a[0][0])
+            fn = getattr(tk3, kname)
+            for label, launch in edge_shapes(tk3, kname, a, k):
+                if isinstance(launch, str):
+                    print(f"  edge {name} {kname} {label:24.60s}: refused, "
+                          f"does not fit ({launch})")
+                    continue
+                got = fn(*a, **k, launch=launch)
+                torch.cuda.synchronize()
+                bad = bit_mismatches(got[:n], plain[kname][:n])
+                del got
+                ms = cuda_ms(lambda: fn(*a, **k, launch=launch), 30, 3)
+                sweep.append({"kernel": kname, "label": label,
+                              "shape": shape_label(launch), "ms": ms,
+                              "mismatches": bad})
+                print(f"  edge {name} {kname} {label:24.60s} "
+                      f"[{shape_label(launch)}]: {ms:.4f} ms, {bad} bit "
+                      f"mismatches against plain  [{card}]")
+                check(bad == 0, f"{kname} at {label} ({shape_label(launch)})"
+                      f" disagrees with its plain version in {name}")
+        ctx["plain3d"][name] = None
+
+
 def main() -> int:
     try:
         import torch
@@ -1031,25 +1233,38 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, {kind}")
 
     # ---- 1. build ------------------------------------------------------------
-    build.lib()
-    print(f"build: {build.BuildStats.seconds:.1f} s, compiles "
-          f"{build.BuildStats.compiles}, loads {build.BuildStats.loads}")
-    for line in build.BuildStats.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+    for lib_name in build.LIBRARIES:
+        build.lib(lib_name)
+        print(f"build {lib_name}: {build.BuildStats.seconds[lib_name]:.1f} s"
+              f" (compiles so far {build.BuildStats.compiles}, loads "
+              f"{build.BuildStats.loads})", flush=True)
+    source = ""
+    for line in build.BuildStats.log["main"].splitlines():
+        if line.startswith("=="):
+            source = line
             print("  " + line.strip())
+        elif ("registers" in line or "spill" in line) and not any(
+                n in source for n in ("voxel_eval", "deriv_eval")):
+            print("  " + line.strip())
+    spills = print_ptxas(tk3, build.BuildStats.log)
 
     ctx = {"tk": tk, "tk3": tk3, "dev": resolve_device(), "card": card,
-           "rec": Recorder({"kernels": tk, "kernels3d": tk3})}
+           "rec": Recorder({"kernels": tk, "kernels3d": tk3}),
+           "builds": (build.BuildStats.loads, build.BuildStats.compiles)}
     results, launches = {}, {}
     run_2d(ctx, results, launches)
     sys.stdout.flush()
     run_3d(ctx, results, launches)
+    sys.stdout.flush()
+    run_edges(ctx, results)
     sys.stdout.flush()
     run_v1(ctx, results, launches)
     sys.stdout.flush()
     run_cli(ctx, launches)
     sys.stdout.flush()
     effect_rows = run_effects(ctx)
+
+    check(not spills, f"kernel V or D spills registers: {spills}")
 
     # ---- 12. report -------------------------------------------------------------
     size = CASES[0][1]
@@ -1091,7 +1306,9 @@ def main() -> int:
                      f"plain_ms_{other}": ro["plain_ms"],
                      f"bound_ms_{other}": bound(ro)[0],
                      f"bound_by_{other}": bound(ro)[1],
-                     f"rows_{other}": ro["rows"]}
+                     f"rows_{other}": ro["rows"],
+                     "launch_shapes": {c: results[c]["shapes"][name]
+                                       for c, *_ in CASES_3D}}
         b_ms, b_by = bound(r)
         per_frame = max(launches["2d"][name] // len(CASES),
                         launches["3d"][name] // n3)
@@ -1109,6 +1326,11 @@ def main() -> int:
             "at": at, **extra,
         })
     print(json.dumps({"effects": effect_rows}))
+    print(json.dumps({"launch_sweep": {c: results[c]["sweep"]
+                                       for c, *_ in CASES_3D}}))
+    print(json.dumps({"previous_design_ms": PREVIOUS_DESIGN_MS,
+                      "measured_in_this_run": False,
+                      "recorded_on": "NVIDIA H100 80GB HBM3, 700.00 W"}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,17 @@ capacity.  As in ops/kernels.py, a wrapper launches its kernel for CUDA
 tensors (and raises if it cannot) and runs the plain version beside it
 only when its inputs lie on the CPU; ``<wrapper>.launches`` counts the
 launches.
+
+Each kernel's launch shape (where its register file lives, threads, items
+a thread, blocks a row, dynamic shared memory) is chosen on the host by
+:func:`voxel_launch` and :func:`deriv_launch`, pure functions of the slot
+bucket, the row capacity and, for D, the rows; a caller may pass another
+shape (``launch=``), which the wrapper checks.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -39,6 +47,268 @@ TILE_PIXELS = TILE * TILE
 # Rows the plain versions interpret at once (bounds their register files:
 # rows x s_cap x 4096 floats for V, four times that for D).
 PLAIN_ROWS = 1 << 26
+
+
+# ---------------------------------------------------------------------------
+# Launch shapes of kernels V and D (csrc/regfile.cuh)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may use (H100)
+SM_SHARED = 233_472      # shared memory of an SM; each block reserves 1 KB
+SM_COUNT = 132
+SM_THREADS = 2048
+# branch table, camera matrix, V's table of world coordinates, the work
+# queue's counter (csrc/regfile.cuh)
+SMEM_HEADER = 4 * (256 + 16 + 48 + 4)
+THREADS = (512, 256, 128, 64)
+KS = (1, 2, 4)
+PARTS = (1, 2, 4, 8, 16, 32, 64)
+BUCKETS = (16, 32, 64, 128, 256)
+V_SHARED = (256, 4)      # V, files in shared memory: threads, K
+V_LOCAL = (256, 2)       # V, files in local memory: threads, K
+D_SPLIT = (256, 1)       # D, files split or local: threads, K
+D_MIN_WARPS = 4          # D: warps an SM needs in the shared home
+D_STAGE_MAX = 65_536     # D: an overflowed row's full tape is staged in
+#                          shared memory where it takes at most this
+# D at K = 4 needs more than 128 registers a thread: its instantiations are
+# built for at most 256 threads (csrc/deriv_eval.cu, max_threads)
+D_MAX_THREADS_K4 = 256
+# K of the instantiations in the main library, by kernel, for the shared
+# home (bucket 0) and for local files (a bucket): the shapes the launch
+# functions pick.  The extra library holds the other K (ops/build.py;
+# csrc/voxel_eval.cu, deriv_eval.cu: kernel<K, N>()).
+MAIN_K = {"voxel_eval_3d": (V_SHARED[1], V_LOCAL[1]),
+          "deriv_eval_3d": (1, D_SPLIT[1])}
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One launch shape of kernel V or D.
+
+    ``home``: where the register files live: ``"shared"`` (every warp's in
+    shared memory), ``"local"`` (in local memory) or, for D only,
+    ``"split"`` (the first ``shared_warps`` warps' in shared memory, the
+    others' in local memory); ``threads`` a block; ``k`` items (voxels,
+    pixels) a thread runs at once; ``blocks_per_row`` (P; 1 for V) blocks
+    share a row's 4096 items; ``smem`` dynamic shared bytes; ``bucket`` the
+    local files' slots (0 when no warp has one); ``stage_full``: D stages
+    an overflowed row's full tape in shared memory."""
+    home: str
+    threads: int
+    k: int
+    blocks_per_row: int
+    smem: int
+    bucket: int = 0
+    stage_full: bool = False
+    shared_warps: int = 0
+
+
+def local_bucket(s_cap: int) -> int:
+    """The local home's slot count for ``s_cap``: 16, 32, 64, 128 or 256."""
+    for b in BUCKETS:
+        if b >= s_cap:
+            return b
+    raise ValueError(f"s_cap {s_cap} over {BUCKETS[-1]}")
+
+
+def library(kernel: str, launch: Launch) -> str:
+    """The library (ops/build.py) that holds ``kernel`` at ``launch``."""
+    return ("main" if launch.k == MAIN_K[kernel][launch.bucket != 0]
+            else "extra")
+
+
+def _tape_bytes(entries: int) -> int:
+    """Shared bytes of a staged tape of ``entries`` clauses (words,
+    immediates, run headers), padded to 16 bytes."""
+    return 4 * ((3 * entries + 3) & ~3)
+
+
+def _resident(smem: int, threads: int) -> int:
+    """Blocks an SM holds as far as shared memory and threads go."""
+    return min(SM_SHARED // (smem + 1024), SM_THREADS // threads)
+
+
+def _shape(home, threads, k, s_cap, slot_bytes, fixed, shared_warps=0,
+           stage_full=False, parts=1) -> Launch:
+    """The Launch of a home, threads, K, P and (split home) shared warps:
+    ``fixed`` shared bytes besides the files, a shared file of
+    ``slot_bytes`` x s_cap x k x 32 bytes a warp, and the bucket."""
+    sw = {"shared": threads // 32, "local": 0}.get(home, shared_warps or 0)
+    return Launch(home, threads, k, parts,
+                  fixed + slot_bytes * s_cap * k * 32 * sw,
+                  0 if home == "shared" else local_bucket(s_cap), stage_full,
+                  sw)
+
+
+def _deriv_max_threads(k):
+    return D_MAX_THREADS_K4 if k == 4 else THREADS[0]
+
+
+def _voxel_fixed(cap):
+    return SMEM_HEADER + _tape_bytes(cap)
+
+
+def _deriv_fixed(cap, tcap, stage_full):
+    return SMEM_HEADER + _tape_bytes(max(cap, tcap) if stage_full else cap)
+
+
+def _most_shared_warps(threads, k, s_cap, slot_bytes, fixed, smem_limit):
+    """Most warps of a split block whose files fit beside ``fixed`` bytes
+    (at least one warp keeps a local file)."""
+    per_warp = slot_bytes * s_cap * k * 32
+    return max(0, min(threads // 32 - 1, (smem_limit - fixed) // per_warp))
+
+
+def _check_shape(launch: Launch, smem_limit: int, max_threads: int = 512,
+                 homes=("shared", "split", "local")):
+    """Raise unless ``launch`` is one the kernels can run: a home of
+    ``homes`` that agrees with its shared warps, K and P in their sets,
+    whole chunks of 32 x K items for every warp, shared bytes within the
+    limit."""
+    warps = launch.threads // 32
+    agrees = {"shared": launch.shared_warps == warps,
+              "local": launch.shared_warps == 0,
+              "split": 0 < launch.shared_warps < warps}
+    if (launch.home not in homes or not agrees[launch.home]
+            or launch.k not in KS
+            or launch.threads not in THREADS
+            or launch.threads > max_threads
+            or launch.blocks_per_row not in PARTS
+            or 4096 % (32 * launch.k * launch.blocks_per_row)
+            or launch.threads * launch.k * launch.blocks_per_row > 4096
+            or launch.smem > smem_limit):
+        raise ValueError(f"launch shape {launch} does not fit "
+                         f"({smem_limit} shared bytes)")
+    return launch
+
+
+def voxel_launch(s_cap: int, cap: int, smem_limit: int = SMEM_LIMIT, *,
+                 home: str = None, threads: int = None,
+                 k: int = None) -> Launch:
+    """Kernel V's launch shape for slot bucket ``s_cap`` and row capacity
+    ``cap``.
+
+    Where the files of ``V_SHARED`` (threads, K) fit in shared memory and
+    leave an SM two blocks, they live there (a short tape, whose decode K
+    amortises); otherwise in local memory, ``V_LOCAL`` (threads, K) (a
+    long tape: the shared home holds too few voxels an SM to hide its
+    latency).  ``home`` (``"shared"`` or ``"local"``), ``threads`` and
+    ``k`` force a shape, its missing parts chosen as above; a forced shape
+    that does not fit raises."""
+    fixed = _voxel_fixed(cap)
+
+    def shape(h, t, kk):
+        return _check_shape(_shape(h, t, kk, s_cap, 4, fixed), smem_limit,
+                            homes=("shared", "local"))
+
+    if home is None and threads is None and k is None:
+        sh = _shape("shared", *V_SHARED, s_cap, 4, fixed)
+        if sh.smem <= min(smem_limit, SM_SHARED // 2 - 1024):
+            return sh
+        return shape("local", *V_LOCAL)
+    home = home or "shared"
+    k = k or (V_SHARED if home == "shared" else V_LOCAL)[1]
+    if threads is None:
+        if home == "shared":
+            fits = [t for t in THREADS if t * k <= 4096 and _shape(
+                home, t, k, s_cap, 4, fixed).smem <= smem_limit]
+            threads = fits[0] if fits else THREADS[-1]
+        else:
+            threads = V_LOCAL[0] * V_LOCAL[1] // k
+    return shape(home, threads, k)
+
+
+def deriv_launch(s_cap: int, cap: int, n_rows_active: int, tcap: int,
+                 smem_limit: int = SMEM_LIMIT, *, home: str = None,
+                 threads: int = None, k: int = None, parts: int = None,
+                 stage_full: bool = None,
+                 shared_warps: int = None) -> Launch:
+    """Kernel D's launch shape for slot bucket ``s_cap``, row capacity
+    ``cap``, ``n_rows_active`` rows and a full tape of ``tcap`` clauses.
+
+    The dual-number files (16 bytes a slot) take the shared home, K = 1,
+    with 256 or 128 threads where that fits and leaves an SM at least
+    ``D_MIN_WARPS`` warps; else the block is ``D_SPLIT`` (threads, K) with
+    as many warps in shared memory as fit and the rest in local memory
+    (all local when none fits).  An overflowed row's full tape is staged in
+    shared memory where it takes at most ``D_STAGE_MAX`` bytes and fits.
+    P, the blocks a row, is the smallest power of two that gives the grid
+    at least as many blocks as the card holds at once (and at least two an
+    SM).  ``home``, ``threads``, ``k``, ``parts``, ``stage_full`` and
+    ``shared_warps`` force a shape; a forced shape that does not fit
+    raises."""
+    def shape(h, t, kk, sw=None):
+        stage = stage_full
+        if stage is None:
+            stage = (_tape_bytes(tcap) <= D_STAGE_MAX and _shape(
+                h, t, kk, s_cap, 16, _deriv_fixed(cap, tcap, True),
+                sw).smem <= smem_limit)
+        return _shape(h, t, kk, s_cap, 16, _deriv_fixed(cap, tcap, stage),
+                      sw, stage)
+
+    most_threads = _deriv_max_threads(k)
+    if home is None and threads is None and k is None \
+            and shared_warps is None:
+        for t in (256, 128):
+            sh = shape("shared", t, 1)
+            if sh.smem <= smem_limit and \
+                    _resident(sh.smem, t) * t // 32 >= D_MIN_WARPS:
+                home, threads, k = "shared", t, 1
+                break
+        if home is None:
+            threads, k = D_SPLIT
+            # the files first, the full tape where room is left
+            shared_warps = _most_shared_warps(
+                threads, k, s_cap, 16, _deriv_fixed(cap, tcap, False),
+                smem_limit)
+            home = "split" if shared_warps else "local"
+    else:
+        home = home or ("split" if shared_warps else "shared")
+        k = k or 1
+        if threads is None:
+            if home == "shared":
+                fits = [t for t in THREADS if t <= most_threads
+                        and t * k <= 4096
+                        and shape(home, t, k).smem <= smem_limit]
+                threads = fits[0] if fits else THREADS[-1]
+            else:
+                threads = min(D_SPLIT[0], most_threads)
+        if home == "split" and shared_warps is None:
+            shared_warps = _most_shared_warps(
+                threads, k, s_cap, 16, _deriv_fixed(cap, tcap, False),
+                smem_limit)
+    launch = shape(home, threads, k, shared_warps)
+    if parts is None:
+        target = max(2 * SM_COUNT,
+                     SM_COUNT * _resident(launch.smem, threads))
+        most = 4096 // (threads * k)
+        parts = 1
+        while parts < most and 0 < n_rows_active * parts < target:
+            parts *= 2
+    return _check_shape(replace(launch, blocks_per_row=parts), smem_limit,
+                        _deriv_max_threads(k))
+
+
+def check_launch(kernel: str, launch: Launch, s_cap: int, cap: int,
+                 tcap: int = 0) -> Launch:
+    """A caller's ``launch`` of ``kernel`` (``"voxel_eval_3d"`` or
+    ``"deriv_eval_3d"``) for slot bucket ``s_cap``, row capacity ``cap``
+    and (D) a full tape of ``tcap`` clauses, checked: a shape the kernel
+    can run, whose bucket, shared bytes and staging are the ones its home,
+    threads, K, P and shared warps give."""
+    if kernel == "voxel_eval_3d":
+        want = _shape(launch.home, launch.threads, launch.k, s_cap, 4,
+                      _voxel_fixed(cap))
+        _check_shape(launch, SMEM_LIMIT, homes=("shared", "local"))
+    else:
+        want = _shape(launch.home, launch.threads, launch.k, s_cap, 16,
+                      _deriv_fixed(cap, tcap, launch.stage_full),
+                      launch.shared_warps, launch.stage_full,
+                      launch.blocks_per_row)
+        _check_shape(launch, SMEM_LIMIT, _deriv_max_threads(launch.k))
+    if launch != want:
+        raise ValueError(f"launch shape {launch} is not {want}")
+    return launch
 
 
 def _mat4_apply(matf, wx, wy, wz):
@@ -127,7 +397,7 @@ def _check_row_tapes(words, imms, runs_full, tw, ti, runs, gmeta):
 
 def voxel_eval_3d(nmeta, order, order0, matf, words, imms, runs_full,
                   branch_ops, tw, ti, runs, gmeta, n_side: int, n_rows: int,
-                  s_cap: int):
+                  s_cap: int, launch: Launch = None):
     """Kernel V: evaluate the 4096 voxels of each ambiguous 16^3 cell.
 
     nmeta: (8,) int32 [n_amb1, S, res, sx, sy, sz, n_runs_full, row0];
@@ -141,7 +411,9 @@ def voxel_eval_3d(nmeta, order, order0, matf, words, imms, runs_full,
     tile row ``row0``.
 
     Returns vals (gcap, 4096) f32, lane l = vz*256 + vy*16 + vx; rows at or
-    past ``n_amb1`` are not written.
+    past ``n_amb1`` are not written.  ``launch`` forces a launch shape (one
+    :func:`voxel_launch` can give; default: the one it picks); the plain
+    version takes none.
     """
     if not _on_cuda(nmeta, order, order0, matf, words, imms, runs_full, tw,
                     ti, runs, gmeta):
@@ -161,17 +433,23 @@ def voxel_eval_3d(nmeta, order, order0, matf, words, imms, runs_full,
                          "out of range")
     if not 1 <= n_rows <= n_side:
         raise ValueError(f"bad slab: {n_rows} rows of {n_side}")
+    if launch is None:
+        launch = voxel_launch(s_cap, cap)
+    else:
+        check_launch("voxel_eval_3d", launch, s_cap, cap)
     dev = tw.device
     table = torch.as_tensor(bid_table(branch_ops), device=dev)
     vals = torch.empty(gcap, CELL_VOXELS, dtype=torch.float32, device=dev)
     if gcap:
+        fn = build.lib(library("voxel_eval_3d", launch)).mpr_voxel_eval
         with torch.cuda.device(dev):
-            _launch(build.lib().mpr_voxel_eval, nmeta.data_ptr(),
-                    order.data_ptr(), order0.data_ptr(), matf.data_ptr(),
-                    words.data_ptr(), imms.data_ptr(), runs_full.data_ptr(),
-                    table.data_ptr(), tw.data_ptr(), ti.data_ptr(),
-                    runs.data_ptr(), gmeta.data_ptr(), vals.data_ptr(), gcap,
-                    cap, n_side, n_rows, _stream())
+            _launch(fn, nmeta.data_ptr(), order.data_ptr(),
+                    order0.data_ptr(), matf.data_ptr(), words.data_ptr(),
+                    imms.data_ptr(), runs_full.data_ptr(), table.data_ptr(),
+                    tw.data_ptr(), ti.data_ptr(), runs.data_ptr(),
+                    gmeta.data_ptr(), vals.data_ptr(), gcap, cap, n_side,
+                    n_rows, s_cap, launch.bucket, launch.threads, launch.k,
+                    launch.smem, _stream())
         _voxel_eval_3d.launches += 1
     return vals
 
@@ -331,7 +609,7 @@ def deriv_eval_3d_plain(nmeta, order, matf, words, imms, runs_full,
 
 def deriv_eval_3d(nmeta, order, matf, words, imms, runs_full, branch_ops,
                   tw, ti, runs, gmeta, depth_blocks, n_side: int, n_rows: int,
-                  s_cap: int):
+                  s_cap: int, launch: Launch = None):
     """Kernel D: value and gradient at every pixel of each 64-px screen
     tile with content, one voxel in front of the depth surface.
 
@@ -344,6 +622,9 @@ def deriv_eval_3d(nmeta, order, matf, words, imms, runs_full, branch_ops,
 
     Returns (gcap, 4, 4096) f32 — v, d/dx, d/dy, d/dz per pixel, rows in
     ``order`` order; rows at or past ``n_act`` are not written.
+    ``launch`` forces a launch shape (one :func:`deriv_launch` can give;
+    default: the one it picks for ``gcap`` rows); the plain version takes
+    none.
     """
     if not _on_cuda(nmeta, order, matf, words, imms, runs_full, tw, ti, runs,
                     gmeta, depth_blocks):
@@ -363,17 +644,25 @@ def deriv_eval_3d(nmeta, order, matf, words, imms, runs_full, branch_ops,
     if not s_cap <= REG_CAP or len(branch_ops) > 255:
         raise ValueError(f"s_cap {s_cap} or {len(branch_ops)} branches "
                          "out of range")
+    tcap = words.shape[0]
+    if launch is None:
+        launch = deriv_launch(s_cap, cap, gcap, tcap)
+    else:
+        check_launch("deriv_eval_3d", launch, s_cap, cap, tcap)
     dev = tw.device
     table = torch.as_tensor(bid_table(branch_ops), device=dev)
     out = torch.empty(gcap, 4, TILE_PIXELS, dtype=torch.float32, device=dev)
     if gcap:
+        fn = build.lib(library("deriv_eval_3d", launch)).mpr_deriv_eval
         with torch.cuda.device(dev):
-            _launch(build.lib().mpr_deriv_eval, nmeta.data_ptr(),
-                    order.data_ptr(), matf.data_ptr(), words.data_ptr(),
-                    imms.data_ptr(), runs_full.data_ptr(), table.data_ptr(),
-                    tw.data_ptr(), ti.data_ptr(), runs.data_ptr(),
-                    gmeta.data_ptr(), depth_blocks.data_ptr(),
-                    out.data_ptr(), gcap, cap, n_side, _stream())
+            _launch(fn, nmeta.data_ptr(), order.data_ptr(), matf.data_ptr(),
+                    words.data_ptr(), imms.data_ptr(), runs_full.data_ptr(),
+                    table.data_ptr(), tw.data_ptr(), ti.data_ptr(),
+                    runs.data_ptr(), gmeta.data_ptr(),
+                    depth_blocks.data_ptr(), out.data_ptr(), gcap, cap,
+                    n_side, s_cap, tcap, launch.bucket, launch.threads,
+                    launch.k, launch.blocks_per_row, int(launch.stage_full),
+                    launch.shared_warps, launch.smem, _stream())
         _deriv_eval_3d.launches += 1
     return out
 

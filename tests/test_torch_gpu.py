@@ -199,50 +199,150 @@ def _same(a, b):
                        torch.nan_to_num(b, nan=12345.0))
 
 
+# Launch shapes forced on kernels V and D: each home of the register files
+# (shared, local, and for D split between the two), K = 1 and 4, P = 1 and
+# the most, and D's overflowed rows' full tape staged in shared memory and
+# read from global memory.  V takes the home and K of a shape (it has one
+# block a cell and no staging).  A shape that does not fit the tape's slots
+# is skipped, with the reason.
+SHAPES = {
+    "picked": {},
+    "shared_k1": dict(home="shared", k=1),
+    "shared_k4": dict(home="shared", k=4),
+    "local_k1_p1": dict(home="local", k=1, parts=1),
+    "local_k4_pmost": dict(home="local", k=4, parts="most"),
+    "split_k1": dict(home="split", k=1, shared_warps=1),
+    "split_k4": dict(home="split", k=4),
+    "global_tape": dict(home="local", k=1, stage_full=False),
+}
+V_SHAPES = ("picked", "shared_k1", "shared_k4", "local_k1_p1",
+            "local_k4_pmost")
+KERNEL_SHAPES = ([("voxel_eval_3d", x) for x in V_SHAPES]
+                 + [("deriv_eval_3d", x) for x in sorted(SHAPES)])
+
+
+def _launch(kernel, shape, a, k):
+    """The forced shape ``shape`` for a recorded launch (args, kwargs) of
+    kernel V or D, None for the picked one; skips the test where the shape
+    does not fit."""
+    force = dict(SHAPES[shape])
+    if not force:
+        return None
+    tw = a[8] if kernel == "voxel_eval_3d" else a[7]
+    gcap, cap = tw.shape
+    s_cap = k["s_cap"]
+    try:
+        if kernel == "voxel_eval_3d":
+            return tk3.voxel_launch(s_cap, cap, home=force["home"],
+                                    k=force["k"])
+        tcap = a[3].shape[0]
+        parts = force.pop("parts", None)
+        launch = tk3.deriv_launch(s_cap, cap, gcap, tcap, **force,
+                                  parts=None if parts == "most" else parts)
+        if parts == "most":
+            launch = tk3.deriv_launch(
+                s_cap, cap, gcap, tcap, **force,
+                parts=4096 // (launch.threads * launch.k))
+        return launch
+    except ValueError as e:
+        pytest.skip(f"{shape} does not fit {kernel} at s_cap {s_cap}, cap "
+                    f"{cap}: {e}")
+
+
+@pytest.mark.parametrize("kernel,shape", KERNEL_SHAPES)
 @pytest.mark.parametrize("name", ["two_spheres", "gyroid", "extruded_stress",
                                   "all_ops"])
 @pytest.mark.parametrize("slab", [(128, 0, 2), (256, 1, 2)])
-def test_voxel_and_deriv_kernels_match_plain(cuda, name, slab):
+def test_voxel_and_deriv_kernels_match_plain(cuda, name, slab, kernel,
+                                             shape):
     size, row0, n_rows = slab
     tape, mat = _tape3d(name)
     (_, _, counts), seen = _frame3d_inputs(tape, mat, size, cuda, row0=row0,
                                            n_rows=n_rows)
     assert counts["n_amb1"] > 0 and counts["n_act"] > 0
-    a, k = seen["voxel_eval_3d"]
-    vals = tk3.voxel_eval_3d(*a, **k)
-    want = tk3.voxel_eval_3d_plain(*a, **k)
+    a, k = seen[kernel]
+    got = getattr(tk3, kernel)(*a, **k, launch=_launch(kernel, shape, a, k))
+    want = getattr(tk3, kernel + "_plain")(*a, **k)
     torch.cuda.synchronize()
-    n = counts["n_amb1"]
-    assert _same(vals[:n], want[:n])
-    a, k = seen["deriv_eval_3d"]
-    out = tk3.deriv_eval_3d(*a, **k)
-    want = tk3.deriv_eval_3d_plain(*a, **k)
-    torch.cuda.synchronize()
-    n = counts["n_act"]
-    assert _same(out[:n], want[:n])
+    n = counts["n_amb1" if kernel == "voxel_eval_3d" else "n_act"]
+    assert _same(got[:n], want[:n])
 
 
-def test_3d_kernels_with_overflowed_rows_match_plain(cuda):
+@pytest.mark.parametrize("kernel,shape", KERNEL_SHAPES)
+def test_3d_kernels_with_overflowed_rows_match_plain(cuda, kernel, shape):
     """A per-row capacity of 128 clauses: the cells keep 43 to 286 of the
     373 clauses, so some overflow it and some do not; the columns keep
-    nearly all, so every one overflows.  Overflowed rows run the full tape
-    from global memory."""
+    nearly all, so every one overflows.  Overflowed rows run the full tape,
+    from global memory (V, and D's ``global_tape`` shape) or staged in
+    shared memory (D's other shapes)."""
     from mpr_tpu_torch import config
     tape, mat = _tape3d("extruded_stress")
     with config.override(cap_div=4):
         (_, _, counts), seen = _frame3d_inputs(tape, mat, 128, cuda, row0=0,
                                                n_rows=2)
-    for name, n in (("voxel_eval_3d", counts["n_amb1"]),
-                    ("deriv_eval_3d", counts["n_act"])):
-        a, k = seen[name]
-        gmeta = a[11] if name == "voxel_eval_3d" else a[10]
-        over = gmeta[:n, 2] != 0
-        assert over.any()
-        if name == "voxel_eval_3d":
-            assert not over.all()
-        got = getattr(tk3, name)(*a, **k)
-        want = getattr(tk3, name + "_plain")(*a, **k)
-        assert _same(got[:n], want[:n])
+    n = counts["n_amb1" if kernel == "voxel_eval_3d" else "n_act"]
+    a, k = seen[kernel]
+    gmeta = a[11] if kernel == "voxel_eval_3d" else a[10]
+    over = gmeta[:n, 2] != 0
+    assert over.any()
+    if kernel == "voxel_eval_3d":
+        assert not over.all()
+    launch = _launch(kernel, shape, a, k)
+    if shape == "global_tape":
+        assert not launch.stage_full
+    got = getattr(tk3, kernel)(*a, **k, launch=launch)
+    want = getattr(tk3, kernel + "_plain")(*a, **k)
+    assert _same(got[:n], want[:n])
+
+
+_TRAP = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+import mpr_tpu_torch
+from mpr_tpu_torch.frontend import shapes
+from mpr_tpu_torch.ops import kernels3d as tk3
+from mpr_tpu_torch.ops.tape_data import TapeData
+from mpr_tpu_torch.render import camera, pipeline3d
+seen = {{}}
+fn = getattr(tk3, {kernel!r})
+def rec(*a, **k):
+    seen["x"] = (a, k)
+    return fn(*a, **k)
+setattr(tk3, {kernel!r}, rec)
+td = TapeData.from_tape(mpr_tpu_torch.compile_tree(shapes.two_spheres()),
+                        device="cuda")
+pipeline3d.render3d_rows(td, torch.as_tensor(camera.gui3d_view(),
+                                             device="cuda"), 128, 0, 2)
+torch.cuda.synchronize()
+a, k = seen["x"]
+a = list(a)
+a[0] = a[0].clone()
+a[0][1] = k["s_cap"] + 8          # more slots than the file holds
+fn(*a, **k)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised at synchronize:", e)
+    sys.exit(3)
+print("no error")
+"""
+
+
+@pytest.mark.parametrize("kernel", ["voxel_eval_3d", "deriv_eval_3d"])
+def test_a_tape_with_more_slots_than_s_cap_traps(cuda, kernel):
+    """nmeta[1] over s_cap: the kernel traps rather than index past its
+    register file, and the fault surfaces at torch.cuda.synchronize().  In
+    a subprocess, because a trap leaves the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c",
+                        _TRAP.format(root=root, kernel=kernel)],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 3, (r.stdout, r.stderr[-2000:])
+    assert "raised at synchronize" in r.stdout
 
 
 def test_3d_wrappers_raise_on_bad_inputs(cuda):

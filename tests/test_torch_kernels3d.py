@@ -228,5 +228,16 @@ def test_cpu_inputs_take_the_plain_versions():
     for w in ("voxel_eval_3d", "deriv_eval_3d"):
         a, k = seen[w]
         getattr(tk3, w)(*a, **k)
+    # and with s_cap passed and a launch shape forced: still the plain
+    # version, equal to it
+    forced = {"voxel_eval_3d": tk3.voxel_launch(S_CAP, 32, home="local",
+                                                k=4),
+              "deriv_eval_3d": tk3.deriv_launch(S_CAP, 32, 1, 256, k=2,
+                                                parts=2)}
+    for w, launch in forced.items():
+        a, k = seen[w]
+        got = getattr(tk3, w)(*a, **{**k, "s_cap": S_CAP, "launch": launch})
+        want = getattr(tk3, w + "_plain")(*a, **{**k, "s_cap": S_CAP})
+        assert torch.equal(got, want)
     assert (tk3.voxel_eval_3d.launches, tk3.deriv_eval_3d.launches,
             build.BuildStats.compiles, build.BuildStats.loads) == before
