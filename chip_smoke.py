@@ -7,40 +7,48 @@ Phases (any failure exits non-zero before the final line):
 
   1. print the card (``nvidia-smi`` name and power limit) and build the
      CUDA kernels from ``mpr_tpu_torch/ops/csrc`` (nvcc, first use): the
-     main library (every kernel, V and D at the shapes the render path
+     main library (every kernel, B, V and D at the shapes the render path
      picks; its seconds are the render path's first-use build) and then
-     the extra one (V and D at the other shapes, for phase 8b), with
+     the extra one (B, V and D at the other shapes, for phase 8b), with
      ptxas's registers, stack frame and spills for every instantiation of
-     V and D (a spill fails the run at its end);
+     A, B, V and D (a spill fails the run at its end);
   2. the 2D path: with every launch count set to 0, render the
      ``stress_2d(600)`` model at 1024^2 and ``stress_2d(1500)`` at 2048^2
      through ``mpr_tpu_torch.render.render2d``, recording each kernel's
-     inputs; kernels A, C and B must have launched;
+     inputs; kernels A, C and B must have launched, and each frame must
+     have built its tape's dependency schedule for kernel A once (its
+     levels, widest level and host build time are printed);
   3. hold each kernel's outputs against its plain PyTorch version called on
      the same CUDA inputs (integers and the 0/1 fill must be equal), and
      each image against ``render2d_brute`` (the full tape at every pixel);
   4. re-render an edited tape with another op set: no new build;
   5. time each kernel, its plain version and the whole frame with CUDA
-     events (warm-up, then the median of repeated runs), and profile a
-     frame;
+     events (warm-up, then the median of repeated runs; a frame after the
+     first on one tape must build no schedule), each kernel's device time
+     with torch.profiler, and profile a frame;
   6. the 3D path: with every launch count set to 0 again, render
      ``intersection(gyroid(0.4, 0.08), sphere(0.85))`` at 1024^3 and
      ``extrude_z(stress_2d(300), -0.4, 0.4)`` at 512^3 through
      ``mpr_tpu_torch.render.render3d``; each frame must launch kernel A
-     three times, C twice, V and D once;
+     three times (the three sharing one schedule), C twice, V and D
+     once;
   7. hold every recorded launch of A, C, V and D against its plain version
      (all equal, NaNs in the same places),
      each depth image against ``render3d_brute`` (0 pixels differ), and the
      normals against unit length and autograd of the plain interpreter;
   8. time the 3D frame with and without normals, V, D and every launch of
      A and C, and profile a frame;
-  8b. the launch shapes of V and D: print the shape ``voxel_launch`` and
-     ``deriv_launch`` picked at each 3D cell, then call both wrappers
-     again on the recorded inputs of each cell with forced shapes that
-     reach every branch (each home of the register file, K = 1/2/4, P = 1
-     and the most, D's full tape staged and read from global memory), hold
-     each output bit for bit against the plain output of phase 7, and time
-     each shape;
+  8b. the launch shapes: print the shape ``voxel_launch`` and
+     ``deriv_launch`` picked at each 3D cell, then call V and D again on
+     the recorded inputs of each 3D cell, A and B on those of each 2D
+     cell, and A on each of the three launches of each 3D cell, with forced
+     shapes that reach every branch (V, D, B: each home of the register
+     file, K = 1/2/4, P = 1 and more, the full tape staged and read from
+     global memory; A: a block a tile at 32 to 1024 threads, a thread a
+     tile at 64 to 256 tiles a block, the planes staged or not), hold each
+     output
+     bit for bit against the plain output of phase 3 or 7, and time each
+     shape (shapes that do not fit are printed as refused);
   9. kernels B1, C1 and C2 (the earlier public versions of B and C, which
      no render path calls) on the recorded data of the 1024^2 frame: with
      every launch count set to 0, C1 on every ambiguous tile at ``cap =
@@ -56,9 +64,9 @@ Phases (any failure exits non-zero before the final line):
  11. the effects (``draw_ssao`` in both modes, ``draw_shaded``) on the
      1024^2 depth and normals, on the card against the same tensors on the
      CPU, and timed;
- 12. print the kernel times of the previous design of V and D (recorded,
-     labelled as such; not measured here), the card line, one JSON
-     ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+ 12. print the kernel times of the previous designs of A, B, V and D
+     (recorded, labelled as such; not measured here), the card line, one
+     JSON ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present and when run outside the
 repository (it needs the ``mpr_tpu_torch`` package beside it).
@@ -139,14 +147,22 @@ DERIV_OPS = {2: 5, 3: 6, 4: 4, 5: 5, 6: 6, 7: 21, 8: 22, 9: 21, 10: 5,
              29: 0, 30: 17, 31: 9}
 # per voxel or pixel: three index-to-coordinate conversions and the mat4
 COORD_OPS = 42
-# Kernel times of the design of V and D before the register-file redesign,
-# at the two 3D cells: recorded by this script on NVIDIA H100 80GB HBM3,
-# 700.00 W, and printed on a line of their own as recorded values, apart
-# from this run's measurements.
+# Kernel times of the designs before the redesigns (V and D before their
+# register-file redesign, at the two 3D cells; A before the level walk and
+# B before the register file of regfile.cuh, at the 1024^2 cell): recorded
+# by this script on NVIDIA H100 80GB HBM3, 700.00 W, and printed on a line
+# of their own as recorded values, apart from this run's measurements.
 PREVIOUS_DESIGN_MS = {"voxel_eval_3d": {"gyroid_sphere": 15.221,
                                         "extruded_stress": 8.575},
                       "deriv_eval_3d": {"gyroid_sphere": 0.250,
-                                        "extruded_stress": 8.057}}
+                                        "extruded_stress": 8.057},
+                      "interval_shorten": {"stress_2d(600) 1024^2": 1.9068},
+                      "pixel_eval_runs": {"stress_2d(600) 1024^2": 1.0148}}
+# Kernel A's dependency bound: each level costs a shared-memory round trip
+# (about 30 cycles) and a barrier (about 20 cycles), at 1.98 GHz, twice (the
+# forward and the backward pass).  An estimate from the card's published
+# latencies, not a measurement.
+LEVEL_STEP_NS = 25.0
 
 
 class SmokeError(RuntimeError):
@@ -217,6 +233,28 @@ def profile_frames(fn, n=5):
     rows = sorted(((k, v / n / 1e3) for k, v in by_name.items()),
                   key=lambda kv: -kv[1])
     return wall_us / n / 1e3, rows, busy / wall_us
+
+
+def device_ms(fn, n=10):
+    """Device time of the one kernel ``fn()`` launches, in ms: the mean
+    duration of the kernels torch.profiler traces over ``n`` calls (the
+    mean of those traced, which holds where the trace drops a record).
+    The events of :func:`cuda_ms` also time the host's work around a short
+    kernel's launch; this does not.  None where the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return round(sum(us) / len(us) / 1e3, 6) if us else None
 
 
 def print_profile(label, fn, card, n):
@@ -298,21 +336,48 @@ def same(a, b):
     return int(bad.sum()), err
 
 
-def compare_a(tk, entry, tape, label):
-    """One recorded launch of kernel A against its plain version."""
-    a, k, (st, codes) = entry
-    pst, pcodes = tk.interval_shorten_plain(*a, **k)
-    amb = st == tk.ST_AMBIG
+def levels_of(kwargs):
+    """The dependency schedule a recorded launch of kernel A was given (the
+    tape's ``TapeData.levels``, built at the frame's first launch)."""
+    lv = kwargs["levels"]
+    return lv() if callable(lv) else lv
+
+
+def print_levels(label, lv):
+    print(f"schedule {label}: {lv.length} clauses on {lv.n_levels} "
+          f"dependency levels, widest {lv.widest}; built on the host in "
+          f"{1e3 * lv.seconds:.2f} ms (once a tape)")
+
+
+def a_mismatches(tk, out, plain):
+    """Status mismatches, and code word mismatches on the lanes the plain
+    version finds ambiguous (the others' codes are never read)."""
+    (st, codes), (pst, pcodes) = out, plain
+    amb = pst == tk.ST_AMBIG
     n_st, e_st = same(st, pst)
     n_codes, e_codes = same(codes[amb], pcodes[amb])
-    lanes, tcap = codes.shape[0], a[1].shape[0]
-    print(f"  A interval_shorten {label}: {lanes} lanes, {int(amb.sum())} "
-          f"ambiguous; status mismatches {n_st}, code word mismatches on "
-          f"ambiguous lanes {n_codes}")
-    return dict(mismatches=n_st + n_codes, max_abs_err=max(e_st, e_codes),
+    return n_st, n_codes, max(e_st, e_codes)
+
+
+def compare_a(tk, entry, tape, label, keep=None):
+    """One recorded launch of kernel A against its plain version (whose
+    outputs go to the list ``keep`` for the launch-shape phase)."""
+    a, k, out = entry
+    plain = tk.interval_shorten_plain(*a, **k)
+    if keep is not None:
+        keep.append(plain)
+    n_st, n_codes, err = a_mismatches(tk, out, plain)
+    lanes, tcap = out[1].shape[0], a[1].shape[0]
+    lv = levels_of(k)
+    print(f"  A interval_shorten {label}: {lanes} lanes, "
+          f"{int((plain[0] == tk.ST_AMBIG).sum())} ambiguous, "
+          f"{lv.n_levels} levels; status mismatches {n_st}, code word "
+          f"mismatches on ambiguous lanes {n_codes}")
+    return dict(mismatches=n_st + n_codes, max_abs_err=err,
                 bytes=32 + 8 * tape.length + 24 * lanes + 4 * lanes
                 + lanes * tcap // 2,
-                ops=lanes * interval_ops(tape))
+                ops=lanes * interval_ops(tape), levels=lv.n_levels,
+                dep_bound_ms=2 * lv.n_levels * LEVEL_STEP_NS * 1e-6)
 
 
 def compare_c(tk, entry, tape, label):
@@ -345,15 +410,17 @@ def compare_kernels(tk, rec, tape, size):
     plain version on the same CUDA inputs.  Returns per-kernel dicts with
     mismatch counts, max |err| and the data the bounds need."""
     import torch
-    res = {}
+    res = {"plain": {"interval_shorten": []}}
     res["interval_shorten"] = compare_a(tk, rec["interval_shorten"][0], tape,
-                                        f"@{size}^2")
+                                        f"@{size}^2",
+                                        res["plain"]["interval_shorten"])
     res["compact_bitshift_batched"], gmeta, runs_h, kept = compare_c(
         tk, rec["compact_bitshift_batched"][0], tape, f"@{size}^2")
     n_amb = gmeta.shape[0]
 
     (a, k, fill) = rec["pixel_eval_runs"][0]
-    pfill = tk.pixel_eval_runs_plain(*a, **k)
+    pfill = res["plain"]["pixel_eval_runs"] = tk.pixel_eval_runs_plain(*a,
+                                                                       **k)
     diff = fill != pfill
     n_fill = int(diff.sum())
     if n_fill:
@@ -367,7 +434,11 @@ def compare_kernels(tk, rec, tape, size):
         mismatches=n_fill, max_abs_err=float((fill - pfill).abs().max()),
         bytes=n_amb * 3 * P * 4 + fill.numel() * 4 + 12 * kept,
         ops=flops)
-    print(f"  B pixel_eval_runs @{size}^2: fill mismatches {n_fill}")
+    fits = gmeta[:, 2] == 0
+    print(f"  B pixel_eval_runs @{size}^2: fill mismatches {n_fill}; "
+          f"{int(fits.sum())} tiles on their own tapes, mean "
+          f"{gmeta[fits, 0].mean() if fits.any() else 0:.1f} clauses in "
+          f"{gmeta[fits, 1].mean() if fits.any() else 0:.1f} opcode runs")
     return res
 
 
@@ -378,9 +449,11 @@ def compare_kernels_3d(tk, tk3, rec, tape, name, keep):
     to ``keep`` for the launch-shape phase."""
     res = {"interval_shorten": [], "compact_bitshift_batched": []}
     stages = ("64^3 tiles", "16^3 cells", "z columns")
+    keep["interval_shorten"] = []
     for entry, stage in zip(rec["interval_shorten"], stages):
         res["interval_shorten"].append(
-            compare_a(tk, entry, tape, f"{name} {stage}"))
+            compare_a(tk, entry, tape, f"{name} {stage}",
+                      keep["interval_shorten"]))
     c_rows = []
     for entry, stage in zip(rec["compact_bitshift_batched"],
                             ("cells", "columns")):
@@ -465,6 +538,7 @@ def run_2d(ctx, results, launches):
     import mpr_tpu_torch
     from mpr_tpu_torch.frontend import shapes
     from mpr_tpu_torch.ops import build
+    from mpr_tpu_torch.ops import schedule as sch
     from mpr_tpu_torch.ops.tape_data import TapeData
     from mpr_tpu_torch.render import pipeline2d, render2d, render2d_brute
     tk, dev, card, recorder = ctx["tk"], ctx["dev"], ctx["card"], ctx["rec"]
@@ -479,6 +553,7 @@ def run_2d(ctx, results, launches):
               f", compiled in {time.perf_counter() - t0:.2f} s")
     recs = {size: {} for _, size in CASES}
     images = {}
+    builds = sch.tape_levels.builds
     recorder.reset_counts()
     try:
         for _, size in CASES:
@@ -496,6 +571,14 @@ def run_2d(ctx, results, launches):
     for name in KERNELS_2D:
         check(counts[name] >= len(CASES), f"kernel {name} launched "
               f"{counts[name]} times on the 2D path")
+    # each render2d call makes the tape's TapeData, whose schedule its one
+    # launch of kernel A builds
+    check(sch.tape_levels.builds - builds == len(CASES),
+          f"{sch.tape_levels.builds - builds} schedules built over "
+          f"{len(CASES)} 2D frames")
+    for n_blobs, size in CASES:
+        print_levels(f"stress_2d({n_blobs})",
+                     levels_of(recs[size]["interval_shorten"][0][1]))
 
     # ---- kernels vs plain, images vs the dense reference --------------------
     for _, size in CASES:
@@ -506,7 +589,8 @@ def run_2d(ctx, results, launches):
               f"{n_amb} of {status.numel()} tiles ambiguous")
         res = compare_kernels(tk, recs[size], tapes[size], size)
         results[size] = res
-        for name, r in res.items():
+        for name in KERNELS_2D:
+            r = res[name]
             check(r["mismatches"] == 0, f"{name} disagrees with its plain "
                   f"version at {size}^2 ({r['mismatches']} mismatches)")
         want = render2d_brute(tapes[size], size=size)
@@ -537,8 +621,12 @@ def run_2d(ctx, results, launches):
         td = TapeData.from_tape(tapes[size], device=dev)
         eye = torch.eye(3, device=dev)
         z = torch.tensor(0.0, device=dev)
+        pipeline2d.render_tile_block(td, eye, z, size)
+        builds = sch.tape_levels.builds
         frame_ms = cuda_ms(
             lambda: pipeline2d.render_tile_block(td, eye, z, size), 20, 3)
+        check(sch.tape_levels.builds == builds, "a 2D frame after the "
+              "first on one tape built a schedule")
         t0 = time.perf_counter()
         for _ in range(10):
             pipeline2d.render_tile_block(td, eye, z, size)
@@ -552,10 +640,11 @@ def run_2d(ctx, results, launches):
             ms = cuda_ms(lambda: fn(*a, **k), 30, 3)
             r = results[size][name]
             r["ms"] = ms
+            r["device_ms"] = device_ms(lambda: fn(*a, **k))
             if size == CASES[0][1]:
                 plain = getattr(tk, name + "_plain")
                 r["plain_ms"] = cuda_ms(lambda: plain(*a, **k), 3, 1)
-            line.append(f"{name} {ms:.4f} ms")
+            line.append(f"{name} {ms:.4f} ms (device {r['device_ms']})")
         print("; ".join(line) + f"  [{card}]")
 
     # ---- where a frame's device time goes -----------------------------------
@@ -567,6 +656,7 @@ def run_2d(ctx, results, launches):
             f"@{size}^2",
             lambda: pipeline2d.render_tile_block(td, eye, z, size), card, 5)
     size = CASES[0][1]
+    ctx["recs2d"] = recs
     ctx["frame2d"] = dict(rec=recs[size], tape=tapes[size], size=size,
                           image=images[size])
 
@@ -578,6 +668,7 @@ def run_3d(ctx, results, launches):
     import mpr_tpu_torch
     from mpr_tpu_torch.frontend import shapes
     from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.ops import schedule as sch
     from mpr_tpu_torch.ops.tape_data import TapeData
     from mpr_tpu_torch.render import (camera, pipeline3d, render3d,
                                       render3d_brute)
@@ -601,6 +692,7 @@ def run_3d(ctx, results, launches):
     try:
         for name, _, _, size in CASES_3D:
             recorder.install(recs[name])
+            builds = sch.tape_levels.builds
             t0 = time.perf_counter()
             frames[name] = render3d(tapes[name], mat=mats[name], size=size)
             torch.cuda.synchronize()
@@ -613,6 +705,13 @@ def run_3d(ctx, results, launches):
                 check(got >= need, f"kernel {kname} launched {got} times in "
                       f"the {name} frame, {need} expected")
             before = now
+            # the frame's three launches of kernel A share one schedule
+            lvs = [levels_of(k) for _, k, _ in recs[name]["interval_shorten"]]
+            check(sch.tape_levels.builds - builds == 1
+                  and all(lv is lvs[0] for lv in lvs),
+                  f"the {name} frame built {sch.tape_levels.builds - builds}"
+                  " schedules, or its launches of kernel A do not share one")
+            print_levels(name, lvs[0])
     finally:
         recorder.remove()
     launches["3d"] = recorder.counts()
@@ -687,7 +786,11 @@ def run_3d(ctx, results, launches):
 
         def frame(normals=True):
             return pipeline3d.render3d_rows(td, mat_t, size, 0, n, normals)
+        frame()
+        builds = sch.tape_levels.builds
         f_ms = cuda_ms(frame, 10, 2)
+        check(sch.tape_levels.builds == builds, "a 3D frame after the first "
+              "on one tape built a schedule")
         f0_ms = cuda_ms(lambda: frame(False), 10, 2)
         t0 = time.perf_counter()
         for _ in range(5):
@@ -703,18 +806,23 @@ def run_3d(ctx, results, launches):
             plain = getattr(mod, kname + "_plain")
             r = res[kname]
             r["ms"] = cuda_ms(lambda: fn(*a, **k), 30, 3)
+            r["device_ms"] = device_ms(lambda: fn(*a, **k))
             r["plain_ms"] = plain_ms(lambda: plain(*a, **k))
-            print(f"  {kname} {r['ms']:.4f} ms over {r['rows']} rows; plain "
-                  f"{r['plain_ms']:.1f} ms  [{card}]")
+            print(f"  {kname} {r['ms']:.4f} ms (device {r['device_ms']}) "
+                  f"over {r['rows']} rows; plain {r['plain_ms']:.1f} ms  "
+                  f"[{card}]")
         for kname in ("interval_shorten", "compact_bitshift_batched"):
             fn = getattr(tk, kname)
             plain = getattr(tk, kname + "_plain")
             for (a, k, _), r in zip(rec[kname], res[kname]):
                 r["ms"] = cuda_ms(lambda: fn(*a, **k), 30, 3)
+                r["device_ms"] = device_ms(lambda: fn(*a, **k))
                 r["plain_ms"] = plain_ms(lambda: plain(*a, **k))
             print(f"  {kname} per launch: "
                   + ", ".join(f"{r['ms']:.4f}" for r in res[kname])
-                  + " ms; plain "
+                  + " ms (device "
+                  + ", ".join(f"{r['device_ms']}" for r in res[kname])
+                  + "); plain "
                   + ", ".join(f"{r['plain_ms']:.1f}" for r in res[kname])
                   + f" ms  [{card}]")
         print_profile(f"{name} @{size}^3", frame, card, 3)
@@ -1044,15 +1152,22 @@ def bound(r):
 
 def ptxas_rows(log):
     """(kernel, K, bucket, registers, stack bytes, spill stores, spill
-    loads) for each instantiation of kernels V and D in nvcc's -Xptxas -v
-    output; bucket 0 is the shared home."""
+    loads) for each instantiation of kernels B, V and D in nvcc's -Xptxas
+    -v output (bucket 0 is the shared home), and of kernel A (K is 1 with
+    widening, 0 without; bucket 0)."""
     import re
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?(voxel_eval_kernel|"
-                      r"deriv_eval_kernel)ILi(\d+)ELi(\d+)E", line)
+                      r"deriv_eval_kernel|pixel_eval_kernel)ILi(\d+)ELi(\d+)E",
+                      line)
         if m:
             cur = [m.group(1), int(m.group(2)), int(m.group(3))]
+            continue
+        m = re.search(r"Function properties for \S*?(interval_shorten_kernel)"
+                      r"ILb(\d)E", line)
+        if m:
+            cur = [m.group(1), int(m.group(2)), 0]
             continue
         if "Function properties for" in line:
             cur = None
@@ -1071,22 +1186,27 @@ def ptxas_rows(log):
 
 
 def print_ptxas(tk3, logs):
-    """Registers, stack frame and spills of every instantiation of V and
-    D in the libraries' nvcc logs (``{library: log}``; bucket 0: the
-    files in shared memory; else local, or for D split by warps).  Every
-    (kernel, K, bucket) must be built, those of ``tk3.MAIN_K`` in the
-    main library.  Returns the instantiations that spill: the run fails
-    on them once every phase has run."""
-    names = {"voxel_eval_kernel": "voxel_eval_3d",
+    """Registers, stack frame and spills of every instantiation of A, B,
+    V and D in the libraries' nvcc logs (``{library: log}``; bucket 0:
+    the files in shared memory; else local, or for D split by warps).
+    Every (kernel, K, bucket) of B, V and D must be built, those of
+    ``tk3.MAIN_K`` in the main library, and both of A's (with and without
+    widening) in the main library.  Returns the instantiations that spill:
+    the run fails on them once every phase has run."""
+    names = {"pixel_eval_kernel": "pixel_eval_runs",
+             "voxel_eval_kernel": "voxel_eval_3d",
              "deriv_eval_kernel": "deriv_eval_3d"}
     spills, built = [], {}
     for lib_name, log in sorted(logs.items()):
         for kern, k, bucket, regs, stack, st, ld in sorted(ptxas_rows(log)):
             built.setdefault((kern, k, bucket), set()).add(lib_name)
-            home = "shared" if bucket == 0 else (
-                f"local/split {bucket} slots" if kern.startswith("deriv")
-                else f"local {bucket} slots")
-            print(f"  ptxas [{lib_name}] {kern} K={k} {home}: {regs} "
+            if kern.startswith("interval"):
+                shape = "widen" if k else "no widening"
+            else:
+                shape = f"K={k} " + ("shared" if bucket == 0 else (
+                    f"local/split {bucket} slots" if kern.startswith("deriv")
+                    else f"local {bucket} slots"))
+            print(f"  ptxas [{lib_name}] {kern} {shape}: {regs} "
                   f"registers, {stack} B stack frame, {st} B spill stores, "
                   f"{ld} B spill loads")
             if st + ld:
@@ -1099,6 +1219,9 @@ def print_ptxas(tk3, logs):
                 check(want in built.get((kern, k, bucket), ()),
                       f"{kern} K={k} bucket {bucket} is not in the {want} "
                       f"library (ptxas saw {sorted(built)})")
+    for widen in (0, 1):
+        check("main" in built.get(("interval_shorten_kernel", widen, 0), ()),
+              f"kernel A (widen {widen}) is not in the main library")
     return spills
 
 
@@ -1127,34 +1250,20 @@ def edge_shapes(tk3, kname, a, k):
     tw = a[8] if kname == "voxel_eval_3d" else a[7]
     gcap, cap = tw.shape
     s_cap = k["s_cap"]
-    out = []
-
-    def add(label, fn):
-        try:
-            launch = fn()
-        except ValueError as e:
-            out.append((label, str(e)))
-            return
-        if all(launch != x for _, x in out):
-            out.append((label, launch))
-
     if kname == "voxel_eval_3d":
-        add("picked", lambda: tk3.voxel_launch(s_cap, cap))
-        for kw in EDGE_V:
-            add(str(kw), lambda kw=kw: tk3.voxel_launch(s_cap, cap, **kw))
-        return out
+        return forced(lambda: tk3.voxel_launch(s_cap, cap),
+                      lambda **kw: tk3.voxel_launch(s_cap, cap, **kw),
+                      EDGE_V)
     tcap = a[3].shape[0]
-    add("picked", lambda: tk3.deriv_launch(s_cap, cap, gcap, tcap))
-    for kw in EDGE_D:
-        def forced(kw=kw):
-            kw = dict(kw)
-            if kw.get("parts") == "most":
-                base = tk3.deriv_launch(s_cap, cap, gcap, tcap,
-                                        **{**kw, "parts": None})
-                kw["parts"] = 4096 // (base.threads * base.k)
-            return tk3.deriv_launch(s_cap, cap, gcap, tcap, **kw)
-        add(str(kw), forced)
-    return out
+
+    def deriv(**kw):
+        if kw.get("parts") == "most":
+            base = tk3.deriv_launch(s_cap, cap, gcap, tcap,
+                                    **{**kw, "parts": None})
+            kw["parts"] = 4096 // (base.threads * base.k)
+        return tk3.deriv_launch(s_cap, cap, gcap, tcap, **kw)
+    return forced(lambda: tk3.deriv_launch(s_cap, cap, gcap, tcap), deriv,
+                  EDGE_D)
 
 
 def bit_mismatches(a, b):
@@ -1173,38 +1282,121 @@ def shape_label(launch):
             + (" full-tape-staged" if launch.stage_full else ""))
 
 
-def run_edges(ctx, results):
-    """Phase 8b: kernels V and D at forced launch shapes on the recorded
-    inputs of both 3D cells, each output against the plain output of
-    phase 7, each shape timed."""
+# Forced launch shapes of kernels A and B in phase 8b, as keyword arguments
+# of interval_launch and pixel_launch.
+EDGE_A = ([dict(threads=t) for t in (32, 64, 128, 256, 512, 1024)]
+          + [dict(threads=t, stage=True) for t in (256, 1024)]
+          + [dict(threads=t, tiles=t, stage=st) for t in (64, 128, 256)
+             for st in (True, False)])
+EDGE_B = ([dict(home="local", k=kk) for kk in (1, 2, 4)]
+          + [dict(home="local", k=2, parts=p) for p in (1, 2, 4, 8)]
+          + [dict(home="local", k=2, threads=128, parts=16)]
+          + [dict(home="shared", k=kk) for kk in (1, 2, 4)]
+          + [dict(home="local", k=2, stage_full=st) for st in (True,
+                                                               False)])
+
+
+def a_label(launch):
+    return (f"threads={launch.threads} tiles={launch.tiles} smem="
+            f"{launch.smem}" + (" staged" if launch.stage else ""))
+
+
+def forced(picked, fn, kws):
+    """(label, launch or the reason it was refused) for the picked shape
+    and each forced one, repeats left out."""
+    out = []
+    for label, kw in [("picked", None)] + [(str(kw), kw) for kw in kws]:
+        try:
+            launch = picked() if kw is None else fn(**kw)
+        except ValueError as e:
+            out.append((label, str(e)))
+            continue
+        if all(launch != x for _, x in out):
+            out.append((label, launch))
+    return out
+
+
+def sweep_one(cell, kname, fn, a, k, shapes, same_as_plain, label_of,
+              sweep, card):
+    """Run ``fn(*a, **k, launch=...)`` at each of ``shapes``, hold it
+    against the plain output (``same_as_plain(out)`` counts mismatches),
+    time it, and add a row to ``sweep``."""
     import torch
-    tk3, card = ctx["tk3"], ctx["card"]
+    for label, launch in shapes:
+        if isinstance(launch, str):
+            print(f"  edge {cell} {kname} {label:24.60s}: refused, does not "
+                  f"fit ({launch})")
+            continue
+        got = fn(*a, **k, launch=launch)
+        torch.cuda.synchronize()
+        bad = same_as_plain(got)
+        del got
+        ms = cuda_ms(lambda: fn(*a, **k, launch=launch), 30, 3)
+        dev = device_ms(lambda: fn(*a, **k, launch=launch))
+        sweep.append({"kernel": kname, "label": label,
+                      "shape": label_of(launch), "ms": ms,
+                      "device_ms": dev, "mismatches": bad})
+        print(f"  edge {cell} {kname} {label:24.60s} [{label_of(launch)}]: "
+              f"{ms:.4f} ms (device {dev}), {bad} mismatches against plain"
+              f"  [{card}]")
+        check(bad == 0, f"{kname} at {label} ({label_of(launch)}) disagrees "
+              f"with its plain version in {cell}")
+
+
+def sweep_a(ctx, cell, entries, plains, sweep):
+    """Kernel A at the forced shapes on each recorded launch."""
+    from mpr_tpu_torch.ops import launch as ln
+    tk = ctx["tk"]
+    for (a, k, _), plain in zip(entries, plains):
+        lv, lanes = levels_of(k), a[3].shape[1]
+
+        def bad(out, plain=plain):
+            n_st, n_codes, _ = a_mismatches(tk, out, plain)
+            return n_st + n_codes
+        shapes = forced(lambda: ln.interval_launch(lv.widths, lanes),
+                        lambda **kw: ln.interval_launch(lv.widths, lanes,
+                                                        **kw), EDGE_A)
+        sweep_one(f"{cell} ({lanes} lanes)", "interval_shorten",
+                  tk.interval_shorten, a, k, shapes, bad, a_label, sweep,
+                  ctx["card"])
+
+
+def run_edges(ctx, results):
+    """Phase 8b: kernels V, D and A at forced launch shapes on the recorded
+    inputs of both 3D cells, A and B on those of both 2D cells, each output
+    against the plain output of phase 3 or 7, each shape timed."""
+    import torch
+    from mpr_tpu_torch.ops import launch as ln
+    tk, tk3, card = ctx["tk"], ctx["tk3"], ctx["card"]
+    for n_blobs, size in CASES:
+        rec, res = ctx["recs2d"][size], results[size]
+        sweep = res["sweep"] = []
+        cell = f"stress_2d({n_blobs}) {size}^2"
+        sweep_a(ctx, cell, rec["interval_shorten"],
+                res["plain"]["interval_shorten"], sweep)
+        a, k, _ = rec["pixel_eval_runs"][0]
+        args = (k["s_cap"], a[7].shape[1], a[1].shape[0], a[3].shape[0])
+        shapes = forced(lambda: ln.pixel_launch(*args),
+                        lambda **kw: ln.pixel_launch(*args, **kw), EDGE_B)
+        pfill = res["plain"]["pixel_eval_runs"]
+        sweep_one(cell, "pixel_eval_runs", tk.pixel_eval_runs, a, k, shapes,
+                  lambda out: int((out != pfill).sum()), shape_label, sweep,
+                  card)
+        res["plain"] = None
     for name, *_ in CASES_3D:
         rec, plain = ctx["recs3d"][name], ctx["plain3d"][name]
         sweep = results[name]["sweep"] = []
         for kname in ("voxel_eval_3d", "deriv_eval_3d"):
             a, k, _ = rec[kname][0]
             n = int(a[0][0])
-            fn = getattr(tk3, kname)
-            for label, launch in edge_shapes(tk3, kname, a, k):
-                if isinstance(launch, str):
-                    print(f"  edge {name} {kname} {label:24.60s}: refused, "
-                          f"does not fit ({launch})")
-                    continue
-                got = fn(*a, **k, launch=launch)
-                torch.cuda.synchronize()
-                bad = bit_mismatches(got[:n], plain[kname][:n])
-                del got
-                ms = cuda_ms(lambda: fn(*a, **k, launch=launch), 30, 3)
-                sweep.append({"kernel": kname, "label": label,
-                              "shape": shape_label(launch), "ms": ms,
-                              "mismatches": bad})
-                print(f"  edge {name} {kname} {label:24.60s} "
-                      f"[{shape_label(launch)}]: {ms:.4f} ms, {bad} bit "
-                      f"mismatches against plain  [{card}]")
-                check(bad == 0, f"{kname} at {label} ({shape_label(launch)})"
-                      f" disagrees with its plain version in {name}")
+            sweep_one(name, kname, getattr(tk3, kname), a, k,
+                      edge_shapes(tk3, kname, a, k),
+                      lambda out: bit_mismatches(out[:n], plain[kname][:n]),
+                      shape_label, sweep, card)
+        sweep_a(ctx, name, rec["interval_shorten"],
+                plain["interval_shorten"], sweep)
         ctx["plain3d"][name] = None
+        torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -1244,7 +1436,8 @@ def main() -> int:
             source = line
             print("  " + line.strip())
         elif ("registers" in line or "spill" in line) and not any(
-                n in source for n in ("voxel_eval", "deriv_eval")):
+                n in source for n in ("voxel_eval", "deriv_eval",
+                                      "pixel_eval.cu", "interval_shorten")):
             print("  " + line.strip())
     spills = print_ptxas(tk3, build.BuildStats.log)
 
@@ -1264,7 +1457,7 @@ def main() -> int:
     sys.stdout.flush()
     effect_rows = run_effects(ctx)
 
-    check(not spills, f"kernel V or D spills registers: {spills}")
+    check(not spills, f"kernel A, B, V or D spills registers: {spills}")
 
     # ---- 12. report -------------------------------------------------------------
     size = CASES[0][1]
@@ -1290,12 +1483,26 @@ def main() -> int:
             r = results[size][name]
             at = f"stress_2d({CASES[0][0]}) {size}^2"
             errs = [results[s][name]["max_abs_err"] for _, s in CASES]
-            extra = {"ms_2048": results[CASES[1][1]][name]["ms"]}
+            extra = {"ms_2048": results[CASES[1][1]][name]["ms"],
+                     "device_ms": r["device_ms"],
+                     "device_ms_2048": results[CASES[1][1]][name][
+                         "device_ms"]}
+            if name == "interval_shorten":
+                extra.update(levels=r["levels"],
+                             dep_bound_ms=r["dep_bound_ms"],
+                             levels_2048=results[CASES[1][1]][name]["levels"],
+                             dep_bound_ms_2048=results[CASES[1][1]][name][
+                                 "dep_bound_ms"])
             if flat_3d:
                 for c, *_ in CASES_3D:
                     extra[f"ms_{c}"] = [x["ms"] for x in results[c][name]]
+                    extra[f"device_ms_{c}"] = [x["device_ms"]
+                                               for x in results[c][name]]
                     extra[f"bound_ms_{c}"] = [bound(x)[0]
                                               for x in results[c][name]]
+                    if name == "interval_shorten":
+                        extra[f"dep_bound_ms_{c}"] = [
+                            x["dep_bound_ms"] for x in results[c][name]]
         else:
             r = results[name3][name]
             at = f"{name3} {CASES_3D[0][3]}^3"
@@ -1303,6 +1510,8 @@ def main() -> int:
             other = CASES_3D[1][0]
             ro = results[other][name]
             extra = {"rows": r["rows"], f"ms_{other}": ro["ms"],
+                     "device_ms": r["device_ms"],
+                     f"device_ms_{other}": ro["device_ms"],
                      f"plain_ms_{other}": ro["plain_ms"],
                      f"bound_ms_{other}": bound(ro)[0],
                      f"bound_by_{other}": bound(ro)[1],
@@ -1326,8 +1535,10 @@ def main() -> int:
             "at": at, **extra,
         })
     print(json.dumps({"effects": effect_rows}))
-    print(json.dumps({"launch_sweep": {c: results[c]["sweep"]
-                                       for c, *_ in CASES_3D}}))
+    sweeps = {f"stress_2d({nb}) {sz}^2": results[sz]["sweep"]
+              for nb, sz in CASES}
+    sweeps.update({c: results[c]["sweep"] for c, *_ in CASES_3D})
+    print(json.dumps({"launch_sweep": sweeps}))
     print(json.dumps({"previous_design_ms": PREVIOUS_DESIGN_MS,
                       "measured_in_this_run": False,
                       "recorded_on": "NVIDIA H100 80GB HBM3, 700.00 W"}))

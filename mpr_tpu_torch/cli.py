@@ -302,7 +302,7 @@ def _tile_stage_2d(tape, size, dev):
                            torch.tensor(0.0, dtype=torch.float32, device=dev))
     status, codes = kernels.interval_shorten(
         td.meta(), td.packed, td.imms, boxes,
-        s_cap=max(8, -(-td.num_slots // 8) * 8))
+        s_cap=max(8, -(-td.num_slots // 8) * 8), levels=td.levels)
     return td, status, codes, torch.as_tensor(remap, device=dev)
 
 

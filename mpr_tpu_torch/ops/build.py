@@ -11,10 +11,11 @@ load it.  The interpreter kernels read the tape at run time, so no new
 tape, capacity or op set ever needs a new build.
 
 There are two libraries (``LIBRARIES``).  ``main`` holds every kernel,
-kernels V and D at the launch shapes the render path picks; ``extra``
-holds V and D at the other shapes (``-DMPR_EXTRA_SHAPES``), which only a
-forced launch shape reaches, so the render path's first use does not
-compile them.
+kernels B, V and D at the launch shapes the render path picks; ``extra``
+holds B, V and D at the other shapes (``-DMPR_EXTRA_SHAPES``), which only
+a forced launch shape reaches, so the render path's first use does not
+compile them.  Kernel A takes every launch shape at run time: both its
+instantiations (with and without widening) are in ``main``.
 
 Numerics: ``--fmad=false`` and no ``--use_fast_math``, with nvcc's IEEE
 defaults for division, square root and denormals kept, so the kernels
@@ -38,7 +39,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library -> (its sources, None for every .cu in csrc/; extra nvcc flags)
 LIBRARIES = {"main": (None, ()),
-             "extra": (("deriv_eval.cu", "voxel_eval.cu"),
+             "extra": (("deriv_eval.cu", "pixel_eval.cu", "voxel_eval.cu"),
                        ("-DMPR_EXTRA_SHAPES",))}
 
 _P = ctypes.c_void_p
@@ -46,9 +47,9 @@ _I = ctypes.c_int
 # C signatures of the entry points, one a source (``mpr_<stem of the .cu>``):
 # every pointer and the stream as c_void_p, every int c_int.
 SIGNATURES = {
-    "mpr_interval_shorten": [_P] * 9 + [_I] * 4 + [_P],
+    "mpr_interval_shorten": [_P] * 6 + [_I] * 16 + [_P],
     "mpr_compact": [_P] * 9 + [_I] * 3 + [_P],
-    "mpr_pixel_eval": [_P] * 13 + [_I] * 3 + [_P],
+    "mpr_pixel_eval": [_P] * 13 + [_I] * 10 + [_P],
     "mpr_voxel_eval": [_P] * 13 + [_I] * 9 + [_P],
     "mpr_deriv_eval": [_P] * 13 + [_I] * 12 + [_P],
     "mpr_pixel_eval_v1": [_P] * 7 + [_I] * 4 + [_P],

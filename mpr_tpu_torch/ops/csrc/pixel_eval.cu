@@ -5,72 +5,102 @@
 // `_make_pixel_run_kernel`), the reference's eval_voxels_f<2> plus
 // copy_filled.
 //
-// Bound on the H100: operations, and in practice the latency of the
-// per-pixel register file.  Each pixel runs its tile's tape (len clauses)
-// once: len float operations per pixel against 16 KB of coordinates in and
-// 16 KB of fill out per tile.  The register file is a per-thread array
-// indexed by slot numbers known only at run time, so it lives in local
-// memory (L1-cached), one load per operand and one store per clause.
+// Bound on the H100: on paper its operations (len float operations a pixel
+// against 16 KB of coordinates in and 16 KB of fill out a tile); in
+// practice the L1 traffic of the interpreter's register file: each clause
+// costs a decode, two operand loads and a store of a file indexed by slot
+// numbers known only at run time.  The first design gave every thread a
+// 256-slot array in local memory whatever the tape's slot count (512 KB of
+// local file a block of 512 threads against 256 KB of L1), ran one pixel
+// at a time, and one block a tile, so tiles of unequal length (96 to 805
+// clauses at 1024^2) left the last of 1.84 waves half-empty.
 //
-// Design: one block per tile row g of `order`; the output goes to
-// fill[order[g], :], so the image is a pure reshape of `fill`.  Blocks with
-// g >= nmeta[0] or a status other than AMBIG write their decision.  An
-// ambiguous block first copies its shortened tape (words, imms, run
-// headers: 3 x cap int32) into shared memory; every thread then walks the
-// same runs for its pixels, so the whole warp takes the same branch and
-// reads the same shared word (a broadcast).  Dispatch is one switch per
-// opcode run, hoisted out of the run's inner loop.  A tile whose tape
-// overflowed `cap` (gmeta[g, 2]) interprets the full tape from global
-// memory instead.  Keeping several pixels' registers per thread, or the
-// register file in shared memory, is later work.
+// Design: the register file, the tape walk and the work queue of
+// regfile.cuh (as kernel V): the file sized by the slot bucket s_cap, in
+// shared memory for a short tape, in a bucket-sized local array for a
+// long one (stress_2d: 173 slots, local, K = 2); K pixels a thread, so each
+// clause's word is read and decoded once for K pixels; a thread's K pixels
+// are neighbours, so their coordinates come in one 16-byte load (K = 4)
+// and their fill goes out in one store.  Grid (rows, P): block (g, j) runs
+// pixels [j * 4096/P, (j+1) * 4096/P) of row g of `order`, so a long tile
+// is spread over P blocks and the card's block scheduler balances tiles of
+// unequal length without a host read; the host picks P so that the grid
+// fills the card (ops/launch.py::pixel_launch).  A warp takes 32 x K
+// pixels at a time from the block's work queue.  The output goes to
+// fill[order[g], :], so the image is a pure reshape of `fill`.  Blocks of
+// rows g >= nmeta[0] or with a status other than AMBIG write their
+// decision.  An ambiguous block stages its shortened tape (words, imms,
+// run headers: 3 x cap int32) in shared memory; a tile whose tape
+// overflowed `cap` (gmeta[g, 2]) runs the full tape, staged too where the
+// host found room (stage_full), else from global memory.  A tape with
+// more slots than s_cap traps.
+//
+// Two libraries hold the instantiations (ops/build.py): the main one the
+// shapes pixel_launch picks (K = 4 shared, K = 2 local), the extra one,
+// built with MPR_EXTRA_SHAPES, the others, which only a forced launch
+// shape reaches (ops/launch.py::MAIN_K says which is which).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "clause.cuh"
+#include "regfile.cuh"
 
 namespace {
 
 using namespace mpr;
 
-constexpr int REG_CAP = 256;  // slot numbers are bytes
-constexpr int THREADS = 512;
+constexpr int TILE_PIXELS = 4096;
 
-template <int OP>
-__device__ __forceinline__ void run_clauses(float* regs,
-                                            const uint32_t* words,
-                                            const float* imms, int t0,
-                                            int cnt) {
-  for (int k = 0; k < cnt; ++k) {
-    const uint32_t w = words[t0 + k];
-    regs[w_out(w)] = float_op<OP>(regs[w_lhs(w)], regs[w_rhs(w)],
-                                  imms[t0 + k]);
+template <int K, class File>
+__device__ __forceinline__ void eval_pixels(File& f, const int* nmeta,
+                                            int* smem, const float* c,
+                                            const uint32_t* W,
+                                            const float* I, const int* R,
+                                            int n_runs, int* out) {
+  using FG = Group<float, K>;
+  using IG = Group<int, K>;
+  const int res = nmeta[2], sx = nmeta[3], sy = nmeta[4], sz = nmeta[5];
+  const int lane = threadIdx.x & 31;
+  const int per = TILE_PIXELS / gridDim.y;
+  const int first = blockIdx.y * per;
+  for (;;) {
+    const int chunk = next_chunk(smem + QUEUE_INT);
+    if (chunk >= per / (32 * K)) break;
+    // this thread's K neighbouring pixels
+    const int l = first + chunk * 32 * K + lane * K;
+    const FG gx = *reinterpret_cast<const FG*>(c + l);
+    const FG gy = *reinterpret_cast<const FG*>(c + TILE_PIXELS + l);
+    const FG gz = *reinterpret_cast<const FG*>(c + 2 * TILE_PIXELS + l);
+    float x[K], y[K], z[K], zero[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      x[k] = gx.v[k];
+      y[k] = gy.v[k];
+      z[k] = gz.v[k];
+      zero[k] = 0.0f;
+    }
+    f.store(sx, x);
+    f.store(sy, y);
+    f.store(sz, z);
+    f.store(0, zero);  // slot 0: the "no operand" sentinel
+    run_tape<FloatClause, K>(f, smem, W, I, R, n_runs);
+    f.load(res, x);
+    IG o;
+#pragma unroll
+    for (int k = 0; k < K; ++k) o.v[k] = x[k] < 0.0f ? 1 : 0;
+    *reinterpret_cast<IG*>(out + l) = o;
   }
 }
 
-__device__ __forceinline__ void run_dispatch(int op, float* regs,
-                                             const uint32_t* words,
-                                             const float* imms, int t0,
-                                             int cnt) {
-  switch (op) {
-#define MPR_CASE(o) \
-  case o: run_clauses<o>(regs, words, imms, t0, cnt); break;
-    MPR_CASE(2) MPR_CASE(3) MPR_CASE(4) MPR_CASE(5) MPR_CASE(6) MPR_CASE(7)
-    MPR_CASE(8) MPR_CASE(9) MPR_CASE(10) MPR_CASE(11) MPR_CASE(12)
-    MPR_CASE(13) MPR_CASE(14) MPR_CASE(15) MPR_CASE(16) MPR_CASE(17)
-    MPR_CASE(18) MPR_CASE(19) MPR_CASE(20) MPR_CASE(21) MPR_CASE(22)
-    MPR_CASE(23) MPR_CASE(24) MPR_CASE(25) MPR_CASE(26) MPR_CASE(27)
-    MPR_CASE(28) MPR_CASE(29) MPR_CASE(30) MPR_CASE(31)
-#undef MPR_CASE
-    default: break;  // branch id 0 and unknown ops: no-op runs
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
+// N == 0: the register files in shared memory; else in local memory, N
+// slots a thread.
+template <int K, int N>
+__global__ void __launch_bounds__(512, 1)
 pixel_eval_kernel(const int* __restrict__ nmeta,  // [n_amb, S, res, sx, sy, sz, n_runs_full, 0]
                   const int* __restrict__ order,
                   const int* __restrict__ status,
-                  const uint32_t* __restrict__ words,  // full tape
+                  const uint32_t* __restrict__ words,  // full tape (tcap,)
                   const float* __restrict__ imms,
                   const int* __restrict__ runs_full,
                   const int* __restrict__ bid_op,      // (256,) branch id -> op
@@ -78,43 +108,43 @@ pixel_eval_kernel(const int* __restrict__ nmeta,  // [n_amb, S, res, sx, sy, sz,
                   const float* __restrict__ ti,
                   const int* __restrict__ runs,
                   const int* __restrict__ gmeta,       // (gcap, 8)
-                  const float* __restrict__ coords,    // (n_tiles, 3, P)
-                  int* __restrict__ fill,              // (n_tiles, P)
-                  int cap, int P) {
-  extern __shared__ int smem[];
-  __shared__ int sop[256];
+                  const float* __restrict__ coords,    // (n_tiles, 3, 4096)
+                  int* __restrict__ fill,              // (n_tiles, 4096)
+                  int cap, int s_cap, int tcap, int stage_full) {
+  extern __shared__ __align__(16) int smem[];
+  if (nmeta[1] > s_cap) __trap();  // the file has s_cap slots
   const int g = blockIdx.x;
   const int tile = order[g];
   const int st = status[tile];
-  int* out = fill + (size_t)tile * P;
+  int* out = fill + (size_t)tile * TILE_PIXELS;
   if (g >= nmeta[0] || st != ST_AMBIG) {
-    const int v = st == ST_FILLED ? 1 : 0;
-    for (int p = threadIdx.x; p < P; p += blockDim.x) out[p] = v;
+    const int per = TILE_PIXELS / gridDim.y;
+    const int4 v = make_int4(st == ST_FILLED, st == ST_FILLED,
+                             st == ST_FILLED, st == ST_FILLED);
+    int4* o = reinterpret_cast<int4*>(out + blockIdx.y * per);
+    for (int p = threadIdx.x; p < per / 4; p += blockDim.x) o[p] = v;
     return;
   }
 
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) sop[i] = bid_op[i];
-  const uint32_t* W;
-  const float* I;
-  const int* R;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) smem[i] = bid_op[i];
+  if (threadIdx.x == 0) smem[QUEUE_INT] = 0;
+  const int T = stage_full ? max(cap, tcap) : cap;
+  int* st_tape = smem + HEADER_INTS;
+  const uint32_t* W = reinterpret_cast<const uint32_t*>(st_tape);
+  const float* I = reinterpret_cast<const float*>(st_tape + T);
+  const int* R = st_tape + 2 * T;
   int n_runs;
   if (gmeta[(size_t)g * 8 + 2] == 0) {
-    const int n = min(gmeta[(size_t)g * 8 + 0], cap);
-    n_runs = min(gmeta[(size_t)g * 8 + 1], cap);
-    uint32_t* sw = reinterpret_cast<uint32_t*>(smem);
-    float* si = reinterpret_cast<float*>(smem + cap);
-    int* sr = smem + 2 * cap;
     const size_t row = (size_t)g * cap;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      sw[k] = (uint32_t)tw[row + k];
-      si[k] = ti[row + k];
-    }
-    for (int k = threadIdx.x; k < n_runs; k += blockDim.x) sr[k] = runs[row + k];
-    W = sw;
-    I = si;
-    R = sr;
+    n_runs = min(gmeta[(size_t)g * 8 + 1], cap);
+    stage_tape(st_tape, T, tw + row, ti + row, runs + row,
+               min(gmeta[(size_t)g * 8 + 0], cap), n_runs);
+  } else if (stage_full) {
+    // overflow: the reference keeps the parent tape, here staged whole
+    n_runs = nmeta[6];
+    stage_tape(st_tape, T, reinterpret_cast<const int*>(words), imms,
+               runs_full, tcap, n_runs);
   } else {
-    // overflow: the reference keeps the parent tape
     W = words;
     I = imms;
     R = runs_full;
@@ -122,48 +152,88 @@ pixel_eval_kernel(const int* __restrict__ nmeta,  // [n_amb, S, res, sx, sy, sz,
   }
   __syncthreads();
 
-  const int res = nmeta[2], sx = nmeta[3], sy = nmeta[4], sz = nmeta[5];
-  const float* c = coords + (size_t)tile * 3 * P;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    float regs[REG_CAP];
-    regs[sx] = c[p];
-    regs[sy] = c[P + p];
-    regs[sz] = c[2 * P + p];
-    regs[0] = 0.0f;  // slot 0: the "no operand" sentinel
-    int t0 = 0;
-    for (int r = 0; r < n_runs; ++r) {
-      const int hdr = R[r];
-      const int cnt = hdr >> 8;
-      run_dispatch(sop[hdr & 0xFF], regs, W, I, t0, cnt);
-      t0 += cnt;
-    }
-    out[p] = regs[res] < 0.0f ? 1 : 0;
+  const float* c = coords + (size_t)tile * 3 * TILE_PIXELS;
+  if constexpr (N == 0) {
+    SharedFile<float, K> f(reinterpret_cast<float*>(st_tape + tape_ints(T)),
+                           blockDim.x);
+    eval_pixels<K>(f, nmeta, smem, c, W, I, R, n_runs, out);
+  } else {
+    LocalFile<float, K, N> f;
+    eval_pixels<K>(f, nmeta, smem, c, W, I, R, n_runs, out);
+  }
+}
+
+using PixelKernel = decltype(&pixel_eval_kernel<1, 0>);
+
+#ifdef MPR_EXTRA_SHAPES
+constexpr bool EXTRA = true;
+#else
+constexpr bool EXTRA = false;
+#endif
+
+// The instantiation for K and N, if this library holds it.
+template <int K, int N>
+PixelKernel kernel() {
+  constexpr bool in_main = K == (N == 0 ? 4 : 2);
+  if constexpr (in_main != EXTRA) return pixel_eval_kernel<K, N>;
+  return nullptr;
+}
+
+template <int K>
+PixelKernel pick_n(int bucket) {
+  switch (bucket) {
+    case 0: return kernel<K, 0>();
+    case 16: return kernel<K, 16>();
+    case 32: return kernel<K, 32>();
+    case 64: return kernel<K, 64>();
+    case 128: return kernel<K, 128>();
+    case 256: return kernel<K, 256>();
+    default: return nullptr;
+  }
+}
+
+PixelKernel pick(int k, int bucket) {
+  switch (k) {
+    case 1: return pick_n<1>(bucket);
+    case 2: return pick_n<2>(bucket);
+    case 4: return pick_n<4>(bucket);
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
+// bucket 0: the register files in shared memory; 16..256: in local memory,
+// that many slots.  parts is P, the blocks a row; smem the dynamic shared
+// memory the host computed for the shape (ops/launch.py::pixel_launch,
+// which also checks it); a shape this library does not hold returns
+// cudaErrorInvalidValue.
 extern "C" int mpr_pixel_eval(const void* nmeta, const void* order,
                               const void* status, const void* words,
                               const void* imms, const void* runs_full,
                               const void* bid_op, const void* tw,
                               const void* ti, const void* runs,
                               const void* gmeta, const void* coords,
-                              void* fill, int gcap, int cap, int P,
+                              void* fill, int gcap, int cap, int s_cap,
+                              int tcap, int bucket, int threads, int k,
+                              int parts, int stage_full, int smem,
                               void* stream) {
-  const size_t shmem = (size_t)3 * cap * sizeof(int);
+  const PixelKernel fn = pick(k, bucket);
+  // whole warps (the work queue's full-warp shuffles), whole chunks a block
+  if (fn == nullptr || threads % 32 || parts < 1 ||
+      TILE_PIXELS % (32 * k * parts))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      pixel_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shmem);
+      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  pixel_eval_kernel<<<gcap, THREADS, shmem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  fn<<<dim3(gcap, parts), threads, smem,
+       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(nmeta), static_cast<const int*>(order),
       static_cast<const int*>(status), static_cast<const uint32_t*>(words),
       static_cast<const float*>(imms), static_cast<const int*>(runs_full),
       static_cast<const int*>(bid_op), static_cast<const int*>(tw),
       static_cast<const float*>(ti), static_cast<const int*>(runs),
       static_cast<const int*>(gmeta), static_cast<const float*>(coords),
-      static_cast<int*>(fill), cap, P);
+      static_cast<int*>(fill), cap, s_cap, tcap, stage_full);
   return (int)cudaGetLastError();
 }

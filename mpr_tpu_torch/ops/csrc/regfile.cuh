@@ -1,15 +1,16 @@
 // The interpreter's register file, sized by the tape's slot bucket s_cap,
 // and the walk of a tape's opcode runs over it.
 //
-// Users: kernel V (voxel_eval.cu, a float a slot) and kernel D
-// (deriv_eval.cu, a dual number a slot); kernel B (pixel_eval.cu) can take
-// it as it stands.  Kernel V and D's head comments say why each needs it.
+// Users: kernels B (pixel_eval.cu) and V (voxel_eval.cu), a float a slot,
+// and kernel D (deriv_eval.cu), a dual number a slot.  Their head comments
+// say why each needs it.
 //
 // A thread interprets K items (voxels, pixels) at once: each clause word
 // and immediate is read from shared memory and decoded once for K items,
 // and the K chains are independent, which gives each warp K-fold
 // instruction-level parallelism.  The file has two homes, chosen on the
-// host (ops/kernels3d.py::voxel_launch, deriv_launch):
+// host (ops/launch.py::pixel_launch, ops/kernels3d.py::voxel_launch,
+// deriv_launch):
 //   * SharedFile: dynamic shared memory, s_cap x K x threads items, laid
 //     out [slot][K/G][thread][G] with G items (at most 16 bytes) moved by
 //     one access: a thread's K floats side by side, a dual number 16 bytes.
@@ -28,7 +29,7 @@
 // count (nmeta[1]) exceeds s_cap, so no access leaves the file.
 //
 // Dynamic shared memory of a block, in int32 words (the host mirrors it in
-// ops/kernels3d.py: SMEM_HEADER, _tape_bytes):
+// ops/launch.py: SMEM_HEADER, _tape_bytes):
 //   [0, 256)               branch id -> opcode
 //   [256, 272)             the camera matrix
 //   [272, 320)             kernel V: the cell's 16 world coordinates a axis

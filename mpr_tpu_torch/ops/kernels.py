@@ -41,6 +41,8 @@ import torch
 from ..tape.opcodes import CHOICE_OP_HI, CHOICE_OP_LO, NUM_OPS, Op
 from . import build
 from . import interval_math as im
+from . import launch as ln
+from . import schedule as sch
 from . import transcendental as tc
 
 # Tile status.
@@ -56,7 +58,7 @@ CODE_COPY_RHS = 3
 CODE_COPY_IMM = 4
 
 SLOT_CAP = 192
-# Kernel B keeps a per-pixel register array of this many slots.
+# Slot numbers are bytes: a register file holds at most this many slots.
 REG_CAP = 256
 
 
@@ -124,6 +126,20 @@ def _launch(fn, *args):
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+
+
+_BID_TABLES = {}
+
+
+def _bid_table_on(branch_ops, dev) -> torch.Tensor:
+    """:func:`bid_table` of ``branch_ops`` on ``dev``, copied there once
+    per (branch set, device) and kept."""
+    key = (tuple(branch_ops), str(dev))
+    table = _BID_TABLES.get(key)
+    if table is None:
+        table = _BID_TABLES[key] = torch.as_tensor(bid_table(branch_ops),
+                                                   device=dev)
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -284,12 +300,42 @@ def _decode(words: torch.Tensor):
             ((w >> 16) & 0xFF).tolist(), ((w >> 24) & 0xFF).tolist())
 
 
+def _pack_codes(nib, tcap: int):
+    """(T, lanes) 4-bit codes -> (lanes, tcap // 8) int32, nibble t % 8 of
+    word t // 8, zero past T."""
+    T, la = nib.shape
+    full = torch.zeros(tcap, la, dtype=torch.int32, device=nib.device)
+    full[:T] = nib
+    shifts = 4 * torch.arange(8, dtype=torch.int32, device=nib.device)
+    packed = (full.reshape(tcap // 8, 8, la) << shifts[None, :, None]).sum(
+        dim=1, dtype=torch.int32)
+    return packed.T
+
+
+def _sweep_code(op, out, lhs, rhs, is_act, choice):
+    """One clause of the backward sweep: (code, mark lhs, mark rhs) for all
+    lanes, ``choice`` the clause's recorded choices (None for a clause
+    that records none).  The lhs mark applies only where lhs != 0, which
+    the caller checks."""
+    if CHOICE_OP_LO <= op <= CHOICE_OP_HI:
+        keep_both, ch_lhs, ch_rhs = choice == 0, choice == 1, choice == 2
+        code = torch.where(keep_both, CODE_KEEP, torch.where(
+            ch_lhs, CODE_COPY_LHS,
+            CODE_COPY_RHS if rhs != 0 else CODE_COPY_IMM))
+        elide = ch_lhs & (lhs == out) | ch_rhs & (rhs != 0 and rhs == out)
+        code = torch.where(elide | ~is_act, CODE_DROP, code)
+        return (code, is_act & (keep_both | ch_lhs),
+                is_act & (keep_both | ch_rhs & (rhs != 0)))
+    return torch.where(is_act, CODE_KEEP, CODE_DROP), is_act, is_act
+
+
 def interval_shorten_plain(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
-                           widen=False):
+                           widen=False, levels=None, launch=None):
     """Plain PyTorch kernel A: one clause at a time across all lanes.
 
-    Same signature and outputs as :func:`interval_shorten`; lanes at or
-    past ``meta[7]`` (when nonzero) do no work and come back zero."""
+    Same signature and outputs as :func:`interval_shorten` (``levels`` and
+    ``launch`` are the kernel's and ignored here); lanes at or past
+    ``meta[7]`` (when nonzero) do no work and come back zero."""
     lanes = boxes.shape[1]
     tcap = words.shape[0]
     dev = boxes.device
@@ -336,38 +382,89 @@ def interval_shorten_plain(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
     ci = len(choices)
     for t in range(T - 1, -1, -1):
         op, out, lhs, rhs = ops[t], outs[t], lhss[t], rhss[t]
-        is_act = act[out]
+        choice = None
         if CHOICE_OP_LO <= op <= CHOICE_OP_HI:
             ci -= 1
             choice = choices[ci]
-            keep_both, ch_lhs, ch_rhs = choice == 0, choice == 1, choice == 2
-            code = torch.where(keep_both, CODE_KEEP, torch.where(
-                ch_lhs, CODE_COPY_LHS,
-                CODE_COPY_RHS if rhs != 0 else CODE_COPY_IMM))
-            elide = ch_lhs & (lhs == out) | ch_rhs & (rhs != 0 and rhs == out)
-            code = torch.where(elide | ~is_act, CODE_DROP, code)
-            mark_lhs = is_act & (keep_both | ch_lhs)
-            mark_rhs = is_act & (keep_both | ch_rhs & (rhs != 0))
-        else:
-            code = torch.where(is_act, CODE_KEEP, CODE_DROP)
-            mark_lhs = mark_rhs = is_act
-        nib[t] = code
+        nib[t], mark_lhs, mark_rhs = _sweep_code(op, out, lhs, rhs, act[out],
+                                                 choice)
         act[out] = false
         if lhs != 0:
             act[lhs] = act[lhs] | mark_lhs
         act[rhs] = act[rhs] | mark_rhs
+    codes[:la] = _pack_codes(nib, tcap)
+    return status, codes
 
-    full = torch.zeros(tcap, la, dtype=torch.int32, device=dev)
-    full[:T] = nib
-    shifts = 4 * torch.arange(8, dtype=torch.int32, device=dev)
-    packed = (full.reshape(tcap // 8, 8, la) << shifts[None, :, None]).sum(
-        dim=1, dtype=torch.int32)
-    codes[:la] = packed.T
+
+def _interval_shorten_levels(meta, words, imms, boxes, levels, *,
+                             widen=False):
+    """Kernel A's algorithm in plain PyTorch, for the tests: the clauses in
+    the level order of ``levels`` (:func:`schedule.tape_levels`), one
+    interval kept per clause, operands read from their producers'
+    positions or the seeds, choices kept per clause; backward in reverse
+    level order, each active clause marking its producers' positions.
+    Same outputs as :func:`interval_shorten_plain`; no render path calls
+    it."""
+    lanes = boxes.shape[1]
+    tcap = words.shape[0]
+    dev = boxes.device
+    T, _, res, sx, sy, sz, _, n_active = (int(v) for v in meta.tolist())
+    if levels.key != (T, res, sx, sy, sz):
+        raise ValueError(f"schedule of {levels.key}, tape {T, res, sx, sy, sz}")
+    la = lanes if n_active <= 0 else min(lanes, n_active)
+    status = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    codes = torch.zeros(lanes, tcap // 8, dtype=torch.int32, device=dev)
+    if la == 0:
+        return status, codes
+    h = levels.host
+    planes = levels.planes.cpu().numpy()
+    ops, outs, lhss, rhss = _decode(torch.from_numpy(planes[0, :T]))
+    imm_f = planes[1, :T].view(np.float32).tolist()
+    offs = levels.offsets.cpu().tolist()
+    b = boxes[:, :la]
+    zero = torch.zeros(la, dtype=torch.float32, device=dev)
+    seeds = {sch.SEED_ZERO: (zero, zero), sch.SEED_X: (b[0], b[1]),
+             sch.SEED_Y: (b[2], b[3]), sch.SEED_Z: (b[4], b[5])}
+    iv, cho = [None] * T, [None] * T
+
+    def operand(src):
+        return iv[src] if src >= 0 else seeds[src]
+
+    for lvl in range(levels.n_levels):
+        for i in range(offs[lvl], offs[lvl + 1]):
+            op = ops[i]
+            if op <= Op.JUMP or op >= NUM_OPS:
+                continue
+            al, ah = operand(int(h["lhs_src"][i]))
+            bl, bh = operand(int(h["rhs_src"][i]))
+            lo, hi, cho[i] = interval_clause(op, al, ah, bl, bh, imm_f[i])
+            iv[i] = im.widen(torch, lo, hi) if widen else (lo, hi)
+
+    rlo, rhi = operand(levels.res_src)
+    st = torch.where(rlo > 0.0, ST_EMPTY,
+                     torch.where(rhi < 0.0, ST_FILLED, ST_AMBIG))
+    status[:la] = st.to(torch.int32)
+
+    false = torch.zeros(la, dtype=torch.bool, device=dev)
+    act = [false] * T
+    if levels.res_mark >= 0:
+        act[levels.res_mark] = st == ST_AMBIG
+    nib = torch.zeros(T, la, dtype=torch.int32, device=dev)
+    for lvl in range(levels.n_levels - 1, -1, -1):
+        for i in range(offs[lvl], offs[lvl + 1]):
+            code, mark_lhs, mark_rhs = _sweep_code(
+                ops[i], outs[i], lhss[i], rhss[i], act[i], cho[i])
+            nib[int(h["order"][i])] = code
+            for tgt, mark in ((int(h["mark_l"][i]), mark_lhs),
+                              (int(h["mark_r"][i]), mark_rhs)):
+                if tgt >= 0:
+                    act[tgt] = act[tgt] | mark
+    codes[:la] = _pack_codes(nib, tcap)
     return status, codes
 
 
 def interval_shorten(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
-                     widen=False):
+                     widen=False, levels=None, launch=None):
     """Kernel A over ``lanes`` tiles with one shared tape.
 
     Args:
@@ -378,6 +475,12 @@ def interval_shorten(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
       boxes: (6, lanes) f32 — xl xh yl yh zl zh per tile
       s_cap: slot bucket (> every slot number of the tape)
       widen: widen every interval result outward (config.widen_intervals)
+      levels: the tape's dependency schedule (:func:`schedule.tape_levels`
+        on the boxes' device), or a function that returns it (called only
+        when the kernel runs: ``TapeData.levels``); without one the
+        wrapper reads ``meta`` back and builds it from ``words``
+      launch: a forced launch shape (one :func:`launch.interval_launch`
+        can give; default: the one it picks for the schedule and lanes)
 
     Returns:
       status: (lanes,) int32; codes: (lanes, Tcap//8) int32, nibble t%8 of
@@ -395,18 +498,31 @@ def interval_shorten(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
     if tcap % 16 or not 8 <= s_cap <= REG_CAP:
         raise ValueError(f"bad tcap {tcap} or s_cap {s_cap}")
     dev = boxes.device
+    if callable(levels):
+        levels = levels()
+    if levels is None:
+        m = [int(v) for v in meta.tolist()]
+        levels = sch.tape_levels(words, imms, m[0], m[2], m[3:6], device=dev)
+    if levels.planes.device != dev or levels.length > tcap:
+        raise ValueError(f"schedule of {levels.length} clauses on "
+                         f"{levels.planes.device} for a tape of capacity "
+                         f"{tcap} on {dev}")
+    if launch is None:
+        launch = ln.interval_launch(levels.widths, lanes)
+    else:
+        ln.check_interval_launch(launch, levels.length)
     status = torch.empty(lanes, dtype=torch.int32, device=dev)
     codes = torch.empty(lanes, tcap // 8, dtype=torch.int32, device=dev)
-    regs = torch.empty(2, s_cap, lanes, dtype=torch.float32, device=dev)
-    act = torch.empty(s_cap, lanes, dtype=torch.int32, device=dev)
-    cho = torch.empty(tcap // 16 + 1, lanes, dtype=torch.int32, device=dev)
     if lanes:
         with torch.cuda.device(dev):
             _launch(build.lib().mpr_interval_shorten, meta.data_ptr(),
-                    words.data_ptr(), imms.data_ptr(), boxes.data_ptr(),
-                    status.data_ptr(), codes.data_ptr(), regs.data_ptr(),
-                    act.data_ptr(), cho.data_ptr(), lanes, tcap, s_cap,
-                    int(bool(widen)), _stream())
+                    levels.planes.data_ptr(), levels.offsets.data_ptr(),
+                    boxes.data_ptr(), status.data_ptr(), codes.data_ptr(),
+                    lanes, tcap, levels.length, levels.padded,
+                    levels.n_levels, levels.res_src, levels.res_mark,
+                    *levels.key[1:], launch.threads, launch.tiles,
+                    int(launch.stage), int(bool(widen)), launch.smem,
+                    _stream())
         _interval_shorten.launches += 1
     return status, codes
 
@@ -716,10 +832,12 @@ def _run_programs(progs, regs, clause, min_op=int(Op.JUMP)):
 
 
 def pixel_eval_runs_plain(nmeta, order, status, words, imms, runs_full,
-                          branch_ops, tw, ti, runs, gmeta, coords, s_cap):
+                          branch_ops, tw, ti, runs, gmeta, coords, s_cap,
+                          launch=None):
     """Plain PyTorch kernel B: clause ``t`` of every ambiguous tile steps
     together, operands gathered by each tile's own slot numbers.  Same
-    signature and outputs as :func:`pixel_eval_runs`."""
+    signature and outputs as :func:`pixel_eval_runs` (``launch`` is the
+    kernel's and ignored here)."""
     n_tiles, _, P = coords.shape
     dev = coords.device
     nm = [int(v) for v in nmeta.tolist()]
@@ -750,7 +868,8 @@ def pixel_eval_runs_plain(nmeta, order, status, words, imms, runs_full,
 
 
 def pixel_eval_runs(nmeta, order, status, words, imms, runs_full,
-                    branch_ops, tw, ti, runs, gmeta, coords, s_cap: int):
+                    branch_ops, tw, ti, runs, gmeta, coords, s_cap: int,
+                    launch: ln.Launch = None):
     """Kernel B.
 
     nmeta: (8,) int32 [n_amb, S, res, sx, sy, sz, n_runs_full, 0]
@@ -759,7 +878,10 @@ def pixel_eval_runs(nmeta, order, status, words, imms, runs_full,
     words/imms/runs_full: the full tape, runs' op byte a branch id;
     branch_ops: tuple of opcodes, branch id i+1 -> branch_ops[i]
     (build_remap); tw/ti/runs/gmeta: kernel C outputs, ROW order;
-    coords: (n_tiles, 3, P) f32 pixel x/y/z, TILE order.
+    coords: (n_tiles, 3, P) f32 pixel x/y/z, TILE order; s_cap: the slot
+    bucket, the register file's size (a tape with more slots traps);
+    launch: a forced launch shape (one :func:`launch.pixel_launch` can
+    give; default: the one it picks for ``gcap`` rows).
 
     Returns fill: (n_tiles, P) int32 0/1 in TILE order — ambiguous tiles
     carry per-pixel signs, the others their interval decision.
@@ -784,23 +906,31 @@ def pixel_eval_runs(nmeta, order, status, words, imms, runs_full,
     _check(runs, "runs", torch.int32, (tw.shape[0], cap))
     _check(gmeta, "gmeta", torch.int32, (tw.shape[0], 8))
     _check(coords, "coords", torch.float32, (n_tiles, 3, P))
-    if tw.shape[0] < gcap or gcap > n_tiles or cap > 16384:
+    if tw.shape[0] < gcap or gcap > n_tiles or cap > 16384 or P != 4096:
         raise ValueError(f"bad shapes: {tw.shape[0]} tape rows, {gcap} "
-                         f"order rows, {n_tiles} tiles, cap {cap}")
+                         f"order rows, {n_tiles} tiles, cap {cap}, {P} "
+                         "pixels a tile")
     if not s_cap <= REG_CAP or len(branch_ops) > 255:
         raise ValueError(f"s_cap {s_cap} or {len(branch_ops)} branches "
                          "out of range")
+    if launch is None:
+        launch = ln.pixel_launch(s_cap, cap, gcap, tcap)
+    else:
+        ln.check_pixel_launch(launch, s_cap, cap, tcap)
     dev = coords.device
-    table = torch.as_tensor(bid_table(branch_ops), device=dev)
+    table = _bid_table_on(branch_ops, dev)
     fill = torch.empty(n_tiles, P, dtype=torch.int32, device=dev)
     if gcap:
+        fn = build.lib(ln.library("pixel_eval_runs", launch)).mpr_pixel_eval
         with torch.cuda.device(dev):
-            _launch(build.lib().mpr_pixel_eval, nmeta.data_ptr(), order.data_ptr(),
+            _launch(fn, nmeta.data_ptr(), order.data_ptr(),
                     status.data_ptr(), words.data_ptr(), imms.data_ptr(),
                     runs_full.data_ptr(), table.data_ptr(), tw.data_ptr(),
                     ti.data_ptr(), runs.data_ptr(), gmeta.data_ptr(),
-                    coords.data_ptr(), fill.data_ptr(), gcap, cap, P,
-                    _stream())
+                    coords.data_ptr(), fill.data_ptr(), gcap, cap, s_cap,
+                    tcap, launch.bucket, launch.threads, launch.k,
+                    launch.blocks_per_row, int(launch.stage_full),
+                    launch.smem, _stream())
         _pixel_eval_runs.launches += 1
     return fill
 

@@ -29,7 +29,7 @@ shape (``launch=``), which the wrapper checks.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -37,8 +37,13 @@ import torch
 from ..tape.opcodes import Op
 from . import build
 from . import transcendental as tc
-from .kernels import (REG_CAP, _check, _launch, _on_cuda, _run_programs,
-                      _stream, _tile_programs, bid_table, float_clause)
+from .kernels import (REG_CAP, _bid_table_on, _check, _launch, _on_cuda,
+                      _run_programs, _stream, _tile_programs, bid_table,
+                      float_clause)
+from .launch import (BUCKETS, KS, MAIN_K, PARTS, SM_COUNT, SM_SHARED,  # noqa: F401
+                     SMEM_HEADER, SMEM_LIMIT, STAGE_MAX, THREADS, Launch,
+                     _check_shape, _most_shared_warps, _resident, _shape,
+                     _tape_bytes, library, local_bucket)
 
 CELL = 16          # voxels per cell edge
 CELL_VOXELS = CELL ** 3
@@ -50,94 +55,19 @@ PLAIN_ROWS = 1 << 26
 
 
 # ---------------------------------------------------------------------------
-# Launch shapes of kernels V and D (csrc/regfile.cuh)
+# Launch shapes of kernels V and D (csrc/regfile.cuh; the shape helpers
+# they share with kernel B are in ops/launch.py)
 # ---------------------------------------------------------------------------
 
-SMEM_LIMIT = 232_448     # dynamic shared memory a block may use (H100)
-SM_SHARED = 233_472      # shared memory of an SM; each block reserves 1 KB
-SM_COUNT = 132
-SM_THREADS = 2048
-# branch table, camera matrix, V's table of world coordinates, the work
-# queue's counter (csrc/regfile.cuh)
-SMEM_HEADER = 4 * (256 + 16 + 48 + 4)
-THREADS = (512, 256, 128, 64)
-KS = (1, 2, 4)
-PARTS = (1, 2, 4, 8, 16, 32, 64)
-BUCKETS = (16, 32, 64, 128, 256)
 V_SHARED = (256, 4)      # V, files in shared memory: threads, K
 V_LOCAL = (256, 2)       # V, files in local memory: threads, K
 D_SPLIT = (256, 1)       # D, files split or local: threads, K
 D_MIN_WARPS = 4          # D: warps an SM needs in the shared home
-D_STAGE_MAX = 65_536     # D: an overflowed row's full tape is staged in
+D_STAGE_MAX = STAGE_MAX  # D: an overflowed row's full tape is staged in
 #                          shared memory where it takes at most this
 # D at K = 4 needs more than 128 registers a thread: its instantiations are
 # built for at most 256 threads (csrc/deriv_eval.cu, max_threads)
 D_MAX_THREADS_K4 = 256
-# K of the instantiations in the main library, by kernel, for the shared
-# home (bucket 0) and for local files (a bucket): the shapes the launch
-# functions pick.  The extra library holds the other K (ops/build.py;
-# csrc/voxel_eval.cu, deriv_eval.cu: kernel<K, N>()).
-MAIN_K = {"voxel_eval_3d": (V_SHARED[1], V_LOCAL[1]),
-          "deriv_eval_3d": (1, D_SPLIT[1])}
-
-
-@dataclass(frozen=True)
-class Launch:
-    """One launch shape of kernel V or D.
-
-    ``home``: where the register files live: ``"shared"`` (every warp's in
-    shared memory), ``"local"`` (in local memory) or, for D only,
-    ``"split"`` (the first ``shared_warps`` warps' in shared memory, the
-    others' in local memory); ``threads`` a block; ``k`` items (voxels,
-    pixels) a thread runs at once; ``blocks_per_row`` (P; 1 for V) blocks
-    share a row's 4096 items; ``smem`` dynamic shared bytes; ``bucket`` the
-    local files' slots (0 when no warp has one); ``stage_full``: D stages
-    an overflowed row's full tape in shared memory."""
-    home: str
-    threads: int
-    k: int
-    blocks_per_row: int
-    smem: int
-    bucket: int = 0
-    stage_full: bool = False
-    shared_warps: int = 0
-
-
-def local_bucket(s_cap: int) -> int:
-    """The local home's slot count for ``s_cap``: 16, 32, 64, 128 or 256."""
-    for b in BUCKETS:
-        if b >= s_cap:
-            return b
-    raise ValueError(f"s_cap {s_cap} over {BUCKETS[-1]}")
-
-
-def library(kernel: str, launch: Launch) -> str:
-    """The library (ops/build.py) that holds ``kernel`` at ``launch``."""
-    return ("main" if launch.k == MAIN_K[kernel][launch.bucket != 0]
-            else "extra")
-
-
-def _tape_bytes(entries: int) -> int:
-    """Shared bytes of a staged tape of ``entries`` clauses (words,
-    immediates, run headers), padded to 16 bytes."""
-    return 4 * ((3 * entries + 3) & ~3)
-
-
-def _resident(smem: int, threads: int) -> int:
-    """Blocks an SM holds as far as shared memory and threads go."""
-    return min(SM_SHARED // (smem + 1024), SM_THREADS // threads)
-
-
-def _shape(home, threads, k, s_cap, slot_bytes, fixed, shared_warps=0,
-           stage_full=False, parts=1) -> Launch:
-    """The Launch of a home, threads, K, P and (split home) shared warps:
-    ``fixed`` shared bytes besides the files, a shared file of
-    ``slot_bytes`` x s_cap x k x 32 bytes a warp, and the bucket."""
-    sw = {"shared": threads // 32, "local": 0}.get(home, shared_warps or 0)
-    return Launch(home, threads, k, parts,
-                  fixed + slot_bytes * s_cap * k * 32 * sw,
-                  0 if home == "shared" else local_bucket(s_cap), stage_full,
-                  sw)
 
 
 def _deriv_max_threads(k):
@@ -150,36 +80,6 @@ def _voxel_fixed(cap):
 
 def _deriv_fixed(cap, tcap, stage_full):
     return SMEM_HEADER + _tape_bytes(max(cap, tcap) if stage_full else cap)
-
-
-def _most_shared_warps(threads, k, s_cap, slot_bytes, fixed, smem_limit):
-    """Most warps of a split block whose files fit beside ``fixed`` bytes
-    (at least one warp keeps a local file)."""
-    per_warp = slot_bytes * s_cap * k * 32
-    return max(0, min(threads // 32 - 1, (smem_limit - fixed) // per_warp))
-
-
-def _check_shape(launch: Launch, smem_limit: int, max_threads: int = 512,
-                 homes=("shared", "split", "local")):
-    """Raise unless ``launch`` is one the kernels can run: a home of
-    ``homes`` that agrees with its shared warps, K and P in their sets,
-    whole chunks of 32 x K items for every warp, shared bytes within the
-    limit."""
-    warps = launch.threads // 32
-    agrees = {"shared": launch.shared_warps == warps,
-              "local": launch.shared_warps == 0,
-              "split": 0 < launch.shared_warps < warps}
-    if (launch.home not in homes or not agrees[launch.home]
-            or launch.k not in KS
-            or launch.threads not in THREADS
-            or launch.threads > max_threads
-            or launch.blocks_per_row not in PARTS
-            or 4096 % (32 * launch.k * launch.blocks_per_row)
-            or launch.threads * launch.k * launch.blocks_per_row > 4096
-            or launch.smem > smem_limit):
-        raise ValueError(f"launch shape {launch} does not fit "
-                         f"({smem_limit} shared bytes)")
-    return launch
 
 
 def voxel_launch(s_cap: int, cap: int, smem_limit: int = SMEM_LIMIT, *,
@@ -438,7 +338,7 @@ def voxel_eval_3d(nmeta, order, order0, matf, words, imms, runs_full,
     else:
         check_launch("voxel_eval_3d", launch, s_cap, cap)
     dev = tw.device
-    table = torch.as_tensor(bid_table(branch_ops), device=dev)
+    table = _bid_table_on(branch_ops, dev)
     vals = torch.empty(gcap, CELL_VOXELS, dtype=torch.float32, device=dev)
     if gcap:
         fn = build.lib(library("voxel_eval_3d", launch)).mpr_voxel_eval
@@ -650,7 +550,7 @@ def deriv_eval_3d(nmeta, order, matf, words, imms, runs_full, branch_ops,
     else:
         check_launch("deriv_eval_3d", launch, s_cap, cap, tcap)
     dev = tw.device
-    table = torch.as_tensor(bid_table(branch_ops), device=dev)
+    table = _bid_table_on(branch_ops, dev)
     out = torch.empty(gcap, 4, TILE_PIXELS, dtype=torch.float32, device=dev)
     if gcap:
         fn = build.lib(library("deriv_eval_3d", launch)).mpr_deriv_eval

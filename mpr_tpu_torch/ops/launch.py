@@ -1,0 +1,383 @@
+"""Launch shapes of the interpreter kernels, picked on the host.
+
+Kernels B, V and D (``csrc/pixel_eval.cu``, ``voxel_eval.cu``,
+``deriv_eval.cu``) share the register file of ``csrc/regfile.cuh``: where
+it lives (shared or local memory, or for D split by warps), threads a
+block, items a thread (K), blocks a row (P) and dynamic shared memory make
+a :class:`Launch`.  Kernel A (``csrc/interval_shorten.cu``) walks a tape's
+dependency levels with a block or a thread a tile: threads a block, tiles
+a block and whether the schedule's planes are staged in shared memory make
+an :class:`IntervalLaunch`.
+
+Every function here is pure host code; the pickers are
+:func:`interval_launch` and :func:`pixel_launch` (kernels A and B) and
+``kernels3d.voxel_launch`` / ``deriv_launch`` (V and D).  A caller may
+force another shape (``launch=`` of a wrapper), which the wrapper checks.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, replace
+
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may use (H100)
+SM_SHARED = 233_472      # shared memory of an SM; each block reserves 1 KB
+SM_COUNT = 132
+SM_THREADS = 2048
+# branch table, camera matrix, V's table of world coordinates, the work
+# queue's counter (csrc/regfile.cuh)
+SMEM_HEADER = 4 * (256 + 16 + 48 + 4)
+THREADS = (512, 256, 128, 64)
+KS = (1, 2, 4)
+PARTS = (1, 2, 4, 8, 16, 32, 64)
+BUCKETS = (16, 32, 64, 128, 256)
+B_SHARED = (256, 4)      # B, files in shared memory: threads, K
+B_LOCAL = (256, 2)       # B, files in local memory: threads, K
+# B and D stage an overflowed row's full tape in shared memory where it
+# takes at most this
+STAGE_MAX = 65_536
+# B: waves of blocks its grid should hold at least, so that the block
+# scheduler can even out tiles of unequal length
+B_WAVES = 4
+# K of the instantiations in the main library, by kernel, for the shared
+# home (bucket 0) and for local files (a bucket): the shapes the launch
+# functions pick.  The extra library holds the other K (ops/build.py;
+# csrc/pixel_eval.cu, voxel_eval.cu, deriv_eval.cu: kernel<K, N>()).
+MAIN_K = {"pixel_eval_runs": (B_SHARED[1], B_LOCAL[1]),
+          "voxel_eval_3d": (4, 2),
+          "deriv_eval_3d": (1, 1)}
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One launch shape of kernel B, V or D.
+
+    ``home``: where the register files live: ``"shared"`` (every warp's in
+    shared memory), ``"local"`` (in local memory) or, for D only,
+    ``"split"`` (the first ``shared_warps`` warps' in shared memory, the
+    others' in local memory); ``threads`` a block; ``k`` items (pixels,
+    voxels) a thread runs at once; ``blocks_per_row`` (P; 1 for V) blocks
+    share a row's 4096 items; ``smem`` dynamic shared bytes; ``bucket`` the
+    local files' slots (0 when no warp has one); ``stage_full``: B and D
+    stage an overflowed row's full tape in shared memory."""
+    home: str
+    threads: int
+    k: int
+    blocks_per_row: int
+    smem: int
+    bucket: int = 0
+    stage_full: bool = False
+    shared_warps: int = 0
+
+
+def local_bucket(s_cap: int) -> int:
+    """The local home's slot count for ``s_cap``: 16, 32, 64, 128 or 256."""
+    for b in BUCKETS:
+        if b >= s_cap:
+            return b
+    raise ValueError(f"s_cap {s_cap} over {BUCKETS[-1]}")
+
+
+def library(kernel: str, launch: Launch) -> str:
+    """The library (ops/build.py) that holds ``kernel`` at ``launch``."""
+    return ("main" if launch.k == MAIN_K[kernel][launch.bucket != 0]
+            else "extra")
+
+
+def _tape_bytes(entries: int) -> int:
+    """Shared bytes of a staged tape of ``entries`` clauses (words,
+    immediates, run headers), padded to 16 bytes."""
+    return 4 * ((3 * entries + 3) & ~3)
+
+
+def _resident(smem: int, threads: int) -> int:
+    """Blocks an SM holds as far as shared memory and threads go."""
+    return min(SM_SHARED // (smem + 1024), SM_THREADS // threads)
+
+
+def _shape(home, threads, k, s_cap, slot_bytes, fixed, shared_warps=0,
+           stage_full=False, parts=1) -> Launch:
+    """The Launch of a home, threads, K, P and (split home) shared warps:
+    ``fixed`` shared bytes besides the files, a shared file of
+    ``slot_bytes`` x s_cap x k x 32 bytes a warp, and the bucket."""
+    sw = {"shared": threads // 32, "local": 0}.get(home, shared_warps or 0)
+    return Launch(home, threads, k, parts,
+                  fixed + slot_bytes * s_cap * k * 32 * sw,
+                  0 if home == "shared" else local_bucket(s_cap), stage_full,
+                  sw)
+
+
+def _most_shared_warps(threads, k, s_cap, slot_bytes, fixed, smem_limit):
+    """Most warps of a split block whose files fit beside ``fixed`` bytes
+    (at least one warp keeps a local file)."""
+    per_warp = slot_bytes * s_cap * k * 32
+    return max(0, min(threads // 32 - 1, (smem_limit - fixed) // per_warp))
+
+
+def _check_shape(launch: Launch, smem_limit: int, max_threads: int = 512,
+                 homes=("shared", "split", "local")):
+    """Raise unless ``launch`` is one the kernels can run: a home of
+    ``homes`` that agrees with its shared warps, K and P in their sets,
+    whole chunks of 32 x K items for every warp, shared bytes within the
+    limit."""
+    warps = launch.threads // 32
+    agrees = {"shared": launch.shared_warps == warps,
+              "local": launch.shared_warps == 0,
+              "split": 0 < launch.shared_warps < warps}
+    if (launch.home not in homes or not agrees[launch.home]
+            or launch.k not in KS
+            or launch.threads not in THREADS
+            or launch.threads > max_threads
+            or launch.blocks_per_row not in PARTS
+            or 4096 % (32 * launch.k * launch.blocks_per_row)
+            or launch.threads * launch.k * launch.blocks_per_row > 4096
+            or launch.smem > smem_limit):
+        raise ValueError(f"launch shape {launch} does not fit "
+                         f"({smem_limit} shared bytes)")
+    return launch
+
+
+def _fill_parts(launch: Launch, n_rows: int, waves: int = 1) -> int:
+    """P for ``n_rows`` rows: the smallest power of two that gives the grid
+    at least ``waves`` times as many blocks as the card holds at once (and
+    at least two an SM), at most one chunk a thread."""
+    target = max(2 * SM_COUNT,
+                 waves * SM_COUNT * _resident(launch.smem, launch.threads))
+    most = 4096 // (launch.threads * launch.k)
+    parts = 1
+    while parts < most and 0 < n_rows * parts < target:
+        parts *= 2
+    return parts
+
+
+# ---------------------------------------------------------------------------
+# Kernel B
+# ---------------------------------------------------------------------------
+
+def _pixel_fixed(cap, tcap, stage_full):
+    return SMEM_HEADER + _tape_bytes(max(cap, tcap) if stage_full else cap)
+
+
+@functools.lru_cache(maxsize=256)
+def pixel_launch(s_cap: int, cap: int, n_rows: int, tcap: int,
+                 smem_limit: int = SMEM_LIMIT, *, home: str = None,
+                 threads: int = None, k: int = None, parts: int = None,
+                 stage_full: bool = None) -> Launch:
+    """Kernel B's launch shape for slot bucket ``s_cap``, row capacity
+    ``cap``, ``n_rows`` rows (every tile: the ambiguous count stays on the
+    card) and a full tape of ``tcap`` clauses.
+
+    Where the files of ``B_SHARED`` (threads, K) fit in shared memory and
+    leave an SM two blocks, they live there (a short tape); otherwise in
+    local memory, ``B_LOCAL`` (threads, K) (a long tape: the shared home
+    holds too few pixels an SM to hide its latency).  An overflowed row's
+    full tape is staged in shared memory where it takes at most
+    ``STAGE_MAX`` bytes and fits.  P, the blocks a tile, is the smallest
+    power of two that gives the grid ``B_WAVES`` waves of blocks
+    (:func:`_fill_parts`), so that tiles of unequal length spread over many
+    blocks.  ``home``, ``threads``,
+    ``k``, ``parts`` and ``stage_full`` force a shape; a forced shape that
+    does not fit raises.  (Kept: the wrapper asks at every launch.)"""
+    def shape(h, t, kk):
+        stage = stage_full
+        if stage is None:
+            stage = (_tape_bytes(tcap) <= STAGE_MAX and _shape(
+                h, t, kk, s_cap, 4, _pixel_fixed(cap, tcap, True)).smem
+                <= smem_limit)
+        return _shape(h, t, kk, s_cap, 4, _pixel_fixed(cap, tcap, stage), 0,
+                      stage)
+
+    if home is None and threads is None and k is None:
+        launch = shape("shared", *B_SHARED)
+        if launch.smem > min(smem_limit, SM_SHARED // 2 - 1024):
+            launch = shape("local", *B_LOCAL)
+    else:
+        home = home or "shared"
+        k = k or (B_SHARED if home == "shared" else B_LOCAL)[1]
+        if threads is None:
+            if home == "shared":
+                fits = [t for t in THREADS if t * k <= 4096
+                        and shape(home, t, k).smem <= smem_limit]
+                threads = fits[0] if fits else THREADS[-1]
+            else:
+                threads = B_LOCAL[0] * B_LOCAL[1] // k
+        launch = shape(home, threads, k)
+    if parts is None:
+        parts = _fill_parts(launch, n_rows, B_WAVES)
+    return _check_shape(replace(launch, blocks_per_row=parts), smem_limit,
+                        homes=("shared", "local"))
+
+
+def check_pixel_launch(launch: Launch, s_cap: int, cap: int,
+                       tcap: int) -> Launch:
+    """A caller's ``launch`` of kernel B, checked: a shape the kernel can
+    run, whose bucket, shared bytes and staging are the ones its home,
+    threads, K and P give."""
+    want = _shape(launch.home, launch.threads, launch.k, s_cap, 4,
+                  _pixel_fixed(cap, tcap, launch.stage_full), 0,
+                  launch.stage_full, launch.blocks_per_row)
+    _check_shape(launch, SMEM_LIMIT, homes=("shared", "local"))
+    if launch != want:
+        raise ValueError(f"launch shape {launch} is not {want}")
+    return launch
+
+
+# ---------------------------------------------------------------------------
+# Kernel A
+# ---------------------------------------------------------------------------
+
+A_THREADS = (32, 64, 128, 256, 512, 1024)
+A_OWN_THREADS = (64, 128, 256)   # a thread a tile: threads (tiles) a block
+# Threads an SM keeps busy before more of them slow each step (kernel A's
+# cost model; fitted to the launch-shape sweep of chip_smoke.py on an H100)
+A_BUSY_THREADS = 1024
+A_PLANES = 5             # schedule planes: word, imm, src, mark, t
+
+
+@dataclass(frozen=True)
+class IntervalLaunch:
+    """One launch shape of kernel A: ``threads`` a block, ``tiles`` a
+    block (1: the block walks one tile; ``threads``: a thread a tile),
+    ``stage``: the schedule's planes are copied into shared memory first;
+    ``smem`` dynamic shared bytes."""
+    threads: int
+    tiles: int
+    stage: bool
+    smem: int
+
+    @property
+    def group(self) -> int:
+        """Threads that walk one tile."""
+        return self.threads // self.tiles
+
+
+def padded_length(length: int) -> int:
+    """Entries of a schedule plane and of a tile's arrays: the tape's
+    length rounded up to 16 (so that every array starts on 16 bytes)."""
+    return max(16, -(-length // 16) * 16)
+
+
+def a_tile_bytes(length: int) -> int:
+    """Shared bytes of one tile in kernel A: an interval (8 B), a choice,
+    an active flag and a code (1 B each) per clause."""
+    return 11 * padded_length(length)
+
+
+def a_plane_bytes(length: int) -> int:
+    """Shared bytes of the staged schedule planes."""
+    return 4 * A_PLANES * padded_length(length)
+
+
+def _a_shape(length, threads, tiles, stage) -> IntervalLaunch:
+    return IntervalLaunch(threads, tiles, bool(stage),
+                          (a_plane_bytes(length) if stage else 0)
+                          + tiles * a_tile_bytes(length))
+
+
+def _check_a(launch: IntervalLaunch, length: int, smem_limit: int):
+    if (launch.threads not in A_THREADS
+            or launch.tiles not in (1, launch.threads)
+            or launch != _a_shape(length, launch.threads, launch.tiles,
+                                  launch.stage)
+            or launch.smem > smem_limit):
+        raise ValueError(f"kernel A launch shape {launch} does not fit a "
+                         f"tape of {length} clauses ({smem_limit} shared "
+                         "bytes)")
+    return launch
+
+
+def _a_steps(widths, group):
+    """Steps a tile's group of ``group`` threads takes over levels of
+    ``widths`` clauses, each way: a level's clauses ``group`` at a time,
+    and one more step a level for its barrier (none for a thread a tile,
+    which needs no barrier)."""
+    if group == 1:
+        return sum(widths)
+    return sum(-(-w // group) + 1 for w in widths)
+
+
+def _a_resident(launch: IntervalLaunch) -> int:
+    """Tiles an SM runs at once as far as shared memory, threads and the
+    card's 32 blocks an SM go."""
+    blocks = min(SM_SHARED // (launch.smem + 1024), SM_THREADS //
+                 launch.threads, 32)
+    return blocks * launch.tiles
+
+
+def _a_cost(launch: IntervalLaunch, widths, lanes: int) -> float:
+    """Kernel A's cost model: (steps a tile) x (waves of tiles over the
+    card), each step slowed in proportion once an SM holds more than
+    ``A_BUSY_THREADS`` threads."""
+    resident = _a_resident(launch)
+    waves = -(-max(lanes, 1) // (SM_COUNT * resident))
+    busy = resident * launch.group / A_BUSY_THREADS
+    return waves * _a_steps(widths, launch.group) * max(1.0, busy)
+
+
+@functools.lru_cache(maxsize=256)
+def _pick_a(widths, lanes, smem_limit):
+    """The default shape of :func:`interval_launch` (kept: the wrapper asks
+    for it at every launch)."""
+    length = sum(widths)
+    cands = []
+    for n in A_OWN_THREADS:
+        # a thread a tile: the planes, read by every tile of the block,
+        # staged in shared memory where they fit beside the tiles
+        staged = _a_shape(length, n, n, True)
+        cands.append(staged if staged.smem <= smem_limit
+                     else _a_shape(length, n, n, False))
+    cands += [_a_shape(length, g, 1, False) for g in A_THREADS[1:]]
+    best = None
+    for c in cands:
+        if c.smem > smem_limit:
+            continue
+        cost = _a_cost(c, widths, lanes)
+        if best is None or cost < best[0]:
+            best = (cost, c)
+    return best[1]
+
+
+def interval_launch(widths, lanes: int, smem_limit: int = SMEM_LIMIT, *,
+                    threads: int = None, tiles: int = None,
+                    stage: bool = None) -> IntervalLaunch:
+    """Kernel A's launch shape for a tape whose dependency levels hold
+    ``widths`` clauses each (``TapeLevels.widths``), over ``lanes`` tiles.
+
+    A tile's group of threads takes a level's clauses side by side: a wide
+    group finishes a wide level in fewer steps, a narrow one leaves room
+    for more tiles an SM.  The candidates are a block a tile (64 to 1024
+    threads, the planes read from global memory) and a thread a tile
+    (``A_OWN_THREADS`` tiles a block, the planes staged in shared memory
+    where they fit); the pick is the one of least :func:`_a_cost` ((steps
+    a tile) x (waves of tiles over the card), a step slower when an SM
+    holds many threads), the first on a tie.  ``threads``, ``tiles`` (1, or
+    ``threads`` for a thread a tile) and ``stage`` force a shape; a forced
+    shape that does not fit raises, and so does a tape whose one tile does
+    not fit in shared memory."""
+    widths = tuple(int(w) for w in widths)
+    length = sum(widths)
+    per_tile = a_tile_bytes(length)
+    if per_tile > smem_limit:
+        raise ValueError(f"a tape of {length} clauses needs {per_tile} "
+                         f"shared bytes a tile in kernel A, over the "
+                         f"{smem_limit} a block may have")
+    if threads is None and tiles is None and stage is None:
+        return _check_a(_pick_a(widths, int(lanes), smem_limit), length,
+                        smem_limit)
+    tiles = tiles or 1
+    if threads is None:
+        threads = tiles if tiles > 1 else 256
+    if stage is None:
+        stage = tiles > 1 and (a_plane_bytes(length) + tiles * per_tile
+                               <= smem_limit)
+    return _check_a(_a_shape(length, threads, tiles, stage), length,
+                    smem_limit)
+
+
+def check_interval_launch(launch: IntervalLaunch,
+                          length: int) -> IntervalLaunch:
+    """A caller's ``launch`` of kernel A, checked: threads and tiles the
+    kernel takes (a block a tile, or a thread a tile), the shared bytes
+    that its tiles and staging give for ``length`` clauses, within the
+    limit."""
+    return _check_a(launch, length, SMEM_LIMIT)

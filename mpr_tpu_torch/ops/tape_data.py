@@ -62,6 +62,7 @@ class TapeData:
         self.result_slot = int(result_slot)
         self.num_choices = int(num_choices)
         self.ops_present = tuple(int(o) for o in ops_present)
+        self._levels = None
 
     @classmethod
     def from_tape(cls, tape: Tape, device=None) -> "TapeData":
@@ -120,6 +121,17 @@ class TapeData:
                    axis_slots=axis_slots, result_slot=result_slot,
                    num_choices=num_choices, ops_present=ops_present,
                    num_runs=num_runs)
+
+    def levels(self):
+        """The tape's dependency schedule (ops/schedule.py::tape_levels) on
+        the tape's device, built at the first call and kept, so that every
+        launch of kernel A on this tape, in every frame, shares it."""
+        if self._levels is None:
+            from .schedule import tape_levels
+            self._levels = tape_levels(self.packed, self.imms, self.length,
+                                       self.result_slot, self.axis_slots,
+                                       device=self.device)
+        return self._levels
 
     @property
     def capacity(self) -> int:

@@ -39,7 +39,7 @@ def _stage(td: TapeData, boxes):
     remap_t = torch.as_tensor(remap, device=td.device)
     status, codes = kernels.interval_shorten(
         td.meta(), td.packed, td.imms, boxes.contiguous(), s_cap=s_cap,
-        widen=_config.get().widen_intervals)
+        widen=_config.get().widen_intervals, levels=td.levels)
     chunk = max(1, PREPASS_WORDS // td.capacity)
     lens = torch.cat([
         _shorten_prepass(codes[g0:g0 + chunk], td.packed, td.imms, td.length,

@@ -172,7 +172,8 @@ def render_tile_block(td: TapeData, mat, z, size: int, row0=0,
     widen = _config.get().widen_intervals
     boxes = _tile_boxes_2d(n_side, mat, z, row0, n_rows, col0, n_cols)
     status, codes = kernels.interval_shorten(meta, td.packed, td.imms, boxes,
-                                             s_cap=s_cap, widen=widen)
+                                             s_cap=s_cap, widen=widen,
+                                             levels=td.levels)
 
     amb = status == ST_AMBIG
     order = torch.argsort((~amb).to(torch.int32), stable=True).to(torch.int32)

@@ -192,7 +192,7 @@ def render3d_rows(td: TapeData, mat, size: int, row0: int, n_rows: int,
     def stage(boxes):
         return kernels.interval_shorten(meta, td.packed, td.imms,
                                         boxes.contiguous(), s_cap=s_cap,
-                                        widen=widen)
+                                        widen=widen, levels=td.levels)
 
     # ---- stage A: 64^3 tiles, full tape ---------------------------------
     status0, _ = stage(_tile_boxes_3d(n, mat, row0, n_rows))

@@ -147,6 +147,221 @@ def test_render2d_cuda_matches_plain_on_card(cuda, name):
 
 
 # ---------------------------------------------------------------------------
+# Kernels A and B at their launch shapes, on the four cells' tapes
+# ---------------------------------------------------------------------------
+
+def _cell_tree(name):
+    if name == "stress600":
+        return shapes.stress_2d(600)
+    if name == "stress1500":
+        return shapes.stress_2d(1500)
+    if name == "stress40":
+        return shapes.stress_2d(40)
+    if name == "gyroid":
+        return shapes.intersection(shapes.gyroid(0.4, 0.08),
+                                   shapes.sphere(0.85))
+    return shapes.extrude_z(shapes.stress_2d(300), -0.4, 0.4)
+
+
+_RECORDED = {}
+
+
+def _recorded(name, cuda):
+    """Every launch of kernels A and B of one small frame of a cell's tape
+    (2D at 512^2, or 256^2 for stress40, whose tiles then all overflow
+    their cap; 3D at 128^3), with A's plain outputs: (A launches as (args,
+    kwargs, plain), B launches as (args, kwargs))."""
+    if name in _RECORDED:
+        return _RECORDED[name]
+    seen = {"interval_shorten": [], "pixel_eval_runs": []}
+    saved = {}
+    for kname in seen:
+        fn = getattr(tk, kname)
+
+        def rec(*a, _fn=fn, _name=kname, **k):
+            seen[_name].append((a, k))
+            return _fn(*a, **k)
+        saved[kname] = fn
+        setattr(tk, kname, rec)
+    try:
+        td = TapeData.from_tape(mpr_tpu_torch.compile_tree(_cell_tree(name)),
+                                device=cuda)
+        if name in ("gyroid", "extruded"):
+            mat = (camera.gui3d_view(0.5, -0.9, 0.3) if name == "gyroid"
+                   else camera.gui3d_view(0.7, -1.0, 0.3))
+            pipeline3d.render3d_rows(td, torch.as_tensor(mat, device=cuda),
+                                     128, 0, 2)
+        else:
+            pipeline2d.render_tile_block(
+                td, torch.eye(3, device=cuda), torch.tensor(0.0, device=cuda),
+                256 if name == "stress40" else 512)
+    finally:
+        for kname, fn in saved.items():
+            setattr(tk, kname, fn)
+    a_runs = [(a, k, tk.interval_shorten_plain(*a, **k))
+              for a, k in seen["interval_shorten"]]
+    _RECORDED[name] = (a_runs, seen["pixel_eval_runs"])
+    return _RECORDED[name]
+
+
+def _levels(k):
+    lv = k["levels"]
+    return lv() if callable(lv) else lv
+
+
+# Launch shapes forced on kernel A: a block a tile at 32 to 1024 threads
+# and a thread a tile, the planes staged or read from global memory.  A shape that does not fit the tape is skipped, with the
+# reason.
+A_SHAPES = {
+    "picked": None,
+    "block32": dict(threads=32),
+    "block128": dict(threads=128),
+    "block1024": dict(threads=1024),
+    "block256_staged": dict(threads=256, stage=True),
+    "thread64": dict(threads=64, tiles=64, stage=False),
+    "thread256_staged": dict(threads=256, tiles=256, stage=True),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(A_SHAPES))
+@pytest.mark.parametrize("name", ["stress600", "stress1500", "gyroid",
+                                  "extruded"])
+def test_interval_shorten_at_every_launch_shape_matches_plain(cuda, name,
+                                                              shape):
+    from mpr_tpu_torch.ops import launch as ln
+    a_runs, _ = _recorded(name, cuda)
+    assert len(a_runs) == (3 if name in ("gyroid", "extruded") else 1)
+    for a, k, (pst, pcodes) in a_runs:
+        lv, lanes = _levels(k), a[3].shape[1]
+        launch = None
+        if A_SHAPES[shape] is not None:
+            try:
+                launch = ln.interval_launch(lv.widths, lanes,
+                                            **A_SHAPES[shape])
+            except ValueError as e:
+                pytest.skip(f"{shape} does not fit a tape of {lv.length} "
+                            f"clauses: {e}")
+        st, codes = tk.interval_shorten(*a, **{**k, "launch": launch})
+        torch.cuda.synchronize()
+        amb = pst == tk.ST_AMBIG
+        assert torch.equal(st, pst)
+        assert torch.equal(codes[amb], pcodes[amb])
+        # the codes of every ambiguous lane, zero past the tape
+        assert not codes[amb][:, -(-lv.length // 8):].any()
+
+
+# Launch shapes forced on kernel B: each home of the register file, K = 1,
+# 2, 4, P = 1 and 2, the full tape of an overflowed tile staged in shared
+# memory or read from global memory.
+B_SHAPES = {
+    "picked": {},
+    "local_k1": dict(home="local", k=1),
+    "local_k4": dict(home="local", k=4),
+    "local_p1": dict(home="local", k=2, parts=1),
+    "local_p2": dict(home="local", k=2, parts=2),
+    "local_staged": dict(home="local", k=2, stage_full=True),
+    "local_global": dict(home="local", k=2, stage_full=False),
+    "shared_k1": dict(home="shared", k=1),
+    "shared_k4": dict(home="shared", k=4),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(B_SHAPES))
+@pytest.mark.parametrize("name", ["stress600", "stress1500", "stress40"])
+def test_pixel_eval_runs_at_every_launch_shape_matches_plain(cuda, name,
+                                                             shape):
+    from mpr_tpu_torch.ops import launch as ln
+    _, b_runs = _recorded(name, cuda)
+    (a, k), = b_runs
+    n = int(a[0][0])
+    over = a[10][:n, 2] != 0
+    # stress40's tiles at 256^2 all overflow their cap; at 512^2 some of
+    # the others' tiles do, and some do not
+    assert bool(over.all()) if name == "stress40" else (
+        bool(over.any()) and not bool(over.all()))
+    try:
+        launch = ln.pixel_launch(k["s_cap"], a[7].shape[1], a[1].shape[0],
+                                 a[3].shape[0], **B_SHAPES[shape])
+    except ValueError as e:
+        pytest.skip(f"{shape} does not fit s_cap {k['s_cap']}: {e}")
+    got = tk.pixel_eval_runs(*a, **k, launch=launch)
+    want = tk.pixel_eval_runs_plain(*a, **k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_a_second_frame_builds_no_schedule(cuda):
+    """The schedule is built at the first launch of kernel A on a tape and
+    kept on its TapeData: a second frame, 2D or 3D, builds none, and a 3D
+    frame's three launches share one."""
+    from mpr_tpu_torch.ops import schedule as sch
+    td = TapeData.from_tape(mpr_tpu_torch.compile_tree(shapes.stress_2d(40)),
+                            device=cuda)
+    eye, z = torch.eye(3, device=cuda), torch.tensor(0.0, device=cuda)
+    before = sch.tape_levels.builds
+    pipeline2d.render_tile_block(td, eye, z, 256)
+    assert sch.tape_levels.builds == before + 1
+    pipeline2d.render_tile_block(td, eye, z, 512)
+    assert sch.tape_levels.builds == before + 1
+    td3 = TapeData.from_tape(mpr_tpu_torch.compile_tree(
+        shapes.two_spheres()), device=cuda)
+    mat = torch.as_tensor(camera.gui3d_view(), device=cuda)
+    a_before = tk.interval_shorten.launches
+    pipeline3d.render3d_rows(td3, mat, 128, 0, 2)
+    assert tk.interval_shorten.launches == a_before + 3
+    assert sch.tape_levels.builds == before + 2
+    pipeline3d.render3d_rows(td3, mat, 128, 0, 2)
+    assert sch.tape_levels.builds == before + 2
+
+
+_TRAP_B = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+import mpr_tpu_torch
+from mpr_tpu_torch.frontend import shapes
+from mpr_tpu_torch.ops import kernels as tk
+from mpr_tpu_torch.ops.tape_data import TapeData
+from mpr_tpu_torch.render import pipeline2d
+seen = {{}}
+fn = tk.pixel_eval_runs
+def rec(*a, **k):
+    seen["x"] = (a, k)
+    return fn(*a, **k)
+tk.pixel_eval_runs = rec
+td = TapeData.from_tape(mpr_tpu_torch.compile_tree(shapes.stress_2d(40)),
+                        device="cuda")
+pipeline2d.render_tile_block(td, torch.eye(3, device="cuda"),
+                             torch.tensor(0.0, device="cuda"), 256)
+torch.cuda.synchronize()
+a, k = seen["x"]
+a = list(a)
+a[0] = a[0].clone()
+a[0][1] = k["s_cap"] + 8          # more slots than the file holds
+fn(*a, **k)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised at synchronize:", e)
+    sys.exit(3)
+print("no error")
+"""
+
+
+def test_pixel_eval_runs_traps_on_more_slots_than_s_cap(cuda):
+    """nmeta[1] over s_cap: kernel B traps rather than index past its
+    register file (in a subprocess: a trap leaves the context unusable)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _TRAP_B.format(root=root)],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 3, (r.stdout, r.stderr[-2000:])
+    assert "raised at synchronize" in r.stdout
+
+
+# ---------------------------------------------------------------------------
 # The 3D path: kernels V and D, and the frame
 # ---------------------------------------------------------------------------
 
