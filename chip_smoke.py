@@ -11,7 +11,7 @@ Phases (any failure exits non-zero before the final line):
      picks; its seconds are the render path's first-use build) and then
      the extra one (B, V and D at the other shapes, for phase 8b), with
      ptxas's registers, stack frame and spills for every instantiation of
-     A, B, V and D (a spill fails the run at its end);
+     A, B, C, C2, V and D (a spill fails the run at its end);
   2. the 2D path: with every launch count set to 0, render the
      ``stress_2d(600)`` model at 1024^2 and ``stress_2d(1500)`` at 2048^2
      through ``mpr_tpu_torch.render.render2d``, recording each kernel's
@@ -25,7 +25,12 @@ Phases (any failure exits non-zero before the final line):
   5. time each kernel, its plain version and the whole frame with CUDA
      events (warm-up, then the median of repeated runs; a frame after the
      first on one tape must build no schedule), each kernel's device time
-     with torch.profiler, and profile a frame;
+     with torch.profiler (kernel C's beside its byte bound and its share
+     of it), and profile a frame;
+  5b. kernel A under a schedule built before the tape's immediates
+     changed (as a fit step or a slider would leave it): status and codes
+     at three launch shapes must equal the plain version's on the new
+     immediates, which must differ from those on the old ones;
   6. the 3D path: with every launch count set to 0 again, render
      ``intersection(gyroid(0.4, 0.08), sphere(0.85))`` at 1024^3 and
      ``extrude_z(stress_2d(300), -0.4, 0.4)`` at 512^3 through
@@ -37,16 +42,19 @@ Phases (any failure exits non-zero before the final line):
      each depth image against ``render3d_brute`` (0 pixels differ), and the
      normals against unit length and autograd of the plain interpreter;
   8. time the 3D frame with and without normals, V, D and every launch of
-     A and C, and profile a frame;
+     A and C (C's device time beside its byte bound and share), the device
+     time of the frame's prepass (``_shorten_prepass``, the plain PyTorch
+     that feeds kernel C), and profile a frame;
   8b. the launch shapes: print the shape ``voxel_launch`` and
      ``deriv_launch`` picked at each 3D cell, then call V and D again on
      the recorded inputs of each 3D cell, A and B on those of each 2D
-     cell, and A on each of the three launches of each 3D cell, with forced
-     shapes that reach every branch (V, D, B: each home of the register
-     file, K = 1/2/4, P = 1 and more, the full tape staged and read from
-     global memory; A: a block a tile at 32 to 1024 threads, a thread a
-     tile at 64 to 256 tiles a block, the planes staged or not), hold each
-     output
+     cell, A on each of the three launches of each 3D cell, and C on each
+     of its launches at all four cells, with forced shapes that reach every
+     branch (V, D, B: each home of the register file, K = 1/2/4, P = 1 and
+     more, the full tape staged and read from global memory; A: a block a
+     tile at 32 to 1024 threads, a thread a tile at 64 to 256 tiles a
+     block, the planes staged or not; C: a warp a row at 1 to 32 rows a
+     block, a block a row at 128 to 1024 threads), hold each output
      bit for bit against the plain output of phase 3 or 7, and time each
      shape (shapes that do not fit are printed as refused);
   9. kernels B1, C1 and C2 (the earlier public versions of B and C, which
@@ -64,8 +72,8 @@ Phases (any failure exits non-zero before the final line):
  11. the effects (``draw_ssao`` in both modes, ``draw_shaded``) on the
      1024^2 depth and normals, on the card against the same tensors on the
      CPU, and timed;
- 12. print the kernel times of the previous designs of A, B, V and D
-     (recorded, labelled as such; not measured here), the card line, one
+ 12. print the kernel times of the previous designs of A, B, C, C2, V and
+     D (recorded, labelled as such; not measured here), the card line, one
      JSON ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present and when run outside the
@@ -149,15 +157,24 @@ DERIV_OPS = {2: 5, 3: 6, 4: 4, 5: 5, 6: 6, 7: 21, 8: 22, 9: 21, 10: 5,
 COORD_OPS = 42
 # Kernel times of the designs before the redesigns (V and D before their
 # register-file redesign, at the two 3D cells; A before the level walk and
-# B before the register file of regfile.cuh, at the 1024^2 cell): recorded
-# by this script on NVIDIA H100 80GB HBM3, 700.00 W, and printed on a line
-# of their own as recorded values, apart from this run's measurements.
+# B before the register file of regfile.cuh, at the 1024^2 cell; C before
+# its warp-a-row and block-a-row redesign, device time summed over a
+# frame's launches at each cell; C2 the same, events at the 1024^2 cell):
+# recorded by this script on NVIDIA H100 80GB HBM3, 700.00 W, and printed
+# on a line of their own as recorded values, apart from this run's
+# measurements.
 PREVIOUS_DESIGN_MS = {"voxel_eval_3d": {"gyroid_sphere": 15.221,
                                         "extruded_stress": 8.575},
                       "deriv_eval_3d": {"gyroid_sphere": 0.250,
                                         "extruded_stress": 8.057},
                       "interval_shorten": {"stress_2d(600) 1024^2": 1.9068},
-                      "pixel_eval_runs": {"stress_2d(600) 1024^2": 1.0148}}
+                      "pixel_eval_runs": {"stress_2d(600) 1024^2": 1.0148},
+                      "compact_bitshift_batched": {
+                          "stress_2d(600) 1024^2": 0.0078,
+                          "stress_2d(1500) 2048^2": 0.0790,
+                          "gyroid_sphere": 0.2902,
+                          "extruded_stress": 0.3162},
+                      "compact_bitshift": {"stress_2d(600) 1024^2": 0.0438}}
 # Kernel A's dependency bound: each level costs a shared-memory round trip
 # (about 30 cycles) and a barrier (about 20 cycles), at 1.98 GHz, twice (the
 # forward and the backward pass).  An estimate from the card's published
@@ -380,29 +397,84 @@ def compare_a(tk, entry, tape, label, keep=None):
                 dep_bound_ms=2 * lv.n_levels * LEVEL_STEP_NS * 1e-6)
 
 
-def compare_c(tk, entry, tape, label):
-    """One recorded launch of kernel C against its plain version; also
+def c_mismatches(out, pout, n_rows):
+    """Kernel C's mismatches against the plain output on the rows below
+    cmeta[0]: tw, ti and the run headers over the full cap (the zeros past
+    the tape included), and gmeta's [len, n_runs, overflow]."""
+    mism, err = {}, 0.0
+    for n, o, p in zip(("tw", "ti", "runs"), out[:3], pout[:3]):
+        mism[n], e = same(o[:n_rows], p[:n_rows])
+        err = max(err, e)
+    mism["gmeta"], e = same(out[3][:n_rows, :3], pout[3][:n_rows, :3])
+    return mism, max(err, e)
+
+
+def compare_c(tk, entry, tape, label, keep=None):
+    """One recorded launch of kernel C against its plain version (whose
+    outputs go to the list ``keep`` for the launch-shape phase); also
     returns the rows' gmeta and run headers (host) for the bounds."""
     a, k, out = entry
     n_rows = int(a[0][0])
     tcap = a[2].shape[1] * a[2].shape[2]
     pout = tk.compact_bitshift_batched_plain(*a, **k)
-    names = ("tw", "ti", "runs")
-    mism, err = {}, 0.0
-    for n, o, p in zip(names, out[:3], pout[:3]):
-        mism[n], e = same(o[:n_rows], p[:n_rows])
-        err = max(err, e)
-    mism["gmeta"], e = same(out[3][:n_rows, :3], pout[3][:n_rows, :3])
+    if keep is not None:
+        keep.append(pout)
+    mism, err = c_mismatches(out, pout, n_rows)
     gmeta = out[3][:n_rows].cpu().numpy()
     cap = out[0].shape[1]
     kept = int(gmeta[:, 0].sum())
     print(f"  C compact {label}: {n_rows} rows, mean kept "
           f"{kept / max(n_rows, 1):.1f} clauses of {tape.length}, "
           f"{int(gmeta[:, 2].sum())} over cap {cap}; mismatches {mism}")
-    res = dict(mismatches=sum(mism.values()), max_abs_err=max(err, e),
+    res = dict(mismatches=sum(mism.values()), max_abs_err=err,
                bytes=4 * n_rows * tcap + 8 * kept + 4 * n_rows
-               + n_rows * (12 * cap + 32), ops=0)
+               + n_rows * (12 * cap + 32), ops=0, rows=n_rows, tcap=tcap,
+               cap=cap)
     return res, gmeta, out[2][:n_rows].cpu().numpy(), kept
+
+
+def print_c_share(label, r, card):
+    """Kernel C's device time at one launch beside its byte bound, and the
+    share of the bound it reaches (kept in ``r``)."""
+    b_ms, _ = bound(r)
+    dev = r.get("device_ms")
+    r["share_of_bound"] = b_ms / dev if dev else None
+    print(f"  C compact {label}: {r['rows']} rows of {r['tcap']} clauses, "
+          f"cap {r['cap']}: device {dev} ms, byte bound {b_ms:.5f} ms, "
+          + (f"{100 * b_ms / dev:.1f}% of the bound" if dev
+             else "share not measured") + f"  [{card}]")
+
+
+def time_prepass(fn_frame, card, label):
+    """Device time of the prepass (``pipeline3d._shorten_prepass``, the
+    plain PyTorch that feeds kernel C) over one 3D frame: its calls are
+    recorded in a frame, then replayed and profiled (the sum of its
+    kernels' device time) and timed with events."""
+    import torch
+    from mpr_tpu_torch.render import pipeline3d
+    calls = []
+    orig = pipeline3d._shorten_prepass
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+    pipeline3d._shorten_prepass = rec
+    try:
+        fn_frame()
+    finally:
+        pipeline3d._shorten_prepass = orig
+    torch.cuda.synchronize()
+
+    def replay():
+        for a, k in calls:
+            orig(*a, **k)
+    ev = cuda_ms(replay, 5, 1)
+    _, rows, _ = profile_frames(replay, 3)
+    dev = sum(ms for _, ms in rows) if rows else None
+    print(f"  prepass {label}: {len(calls)} calls a frame, device "
+          + (f"{dev:.4f} ms" if dev is not None else "not measured")
+          + f" over {len(rows)} kernel names, {ev:.4f} ms (events)  [{card}]")
+    return {"calls": len(calls), "device_ms": dev, "ms": ev}
 
 
 def compare_kernels(tk, rec, tape, size):
@@ -414,8 +486,10 @@ def compare_kernels(tk, rec, tape, size):
     res["interval_shorten"] = compare_a(tk, rec["interval_shorten"][0], tape,
                                         f"@{size}^2",
                                         res["plain"]["interval_shorten"])
+    res["plain"]["compact_bitshift_batched"] = []
     res["compact_bitshift_batched"], gmeta, runs_h, kept = compare_c(
-        tk, rec["compact_bitshift_batched"][0], tape, f"@{size}^2")
+        tk, rec["compact_bitshift_batched"][0], tape, f"@{size}^2",
+        res["plain"]["compact_bitshift_batched"])
     n_amb = gmeta.shape[0]
 
     (a, k, fill) = rec["pixel_eval_runs"][0]
@@ -455,9 +529,11 @@ def compare_kernels_3d(tk, tk3, rec, tape, name, keep):
             compare_a(tk, entry, tape, f"{name} {stage}",
                       keep["interval_shorten"]))
     c_rows = []
+    keep["compact_bitshift_batched"] = []
     for entry, stage in zip(rec["compact_bitshift_batched"],
                             ("cells", "columns")):
-        r, gmeta, runs_h, kept = compare_c(tk, entry, tape, f"{name} {stage}")
+        r, gmeta, runs_h, kept = compare_c(tk, entry, tape, f"{name} {stage}",
+                                           keep["compact_bitshift_batched"])
         res["compact_bitshift_batched"].append(r)
         c_rows.append((gmeta, runs_h, kept))
 
@@ -646,6 +722,8 @@ def run_2d(ctx, results, launches):
                 r["plain_ms"] = cuda_ms(lambda: plain(*a, **k), 3, 1)
             line.append(f"{name} {ms:.4f} ms (device {r['device_ms']})")
         print("; ".join(line) + f"  [{card}]")
+        print_c_share(f"@{size}^2", results[size]["compact_bitshift_batched"],
+                      card)
 
     # ---- where a frame's device time goes -----------------------------------
     for _, size in CASES:
@@ -659,6 +737,51 @@ def run_2d(ctx, results, launches):
     ctx["recs2d"] = recs
     ctx["frame2d"] = dict(rec=recs[size], tape=tapes[size], size=size,
                           image=images[size])
+
+
+def run_stale_imms(ctx):
+    """Phase 5b: kernel A under a schedule built before the tape's
+    immediates changed, on the 1024^2 cell's tape and tiles."""
+    import numpy as np
+    import torch
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.ops import launch as ln
+    from mpr_tpu_torch.ops.tape_data import TapeData
+    from mpr_tpu_torch.render import pipeline2d
+    tk, dev, card = ctx["tk"], ctx["dev"], ctx["card"]
+    n_blobs, size = CASES[0]
+    td = TapeData.from_tape(mpr_tpu_torch.compile_tree(
+        shapes.stress_2d(n_blobs)), device=dev)
+    old = td.levels()                   # built with the tape's own imms
+    imms = td.imms.clone()
+    noise = np.random.default_rng(56).normal(0.0, 0.05, td.length)
+    imms[:td.length] += torch.from_numpy(noise.astype(np.float32)).to(dev)
+    boxes = pipeline2d._tile_boxes_2d(size // 64, torch.eye(3, device=dev),
+                                      torch.tensor(0.0, device=dev))
+    meta, lanes = td.meta(), boxes.shape[1]
+    s_cap = max(8, -(-td.num_slots // 8) * 8)
+    plain = tk.interval_shorten_plain(meta, td.packed, imms, boxes,
+                                      s_cap=s_cap)
+    before = tk.interval_shorten_plain(meta, td.packed, td.imms, boxes,
+                                       s_cap=s_cap)
+    n_old, c_old, _ = a_mismatches(tk, before, plain)
+    check(n_old + c_old > 0, "the changed immediates change no status or "
+          "code: the phase cannot tell old from new")
+    for kw in (None, dict(threads=1024), dict(threads=256, stage=True)):
+        launch = None if kw is None else ln.interval_launch(old.widths,
+                                                            lanes, **kw)
+        out = tk.interval_shorten(meta, td.packed, imms, boxes, s_cap=s_cap,
+                                  levels=old, launch=launch)
+        torch.cuda.synchronize()
+        n_st, n_codes, _ = a_mismatches(tk, out, plain)
+        label = "picked" if kw is None else a_label(launch)
+        print(f"  A under an old schedule, new imms @{size}^2 [{label}]: "
+              f"status mismatches {n_st}, code word mismatches {n_codes} "
+              f"(the old imms' plain output differs in {n_old} statuses, "
+              f"{c_old} code words)  [{card}]")
+        check(n_st + n_codes == 0, "kernel A follows the schedule's "
+              f"immediates, not the call's ({label})")
 
 
 def run_3d(ctx, results, launches):
@@ -825,6 +948,10 @@ def run_3d(ctx, results, launches):
                   + "); plain "
                   + ", ".join(f"{r['plain_ms']:.1f}" for r in res[kname])
                   + f" ms  [{card}]")
+        for stage, r in zip(("cells", "columns"),
+                            res["compact_bitshift_batched"]):
+            print_c_share(f"{name} {stage}", r, card)
+        res["prepass"] = time_prepass(frame, card, f"{name} @{size}^3")
         print_profile(f"{name} @{size}^3", frame, card, 3)
     name = CASES_3D[0][0]
     ctx["frame3d"] = dict(name=name, size=CASES_3D[0][3], frame=frames[name])
@@ -1003,6 +1130,7 @@ def run_v1(ctx, results, launches):
               lambda: tk.compact_bitshift_plain(*c2_args)))
     for name, fn, plain in timed:
         res[name]["ms"] = cuda_ms(fn, 30, 3)
+        res[name]["device_ms"] = device_ms(fn)
         res[name]["plain_ms"] = plain_ms(plain)
     res["compact_runs"]["ms_cap8"] = cuda_ms(
         lambda: tk.compact_runs(*c1_args[cap8]), 30, 3)
@@ -1013,7 +1141,10 @@ def run_v1(ctx, results, launches):
           f"cap {tcap}, {res['compact_runs']['ms_cap8']:.4f} ms at cap "
           f"{cap8}; B1 {res['pixel_eval']['ms']:.4f} ms (kernel B beside it "
           f"{b_ms:.4f}); C2 {res['compact_bitshift']['ms']:.4f} ms (kernel "
-          f"C beside it {c_ms:.4f}); plain "
+          f"C beside it {c_ms:.4f}); device C1 "
+          f"{res['compact_runs']['device_ms']}, B1 "
+          f"{res['pixel_eval']['device_ms']}, C2 "
+          f"{res['compact_bitshift']['device_ms']} ms; plain "
           + ", ".join(f"{res[k]['plain_ms']:.1f}" for k in
                       ("compact_runs", "pixel_eval", "compact_bitshift"))
           + f" ms  [{card}]")
@@ -1153,8 +1284,9 @@ def bound(r):
 def ptxas_rows(log):
     """(kernel, K, bucket, registers, stack bytes, spill stores, spill
     loads) for each instantiation of kernels B, V and D in nvcc's -Xptxas
-    -v output (bucket 0 is the shared home), and of kernel A (K is 1 with
-    widening, 0 without; bucket 0)."""
+    -v output (bucket 0 is the shared home), of kernel A (K is 1 with
+    widening, 0 without; bucket 0) and of kernels C and C2 (K is 1 for a
+    warp a row, 0 for a block a row; bucket 0)."""
     import re
     rows, cur = [], None
     for line in log.splitlines():
@@ -1164,8 +1296,8 @@ def ptxas_rows(log):
         if m:
             cur = [m.group(1), int(m.group(2)), int(m.group(3))]
             continue
-        m = re.search(r"Function properties for \S*?(interval_shorten_kernel)"
-                      r"ILb(\d)E", line)
+        m = re.search(r"Function properties for \S*?(interval_shorten_kernel|"
+                      r"compact_kernel|compact_order_kernel)ILb(\d)E", line)
         if m:
             cur = [m.group(1), int(m.group(2)), 0]
             continue
@@ -1191,8 +1323,9 @@ def print_ptxas(tk3, logs):
     the files in shared memory; else local, or for D split by warps).
     Every (kernel, K, bucket) of B, V and D must be built, those of
     ``tk3.MAIN_K`` in the main library, and both of A's (with and without
-    widening) in the main library.  Returns the instantiations that spill:
-    the run fails on them once every phase has run."""
+    widening), C's and C2's (a warp or a block a row) in the main library.
+    Returns the instantiations that spill: the run fails on them once every
+    phase has run."""
     names = {"pixel_eval_kernel": "pixel_eval_runs",
              "voxel_eval_kernel": "voxel_eval_3d",
              "deriv_eval_kernel": "deriv_eval_3d"}
@@ -1202,6 +1335,8 @@ def print_ptxas(tk3, logs):
             built.setdefault((kern, k, bucket), set()).add(lib_name)
             if kern.startswith("interval"):
                 shape = "widen" if k else "no widening"
+            elif kern.startswith("compact"):
+                shape = "a warp a row" if k else "a block a row"
             else:
                 shape = f"K={k} " + ("shared" if bucket == 0 else (
                     f"local/split {bucket} slots" if kern.startswith("deriv")
@@ -1222,6 +1357,10 @@ def print_ptxas(tk3, logs):
     for widen in (0, 1):
         check("main" in built.get(("interval_shorten_kernel", widen, 0), ()),
               f"kernel A (widen {widen}) is not in the main library")
+    for kern in ("compact_kernel", "compact_order_kernel"):
+        for warp in (0, 1):
+            check("main" in built.get((kern, warp, 0), ()),
+                  f"{kern} (warp a row {warp}) is not in the main library")
     return spills
 
 
@@ -1296,6 +1435,19 @@ EDGE_B = ([dict(home="local", k=kk) for kk in (1, 2, 4)]
                                                                False)])
 
 
+# Forced launch shapes of kernel C in phase 8b, as keyword arguments of
+# compact_launch: a warp a row at 1, 4, 8 and 32 rows a block, a block a
+# row at 128 to 1024 threads.
+EDGE_C = ([dict(warp=True, threads=t) for t in (32, 128, 256, 1024)]
+          + [dict(warp=False, threads=t) for t in (128, 256, 512, 1024)])
+
+
+def c_label(launch):
+    return (f"threads={launch.threads} "
+            + ("a warp a row" if launch.group == 32 else "a block a row")
+            + f" smem={launch.smem}")
+
+
 def a_label(launch):
     return (f"threads={launch.threads} tiles={launch.tiles} smem="
             f"{launch.smem}" + (" staged" if launch.stage else ""))
@@ -1361,10 +1513,29 @@ def sweep_a(ctx, cell, entries, plains, sweep):
                   ctx["card"])
 
 
+def sweep_c(ctx, cell, entries, plains, sweep):
+    """Kernel C at the forced shapes on each recorded launch."""
+    from mpr_tpu_torch.ops import launch as ln
+    tk = ctx["tk"]
+    for (a, k, _), plain in zip(entries, plains):
+        G, R, W = a[2].shape
+        n = int(a[0][0])
+        args = (R * W, k["cap"], G)
+
+        def bad(out, plain=plain, n=n):
+            return sum(c_mismatches(out, plain, n)[0].values())
+        shapes = forced(lambda: ln.compact_launch(*args),
+                        lambda **kw: ln.compact_launch(*args, **kw), EDGE_C)
+        sweep_one(f"{cell} ({n} rows)", "compact_bitshift_batched",
+                  tk.compact_bitshift_batched, a, k, shapes, bad, c_label,
+                  sweep, ctx["card"])
+
+
 def run_edges(ctx, results):
-    """Phase 8b: kernels V, D and A at forced launch shapes on the recorded
-    inputs of both 3D cells, A and B on those of both 2D cells, each output
-    against the plain output of phase 3 or 7, each shape timed."""
+    """Phase 8b: kernels V, D, A and C at forced launch shapes on the
+    recorded inputs of both 3D cells, A, B and C on those of both 2D cells,
+    each output against the plain output of phase 3 or 7, each shape
+    timed."""
     import torch
     from mpr_tpu_torch.ops import launch as ln
     tk, tk3, card = ctx["tk"], ctx["tk3"], ctx["card"]
@@ -1382,6 +1553,8 @@ def run_edges(ctx, results):
         sweep_one(cell, "pixel_eval_runs", tk.pixel_eval_runs, a, k, shapes,
                   lambda out: int((out != pfill).sum()), shape_label, sweep,
                   card)
+        sweep_c(ctx, cell, rec["compact_bitshift_batched"],
+                res["plain"]["compact_bitshift_batched"], sweep)
         res["plain"] = None
     for name, *_ in CASES_3D:
         rec, plain = ctx["recs3d"][name], ctx["plain3d"][name]
@@ -1395,6 +1568,8 @@ def run_edges(ctx, results):
                       shape_label, sweep, card)
         sweep_a(ctx, name, rec["interval_shorten"],
                 plain["interval_shorten"], sweep)
+        sweep_c(ctx, name, rec["compact_bitshift_batched"],
+                plain["compact_bitshift_batched"], sweep)
         ctx["plain3d"][name] = None
         torch.cuda.synchronize()
 
@@ -1437,7 +1612,8 @@ def main() -> int:
             print("  " + line.strip())
         elif ("registers" in line or "spill" in line) and not any(
                 n in source for n in ("voxel_eval", "deriv_eval",
-                                      "pixel_eval.cu", "interval_shorten")):
+                                      "pixel_eval.cu", "interval_shorten",
+                                      "compact.cu", "compact_order.cu")):
             print("  " + line.strip())
     spills = print_ptxas(tk3, build.BuildStats.log)
 
@@ -1446,6 +1622,8 @@ def main() -> int:
            "builds": (build.BuildStats.loads, build.BuildStats.compiles)}
     results, launches = {}, {}
     run_2d(ctx, results, launches)
+    sys.stdout.flush()
+    run_stale_imms(ctx)
     sys.stdout.flush()
     run_3d(ctx, results, launches)
     sys.stdout.flush()
@@ -1457,7 +1635,8 @@ def main() -> int:
     sys.stdout.flush()
     effect_rows = run_effects(ctx)
 
-    check(not spills, f"kernel A, B, V or D spills registers: {spills}")
+    check(not spills, f"kernel A, B, C, C2, V or D spills registers: "
+          f"{spills}")
 
     # ---- 12. report -------------------------------------------------------------
     size = CASES[0][1]
@@ -1474,7 +1653,7 @@ def main() -> int:
             r = results["v1"][name]
             at = f"stress_2d({CASES[0][0]}) {size}^2"
             errs = [r["max_abs_err"]]
-            extra = {"launches_per_frame": 0,
+            extra = {"launches_per_frame": 0, "device_ms": r["device_ms"],
                      "launched_by": "kernel phase (no render path calls it)"}
             if "ms_cap8" in r:
                 extra["ms_cap8"] = r["ms_cap8"]
@@ -1483,10 +1662,19 @@ def main() -> int:
             r = results[size][name]
             at = f"stress_2d({CASES[0][0]}) {size}^2"
             errs = [results[s][name]["max_abs_err"] for _, s in CASES]
-            extra = {"ms_2048": results[CASES[1][1]][name]["ms"],
-                     "device_ms": r["device_ms"],
-                     "device_ms_2048": results[CASES[1][1]][name][
-                         "device_ms"]}
+            r2 = results[CASES[1][1]][name]
+            extra = {"ms_2048": r2["ms"], "device_ms": r["device_ms"],
+                     "device_ms_2048": r2["device_ms"],
+                     "bound_ms_2048": bound(r2)[0]}
+            if name == "compact_bitshift_batched":
+                extra["share_of_bound"] = {
+                    f"stress_2d({nb}) {sz}^2":
+                        results[sz][name]["share_of_bound"]
+                    for nb, sz in CASES}
+                for c, *_ in CASES_3D:
+                    extra["share_of_bound"][c] = [
+                        x["share_of_bound"] for x in results[c][name]]
+                    extra[f"prepass_{c}"] = results[c]["prepass"]
             if name == "interval_shorten":
                 extra.update(levels=r["levels"],
                              dep_bound_ms=r["dep_bound_ms"],

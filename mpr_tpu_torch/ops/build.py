@@ -15,7 +15,9 @@ kernels B, V and D at the launch shapes the render path picks; ``extra``
 holds B, V and D at the other shapes (``-DMPR_EXTRA_SHAPES``), which only
 a forced launch shape reaches, so the render path's first use does not
 compile them.  Kernel A takes every launch shape at run time: both its
-instantiations (with and without widening) are in ``main``.
+instantiations (with and without widening) are in ``main``; so do kernels
+C and C2, whose two instantiations each (a warp a row, a block a row) the
+render path picks by the plane's length.
 
 Numerics: ``--fmad=false`` and no ``--use_fast_math``, with nvcc's IEEE
 defaults for division, square root and denormals kept, so the kernels
@@ -47,14 +49,14 @@ _I = ctypes.c_int
 # C signatures of the entry points, one a source (``mpr_<stem of the .cu>``):
 # every pointer and the stream as c_void_p, every int c_int.
 SIGNATURES = {
-    "mpr_interval_shorten": [_P] * 6 + [_I] * 16 + [_P],
-    "mpr_compact": [_P] * 9 + [_I] * 3 + [_P],
+    "mpr_interval_shorten": [_P] * 7 + [_I] * 16 + [_P],
+    "mpr_compact": [_P] * 9 + [_I] * 6 + [_P],
     "mpr_pixel_eval": [_P] * 13 + [_I] * 10 + [_P],
     "mpr_voxel_eval": [_P] * 13 + [_I] * 9 + [_P],
     "mpr_deriv_eval": [_P] * 13 + [_I] * 12 + [_P],
     "mpr_pixel_eval_v1": [_P] * 7 + [_I] * 4 + [_P],
     "mpr_compact_runs": [_P] * 10 + [_I] * 6 + [_P],
-    "mpr_compact_order": [_P] * 10 + [_I] * 4 + [_P],
+    "mpr_compact_order": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 

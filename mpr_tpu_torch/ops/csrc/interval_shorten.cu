@@ -16,13 +16,15 @@
 // widest levels' clauses over the group's threads.
 //
 // Design: the host computes the tape's schedule once (ops/schedule.py::
-// tape_levels): the clauses in level order, and for each its word, its
-// immediate, the level-order positions of its forward producers (or a seed:
-// an axis of the tile's box, or [0, 0]), the positions its backward marks
-// go to, and its index t in the tape; plus the level offsets.  A tile keeps
-// one interval per clause (SSA style: slot reuse makes no hazard), a choice
-// byte, an active byte and a code byte per clause, in shared memory (11 B a
-// clause: 180 KB at the 16,384-clause bucket).  Within a level the clauses
+// tape_levels): the clauses in level order, and for each its word, the
+// level-order positions of its forward producers (or a seed: an axis of
+// the tile's box, or [0, 0]), the positions its backward marks go to, and
+// its index t in the tape; plus the level offsets.  A clause's immediate
+// is read from the call's `imms` at its index t, never from the schedule,
+// which outlives a change of the immediates (a fit step, a slider).  A
+// tile keeps one interval per clause (SSA style: slot reuse makes no
+// hazard), a choice byte, an active byte and a code byte per clause, in
+// shared memory (11 B a clause: 180 KB at the 16,384-clause bucket).  Within a level the clauses
 // go by opcode, so that a warp's threads mostly take one branch.
 //   * Forward, level by level: consecutive threads take consecutive
 //     clauses of the level, so the plane reads are coalesced; each reads
@@ -56,7 +58,7 @@ namespace {
 
 using namespace mpr;
 
-constexpr int PLANES = 5;  // word, imm bits, sources, marks, t
+constexpr int PLANES = 4;  // word, sources, marks, t
 
 struct Seeds {
   Iv x, y, z;
@@ -83,7 +85,8 @@ template <bool WIDEN>
 __global__ void __launch_bounds__(1024)
 interval_shorten_kernel(
     const int* __restrict__ meta,     // [T, S, res, sx, sy, sz, n_runs, n_active]
-    const int* __restrict__ planes,   // (5, tp) in level order
+    const int* __restrict__ planes,   // (4, tp) in level order
+    const float* __restrict__ imms,   // (tcap,) the tape's immediates
     const int* __restrict__ offsets,  // (n_levels + 1,)
     const float* __restrict__ boxes,  // (6, lanes): xl xh yl yh zl zh
     int* __restrict__ status,         // (lanes,)
@@ -119,10 +122,9 @@ interval_shorten_kernel(
     base += (size_t)PLANES * tp * 4;
   }
   const int* Pw = P;
-  const float* Pi = reinterpret_cast<const float*>(P + tp);
-  const int* Ps = P + 2 * tp;
-  const int* Pm = P + 3 * tp;
-  const int* Pt = P + 4 * tp;
+  const int* Ps = P + tp;
+  const int* Pm = P + 2 * tp;
+  const int* Pt = P + 3 * tp;
   // the block's arrays: intervals, choices, active flags, codes, tp x tiles
   // each
   const size_t n = (size_t)tp * tiles;
@@ -172,7 +174,7 @@ interval_shorten_kernel(
     int nsrc = 0;
     if (pl < n_levels) {
       nw = (uint32_t)Pw[pi];
-      nimm = Pi[pi];
+      nimm = __ldg(imms + Pt[pi]);
       nsrc = Ps[pi];
     }
     for (int l = 0; l < n_levels; ++l) {
@@ -185,7 +187,7 @@ interval_shorten_kernel(
         seek_up(pl, pi);
         if (pl < n_levels) {
           nw = (uint32_t)Pw[pi];
-          nimm = Pi[pi];
+          nimm = __ldg(imms + Pt[pi]);
           nsrc = Ps[pi];
         }
         const int op = w_op(w);
@@ -313,11 +315,11 @@ interval_shorten_kernel(
 // dynamic shared memory the host computed for the shape (ops/launch.py::
 // interval_launch, which also checks it).
 extern "C" int mpr_interval_shorten(
-    const void* meta, const void* planes, const void* offsets,
-    const void* boxes, void* status, void* codes, int lanes, int tcap, int T,
-    int tp, int n_levels, int res_src, int res_mark, int res, int sx, int sy,
-    int sz, int threads, int tiles, int stage, int widen, int smem,
-    void* stream) {
+    const void* meta, const void* planes, const void* imms,
+    const void* offsets, const void* boxes, void* status, void* codes,
+    int lanes, int tcap, int T, int tp, int n_levels, int res_src,
+    int res_mark, int res, int sx, int sy, int sz, int threads, int tiles,
+    int stage, int widen, int smem, void* stream) {
   // a block a tile, or a thread a tile
   if ((tiles != 1 && tiles != threads) || tcap % 8 || tp % 16)
     return (int)cudaErrorInvalidValue;
@@ -329,8 +331,9 @@ extern "C" int mpr_interval_shorten(
   const int blocks = (lanes + tiles - 1) / tiles;
   fn<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(meta), static_cast<const int*>(planes),
-      static_cast<const int*>(offsets), static_cast<const float*>(boxes),
-      static_cast<int*>(status), static_cast<int*>(codes), lanes, tcap, T,
-      tp, n_levels, res_src, res_mark, res, sx, sy, sz, tiles, stage);
+      static_cast<const float*>(imms), static_cast<const int*>(offsets),
+      static_cast<const float*>(boxes), static_cast<int*>(status),
+      static_cast<int*>(codes), lanes, tcap, T, tp, n_levels, res_src,
+      res_mark, res, sx, sy, sz, tiles, stage);
   return (int)cudaGetLastError();
 }

@@ -401,8 +401,9 @@ def _interval_shorten_levels(meta, words, imms, boxes, levels, *,
     """Kernel A's algorithm in plain PyTorch, for the tests: the clauses in
     the level order of ``levels`` (:func:`schedule.tape_levels`), one
     interval kept per clause, operands read from their producers'
-    positions or the seeds, choices kept per clause; backward in reverse
-    level order, each active clause marking its producers' positions.
+    positions or the seeds, immediates from ``imms`` at each clause's tape
+    index, choices kept per clause; backward in reverse level order, each
+    active clause marking its producers' positions.
     Same outputs as :func:`interval_shorten_plain`; no render path calls
     it."""
     lanes = boxes.shape[1]
@@ -419,7 +420,9 @@ def _interval_shorten_levels(meta, words, imms, boxes, levels, *,
     h = levels.host
     planes = levels.planes.cpu().numpy()
     ops, outs, lhss, rhss = _decode(torch.from_numpy(planes[0, :T]))
-    imm_f = planes[1, :T].view(np.float32).tolist()
+    # each clause's immediate from the call's imms at its tape index (the
+    # schedule may be older than the immediates)
+    imm_f = imms[:T].cpu().numpy()[h["order"]].tolist()
     offs = levels.offsets.cpu().tolist()
     b = boxes[:, :la]
     zero = torch.zeros(la, dtype=torch.float32, device=dev)
@@ -478,7 +481,8 @@ def interval_shorten(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
       levels: the tape's dependency schedule (:func:`schedule.tape_levels`
         on the boxes' device), or a function that returns it (called only
         when the kernel runs: ``TapeData.levels``); without one the
-        wrapper reads ``meta`` back and builds it from ``words``
+        wrapper reads ``meta`` back and builds it from ``words``.  It holds
+        no immediates: the kernel reads each clause's from ``imms``
       launch: a forced launch shape (one :func:`launch.interval_launch`
         can give; default: the one it picks for the schedule and lanes)
 
@@ -502,7 +506,7 @@ def interval_shorten(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
         levels = levels()
     if levels is None:
         m = [int(v) for v in meta.tolist()]
-        levels = sch.tape_levels(words, imms, m[0], m[2], m[3:6], device=dev)
+        levels = sch.tape_levels(words, m[0], m[2], m[3:6], device=dev)
     if levels.planes.device != dev or levels.length > tcap:
         raise ValueError(f"schedule of {levels.length} clauses on "
                          f"{levels.planes.device} for a tape of capacity "
@@ -516,7 +520,8 @@ def interval_shorten(meta, words, imms, boxes, *, s_cap=SLOT_CAP,
     if lanes:
         with torch.cuda.device(dev):
             _launch(build.lib().mpr_interval_shorten, meta.data_ptr(),
-                    levels.planes.data_ptr(), levels.offsets.data_ptr(),
+                    levels.planes.data_ptr(), imms.data_ptr(),
+                    levels.offsets.data_ptr(),
                     boxes.data_ptr(), status.data_ptr(), codes.data_ptr(),
                     lanes, tcap, levels.length, levels.padded,
                     levels.n_levels, levels.res_src, levels.res_mark,
@@ -612,10 +617,12 @@ def _run_headers(cb, n, rcap: int):
 # Kernel C: tape compaction + run extraction
 # ---------------------------------------------------------------------------
 
-def compact_bitshift_batched_plain(cmeta, lens, wrw, irw, rem, cap: int):
+def compact_bitshift_batched_plain(cmeta, lens, wrw, irw, rem, cap: int,
+                                   launch=None):
     """Plain PyTorch kernel C, vectorized over tile rows.  Same signature
-    and outputs as :func:`compact_bitshift_batched` (rows at or past
-    ``cmeta[0]`` are computed too)."""
+    and outputs as :func:`compact_bitshift_batched` (``launch`` is the
+    kernel's and ignored here; rows at or past ``cmeta[0]`` are computed
+    too)."""
     G, R, W = wrw.shape
     tcap = R * W
     dev = wrw.device
@@ -643,7 +650,23 @@ def compact_bitshift_batched_plain(cmeta, lens, wrw, irw, rem, cap: int):
     return (cw[:, :cap].contiguous(), ci[:, :cap].contiguous(), runs, gmeta)
 
 
-def compact_bitshift_batched(cmeta, lens, wrw, irw, rem, cap: int):
+def _check_planes(wrw, irw, rem, cap: int):
+    """The prepass planes of kernels C and C2: int32, contiguous, 16-byte
+    aligned (the kernels read the words 16 bytes at a time), a plane of at
+    most 16384 clauses in whole warps, and 1 <= cap <= the plane."""
+    n, R, W = wrw.shape
+    tcap = R * W
+    for name, p in (("wrw", wrw), ("irw", irw), ("rem", rem)):
+        _check(p, name, torch.int32, (n, R, W))
+        if p.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+    if not 1 <= cap <= tcap or tcap > 16384 or tcap % 32:
+        raise ValueError(f"bad cap {cap} for a {tcap}-clause plane")
+    return tcap
+
+
+def compact_bitshift_batched(cmeta, lens, wrw, irw, rem, cap: int,
+                             launch=None):
     """Kernel C over pre-ordered tile rows.
 
     cmeta: (8,) int32, cmeta[0] = rows to compact (the ambiguous count);
@@ -651,7 +674,8 @@ def compact_bitshift_batched(cmeta, lens, wrw, irw, rem, cap: int):
     planes from the prepass (pipeline2d._shorten_prepass): rewritten words
     with the branch id in the op byte (0 for a dropped clause), imm bits,
     and each kept clause's leftward move.  ``cap`` (<= R*W) is the
-    per-tile capacity.
+    per-tile capacity.  ``launch``: a forced launch shape (one
+    :func:`launch.compact_launch` can give; default: the one it picks).
 
     Returns (tw (G, cap) i32, ti_bits (G, cap) i32, runs (G, cap) i32
     headers bid | count<<8, gmeta (G, 8) i32 [len, n_runs, len > cap, 0..]);
@@ -659,14 +683,14 @@ def compact_bitshift_batched(cmeta, lens, wrw, irw, rem, cap: int):
     """
     if not _on_cuda(cmeta, lens, wrw, irw, rem):
         return compact_bitshift_batched_plain(cmeta, lens, wrw, irw, rem, cap)
-    G, R, W = wrw.shape
-    tcap = R * W
+    G = wrw.shape[0]
     _check(cmeta, "cmeta", torch.int32, (8,))
     _check(lens, "lens", torch.int32, (G,))
-    for name, p in (("wrw", wrw), ("irw", irw), ("rem", rem)):
-        _check(p, name, torch.int32, (G, R, W))
-    if not 1 <= cap <= tcap or tcap > 16384 or tcap % 32:
-        raise ValueError(f"bad cap {cap} for a {tcap}-clause plane")
+    tcap = _check_planes(wrw, irw, rem, cap)
+    if launch is None:
+        launch = ln.compact_launch(tcap, cap, G)
+    else:
+        ln.check_compact_launch(launch, tcap, cap)
     dev = wrw.device
     tw = torch.empty(G, cap, dtype=torch.int32, device=dev)
     ti = torch.empty(G, cap, dtype=torch.int32, device=dev)
@@ -677,7 +701,8 @@ def compact_bitshift_batched(cmeta, lens, wrw, irw, rem, cap: int):
             _launch(build.lib().mpr_compact, cmeta.data_ptr(), lens.data_ptr(),
                     wrw.data_ptr(), irw.data_ptr(), rem.data_ptr(),
                     tw.data_ptr(), ti.data_ptr(), runs.data_ptr(),
-                    gmeta.data_ptr(), G, tcap, cap, _stream())
+                    gmeta.data_ptr(), G, tcap, cap, launch.threads,
+                    launch.group, launch.smem, _stream())
         _compact_bitshift_batched.launches += 1
     return tw, ti, runs, gmeta
 
@@ -1141,17 +1166,17 @@ _compact_runs = compact_runs
 # ---------------------------------------------------------------------------
 
 def compact_bitshift_plain(cmeta, order, lens, wrw, irw, rem, gcap: int,
-                           cap: int, rcap: int):
+                           cap: int, rcap: int, launch=None):
     """Plain PyTorch kernel C2: gathers the planes of tiles ``order[:gcap]``
     into row order and runs the plain kernel C on them.  Same signature and
-    outputs as :func:`compact_bitshift`."""
+    outputs as :func:`compact_bitshift` (``launch`` ignored)."""
     sel = order[:gcap].long().clamp(0, wrw.shape[0] - 1)
     return compact_bitshift_batched_plain(cmeta, lens[sel], wrw[sel],
                                           irw[sel], rem[sel], cap)
 
 
 def compact_bitshift(cmeta, order, lens, wrw, irw, rem, gcap: int, cap: int,
-                     rcap: int):
+                     rcap: int, launch=None):
     """Kernel C2: kernel C over planes in TILE order.
 
     cmeta: (8,) int32, cmeta[0] = groups to compact; order: (Gcap >= gcap,)
@@ -1159,7 +1184,9 @@ def compact_bitshift(cmeta, order, lens, wrw, irw, rem, gcap: int, cap: int,
     TILE; wrw/irw/rem: (n_tiles, R, W) int32 planes from the prepass
     (pipeline2d._shorten_prepass).  ``cap`` (<= R*W) is the per-tile
     capacity; ``rcap`` is accepted for the JAX signature's sake (the
-    headers have ``cap`` slots).
+    headers have ``cap`` slots).  ``launch``: a forced launch shape, as for
+    :func:`compact_bitshift_batched` (default: the one
+    :func:`launch.compact_launch` picks for ``gcap`` rows).
 
     Returns (tw, ti_bits, runs (gcap, cap) i32, gmeta (gcap, 8) i32 [len,
     n_runs, len > cap, 0..]) with group ``g`` = tile ``order[g]`` in row
@@ -1168,17 +1195,17 @@ def compact_bitshift(cmeta, order, lens, wrw, irw, rem, gcap: int, cap: int,
     if not _on_cuda(cmeta, order, lens, wrw, irw, rem):
         return compact_bitshift_plain(cmeta, order, lens, wrw, irw, rem,
                                       gcap, cap, rcap)
-    n_tiles, R, W = wrw.shape
-    tcap = R * W
+    n_tiles = wrw.shape[0]
     _check(cmeta, "cmeta", torch.int32, (8,))
     _check(order, "order", torch.int32, (order.shape[0],))
     _check(lens, "lens", torch.int32, (n_tiles,))
-    for name, p in (("wrw", wrw), ("irw", irw), ("rem", rem)):
-        _check(p, name, torch.int32, (n_tiles, R, W))
-    if (order.shape[0] < gcap or not 1 <= cap <= tcap or tcap > 16384
-            or tcap % 32):
-        raise ValueError(f"bad shapes: {order.shape[0]} order rows for gcap "
-                         f"{gcap}, cap {cap} for a {tcap}-clause plane")
+    tcap = _check_planes(wrw, irw, rem, cap)
+    if order.shape[0] < gcap:
+        raise ValueError(f"{order.shape[0]} order rows for gcap {gcap}")
+    if launch is None:
+        launch = ln.compact_launch(tcap, cap, gcap)
+    else:
+        ln.check_compact_launch(launch, tcap, cap)
     dev = wrw.device
     tw = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
     ti = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
@@ -1190,7 +1217,8 @@ def compact_bitshift(cmeta, order, lens, wrw, irw, rem, gcap: int, cap: int,
                     order.data_ptr(), lens.data_ptr(), wrw.data_ptr(),
                     irw.data_ptr(), rem.data_ptr(), tw.data_ptr(),
                     ti.data_ptr(), runs.data_ptr(), gmeta.data_ptr(), gcap,
-                    n_tiles, tcap, cap, _stream())
+                    n_tiles, tcap, cap, launch.threads, launch.group,
+                    launch.smem, _stream())
         _compact_bitshift.launches += 1
     return tw, ti, runs, gmeta
 

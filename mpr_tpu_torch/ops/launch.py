@@ -7,12 +7,16 @@ block, items a thread (K), blocks a row (P) and dynamic shared memory make
 a :class:`Launch`.  Kernel A (``csrc/interval_shorten.cu``) walks a tape's
 dependency levels with a block or a thread a tile: threads a block, tiles
 a block and whether the schedule's planes are staged in shared memory make
-an :class:`IntervalLaunch`.
+an :class:`IntervalLaunch`.  Kernels C and C2 (``csrc/compact.cu``,
+``compact_order.cu``) take a row with a warp or with the whole block: threads
+a block, threads a row and dynamic shared memory make a
+:class:`CompactLaunch`.
 
 Every function here is pure host code; the pickers are
-:func:`interval_launch` and :func:`pixel_launch` (kernels A and B) and
-``kernels3d.voxel_launch`` / ``deriv_launch`` (V and D).  A caller may
-force another shape (``launch=`` of a wrapper), which the wrapper checks.
+:func:`interval_launch`, :func:`pixel_launch` and :func:`compact_launch`
+(kernels A, B, and C and C2) and ``kernels3d.voxel_launch`` /
+``deriv_launch`` (V and D).  A caller may force another shape (``launch=``
+of a wrapper), which the wrapper checks.
 """
 
 from __future__ import annotations
@@ -231,7 +235,7 @@ A_OWN_THREADS = (64, 128, 256)   # a thread a tile: threads (tiles) a block
 # Threads an SM keeps busy before more of them slow each step (kernel A's
 # cost model; fitted to the launch-shape sweep of chip_smoke.py on an H100)
 A_BUSY_THREADS = 1024
-A_PLANES = 5             # schedule planes: word, imm, src, mark, t
+A_PLANES = 4             # schedule planes: word, src, mark, t
 
 
 @dataclass(frozen=True)
@@ -381,3 +385,102 @@ def check_interval_launch(launch: IntervalLaunch,
     that its tiles and staging give for ``length`` clauses, within the
     limit."""
     return _check_a(launch, length, SMEM_LIMIT)
+
+
+# ---------------------------------------------------------------------------
+# Kernels C and C2
+# ---------------------------------------------------------------------------
+
+C_THREADS = (32, 64, 128, 256, 512, 1024)
+# planes of at most this many clauses take a warp a row, longer ones a
+# block a row
+C_WARP_TCAP = 1024
+C_WARP_ROWS = 8          # rows (warps) a block at most, a warp a row
+# a block a row: words of the plane a thread, and threads a block at most.
+# Fewer threads a row leave an SM more rows in flight (48 registers a
+# thread: 5 blocks of 256 an SM, 1 of 1024), which the launch-shape sweep
+# of chip_smoke.py found faster at every long-plane cell.
+C_WORDS = 16
+C_BLOCK_THREADS = 512
+
+
+@dataclass(frozen=True)
+class CompactLaunch:
+    """One launch shape of kernel C or C2: ``threads`` a block, ``group``
+    the threads that take one row (32: a warp a row, ``threads // 32``
+    rows a block; ``threads``: a block a row), ``smem`` dynamic shared
+    bytes (:func:`c_row_bytes` a row)."""
+    threads: int
+    group: int
+    smem: int
+
+    @property
+    def rows(self) -> int:
+        """Rows a block."""
+        return self.threads // self.group
+
+
+def c_row_bytes(tcap: int, cap: int) -> int:
+    """Shared bytes of one row in kernels C and C2 (``csrc/
+    compact_core.cuh::compact_row_bytes``): the staged words and immediates
+    (cap rounded up to 4, each), the run starts (cap + 1 ints in cap
+    rounded up to 4, plus 4) and a branch id a clause of the plane."""
+    cap4 = -(-cap // 4) * 4
+    return 4 * (3 * cap4 + 4) + -(-tcap // 16) * 16
+
+
+def _c_shape(tcap, cap, threads, warp) -> CompactLaunch:
+    group = 32 if warp else threads
+    return CompactLaunch(threads, group,
+                         threads // group * c_row_bytes(tcap, cap))
+
+
+def _check_c(launch: CompactLaunch, tcap: int, cap: int, smem_limit: int):
+    if (launch.threads not in C_THREADS
+            or launch.group not in (32, launch.threads)
+            or launch != _c_shape(tcap, cap, launch.threads,
+                                  launch.group == 32)
+            or launch.smem > smem_limit):
+        raise ValueError(f"kernel C launch shape {launch} does not fit a "
+                         f"{tcap}-clause plane at cap {cap} ({smem_limit} "
+                         "shared bytes)")
+    return launch
+
+
+@functools.lru_cache(maxsize=256)
+def compact_launch(tcap: int, cap: int, n_rows: int,
+                   smem_limit: int = SMEM_LIMIT, *, warp: bool = None,
+                   threads: int = None) -> CompactLaunch:
+    """Kernel C's (and C2's) launch shape for planes of ``tcap`` clauses,
+    per-row capacity ``cap`` and ``n_rows`` rows.
+
+    A plane of at most ``C_WARP_TCAP`` clauses takes a warp a row (a row is
+    too short to keep a block busy; a warp needs no block barrier, and an
+    SM holds many rows at once), with up to ``C_WARP_ROWS`` rows a block,
+    fewer where the grid would then leave SMs idle or the rows' shared
+    memory would not fit.  A longer plane takes a block a row, with a
+    thread for every ``C_WORDS`` words (128 to ``C_BLOCK_THREADS``
+    threads).  ``warp`` and ``threads`` force a shape; a forced shape that
+    does not fit raises.  (Kept: the wrappers ask at every launch.)"""
+    if warp is None:
+        warp = tcap <= C_WARP_TCAP
+    if threads is None:
+        if warp:
+            rows = C_WARP_ROWS
+            while rows > 1 and (-(-n_rows // rows) < SM_COUNT
+                                or rows * c_row_bytes(tcap, cap)
+                                > smem_limit):
+                rows //= 2
+            threads = 32 * rows
+        else:
+            threads = min(C_BLOCK_THREADS, max(128, tcap // C_WORDS))
+    return _check_c(_c_shape(tcap, cap, threads, warp), tcap, cap,
+                    smem_limit)
+
+
+def check_compact_launch(launch: CompactLaunch, tcap: int,
+                         cap: int) -> CompactLaunch:
+    """A caller's ``launch`` of kernel C or C2, checked: threads the kernel
+    takes, a warp or the block a row, the shared bytes that its rows give
+    for ``tcap`` and ``cap``, within the limit."""
+    return _check_c(launch, tcap, cap, SMEM_LIMIT)

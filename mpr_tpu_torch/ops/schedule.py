@@ -59,15 +59,17 @@ _ROUNDS = 64
 class TapeLevels:
     """A tape's dependency schedule.
 
-    ``planes`` (5, Tp) int32 on the device, in level order: the clause
-    word, the immediate's bits, the forward sources (lhs in the low 16
-    bits, rhs in the high 16, each a position or a seed code), the mark
-    targets (the same packing, a position or ``NO_MARK``) and the clause's
-    index ``t`` in the tape; ``offsets`` (n_levels + 1,) int32 on the
-    device, level ``l`` holding positions ``[offsets[l], offsets[l+1])``.
-    ``widths`` the clauses of each level (host); ``res_src`` is the
-    result's forward source, ``res_mark`` its mark target.  ``key`` = (length, result slot, sx, sy, sz): the kernel traps
-    when the tape's metadata disagree.  ``host`` keeps the numpy arrays
+    ``planes`` (4, Tp) int32 on the device, in level order: the clause
+    word, the forward sources (lhs in the low 16 bits, rhs in the high 16,
+    each a position or a seed code), the mark targets (the same packing, a
+    position or ``NO_MARK``) and the clause's index ``t`` in the tape.
+    The schedule holds no immediate: kernel A reads each clause's from the
+    tape's imms at ``t``, so a schedule stays valid when they change.
+    ``offsets`` (n_levels + 1,) int32 on the device, level ``l`` holding
+    positions ``[offsets[l], offsets[l+1])``.  ``widths`` the clauses of
+    each level (host); ``res_src`` is the result's forward source,
+    ``res_mark`` its mark target.  ``key`` = (length, result slot, sx, sy,
+    sz): the kernel traps when the tape's metadata disagree.  ``host`` keeps the numpy arrays
     (``order``, ``level``, ``lhs_src``, ``rhs_src``, ``mark_l``,
     ``mark_r``, by position)."""
     length: int
@@ -143,17 +145,16 @@ def _pack(lo, hi):
     return v.astype(np.uint32).view(np.int32)
 
 
-def tape_levels(words, imms, length: int, result_slot: int, axis_slots,
+def tape_levels(words, length: int, result_slot: int, axis_slots,
                 device=None) -> TapeLevels:
-    """The dependency schedule of the tape ``words[:length]`` /
-    ``imms[:length]`` (numpy or tensors) with result slot ``result_slot``
-    and axis slots ``axis_slots`` (sx, sy, sz), on ``device``."""
+    """The dependency schedule of the tape ``words[:length]`` (numpy or a
+    tensor) with result slot ``result_slot`` and axis slots ``axis_slots``
+    (sx, sy, sz), on ``device``."""
     t0 = time.perf_counter()
     T = int(length)
     if T > 1 << 15:
         raise ValueError(f"tape of {T} clauses: positions take 16 bits")
     w = _host(words)[:T].astype(np.int64) & 0xFFFFFFFF
-    imm = np.array(_host(imms)[:T], np.float32)
     sx, sy, sz = (int(a) for a in axis_slots)
     res = int(result_slot)
     ops, outs = w & 0xFF, (w >> 8) & 0xFF
@@ -194,12 +195,11 @@ def tape_levels(words, imms, length: int, result_slot: int, axis_slots,
     tp = padded_length(T)
     planes = np.zeros((A_PLANES, tp), np.int32)
     planes[0, :T] = w[order].astype(np.uint32).view(np.int32)
-    planes[1, :T] = imm[order].view(np.int32)
     host = dict(order=order, level=level[order], lhs_src=at(lhs_src),
                 rhs_src=at(rhs_src), mark_l=at(mark_l), mark_r=at(mark_r))
-    planes[2, :T] = _pack(host["lhs_src"], host["rhs_src"])
-    planes[3, :T] = _pack(host["mark_l"], host["mark_r"])
-    planes[4, :T] = order
+    planes[1, :T] = _pack(host["lhs_src"], host["rhs_src"])
+    planes[2, :T] = _pack(host["mark_l"], host["mark_r"])
+    planes[3, :T] = order
     dev = torch.device(device) if device is not None else torch.device("cpu")
     out = TapeLevels(
         length=T, n_levels=n_levels,

@@ -128,7 +128,7 @@ class TapeData:
         launch of kernel A on this tape, in every frame, shares it."""
         if self._levels is None:
             from .schedule import tape_levels
-            self._levels = tape_levels(self.packed, self.imms, self.length,
+            self._levels = tape_levels(self.packed, self.length,
                                        self.result_slot, self.axis_slots,
                                        device=self.device)
         return self._levels

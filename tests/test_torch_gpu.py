@@ -30,7 +30,8 @@ import mpr_tpu_torch.render
 from mpr_tpu_torch.render import camera, pipeline2d, pipeline3d
 from mpr_tpu_torch.tape.tape import Tape
 
-from torch_port_cases import (all_ops_clauses, random_boxes, random_trees,
+from torch_port_cases import (COMPACT_CASES, all_ops_clauses,
+                              compact_planes, random_boxes, random_trees,
                               unpack_codes)
 
 pytestmark = pytest.mark.gpu
@@ -167,13 +168,15 @@ _RECORDED = {}
 
 
 def _recorded(name, cuda):
-    """Every launch of kernels A and B of one small frame of a cell's tape
-    (2D at 512^2, or 256^2 for stress40, whose tiles then all overflow
+    """Every launch of kernels A, B and C of one small frame of a cell's
+    tape (2D at 512^2, or 256^2 for stress40, whose tiles then all overflow
     their cap; 3D at 128^3), with A's plain outputs: (A launches as (args,
-    kwargs, plain), B launches as (args, kwargs))."""
+    kwargs, plain), B launches as (args, kwargs), C launches as (args,
+    kwargs))."""
     if name in _RECORDED:
         return _RECORDED[name]
-    seen = {"interval_shorten": [], "pixel_eval_runs": []}
+    seen = {"interval_shorten": [], "pixel_eval_runs": [],
+            "compact_bitshift_batched": []}
     saved = {}
     for kname in seen:
         fn = getattr(tk, kname)
@@ -200,7 +203,8 @@ def _recorded(name, cuda):
             setattr(tk, kname, fn)
     a_runs = [(a, k, tk.interval_shorten_plain(*a, **k))
               for a, k in seen["interval_shorten"]]
-    _RECORDED[name] = (a_runs, seen["pixel_eval_runs"])
+    _RECORDED[name] = (a_runs, seen["pixel_eval_runs"],
+                       seen["compact_bitshift_batched"])
     return _RECORDED[name]
 
 
@@ -229,7 +233,7 @@ A_SHAPES = {
 def test_interval_shorten_at_every_launch_shape_matches_plain(cuda, name,
                                                               shape):
     from mpr_tpu_torch.ops import launch as ln
-    a_runs, _ = _recorded(name, cuda)
+    a_runs = _recorded(name, cuda)[0]
     assert len(a_runs) == (3 if name in ("gyroid", "extruded") else 1)
     for a, k, (pst, pcodes) in a_runs:
         lv, lanes = _levels(k), a[3].shape[1]
@@ -248,6 +252,148 @@ def test_interval_shorten_at_every_launch_shape_matches_plain(cuda, name,
         assert torch.equal(codes[amb], pcodes[amb])
         # the codes of every ambiguous lane, zero past the tape
         assert not codes[amb][:, -(-lv.length // 8):].any()
+
+
+@pytest.mark.parametrize("shape", ["picked", "block128",
+                                   "block256_staged", "thread64",
+                                   "thread256_staged"])
+@pytest.mark.parametrize("name", ["stress40", "random2"])
+def test_interval_shorten_follows_new_imms_under_an_old_schedule(cuda, name,
+                                                                 shape):
+    """A schedule built before the tape's immediates changed (a fit step or
+    a slider keeps the TapeData): kernel A must read each clause's
+    immediate from its imms argument, whether the schedule's planes are
+    staged in shared memory or not, and give the plain version's status
+    and codes on the new imms.  A shape that does not fit the tape is
+    skipped, with the reason."""
+    from mpr_tpu_torch.ops import launch as ln
+    td = TapeData.from_tape(_tape(name), device=cuda)
+    old = td.levels()                       # built with the old imms
+    rng = np.random.default_rng(56)
+    imms = td.imms.clone()
+    imms[:td.length] += torch.from_numpy(
+        rng.normal(0.0, 0.25, td.length).astype(np.float32)).to(cuda)
+    boxes = torch.from_numpy(random_boxes(np.random.default_rng(57), 300,
+                                          width=0.5)).to(cuda)
+    launch = None
+    if A_SHAPES[shape] is not None:
+        try:
+            launch = ln.interval_launch(old.widths, 300, **A_SHAPES[shape])
+        except ValueError as e:
+            pytest.skip(f"{shape} does not fit a tape of {old.length} "
+                        f"clauses: {e}")
+    meta = td.meta()
+    st, codes = tk.interval_shorten(meta, td.packed, imms, boxes, s_cap=128,
+                                    levels=old, launch=launch)
+    pst, pcodes = tk.interval_shorten_plain(meta, td.packed, imms, boxes,
+                                            s_cap=128)
+    torch.cuda.synchronize()
+    assert torch.equal(st, pst)
+    assert torch.equal(codes[pst == tk.ST_AMBIG], pcodes[pst == tk.ST_AMBIG])
+    # the new imms change the outcome, so the case can tell them apart
+    ost, ocodes = tk.interval_shorten_plain(meta, td.packed, td.imms, boxes,
+                                            s_cap=128)
+    assert not (torch.equal(ost, pst) and torch.equal(ocodes, pcodes))
+
+
+# Launch shapes forced on kernels C and C2: a warp a row at 1, 4, 8 and 32
+# rows a block, a block a row at 128, 256 and 1024 threads.  A shape that
+# does not fit the plane is skipped, with the reason.
+C_SHAPES = {
+    "picked": None,
+    "warp_rows1": dict(warp=True, threads=32),
+    "warp_rows4": dict(warp=True, threads=128),
+    "warp_rows8": dict(warp=True, threads=256),
+    "warp_rows32": dict(warp=True, threads=1024),
+    "block128": dict(warp=False, threads=128),
+    "block256": dict(warp=False, threads=256),
+    "block1024": dict(warp=False, threads=1024),
+}
+
+
+def _c_launch(shape, tcap, cap, n_rows):
+    from mpr_tpu_torch.ops import launch as ln
+    if C_SHAPES[shape] is None:
+        return None
+    try:
+        return ln.compact_launch(tcap, cap, n_rows, **C_SHAPES[shape])
+    except ValueError as e:
+        pytest.skip(f"{shape} does not fit a {tcap}-clause plane at cap "
+                    f"{cap}: {e}")
+
+
+def _hand_compact(name, cuda):
+    """A case of COMPACT_CASES on the card: (cmeta, lens, wrw, irw, rem),
+    cap."""
+    kept, tcap, cap, n_rows = COMPACT_CASES[name]
+    planes = compact_planes(np.random.default_rng(61), kept, tcap)
+    cmeta = torch.tensor([n_rows, cap, cap, 0, 0, 0, 0, 0],
+                         dtype=torch.int32, device=cuda)
+    return (cmeta, *(torch.from_numpy(p).to(cuda) for p in planes)), cap
+
+
+def _assert_compact_same(got, want, n):
+    """tw, ti and the run headers over the full cap, zeros included, and
+    gmeta's [len, n_runs, overflow], on the rows below cmeta[0]."""
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g[:n], w[:n])
+    assert torch.equal(got[3][:n, :3], want[3][:n, :3])
+
+
+@pytest.mark.parametrize("shape", sorted(C_SHAPES))
+@pytest.mark.parametrize("name", ["stress600", "stress1500", "stress40",
+                                  "gyroid", "extruded"]
+                         + sorted(COMPACT_CASES))
+def test_compact_at_every_launch_shape_matches_plain(cuda, name, shape):
+    """Kernel C at each forced shape against its plain version: on every
+    launch a small frame of a cell's tape records, and on the hand-made
+    rows (over cap, empty, moves past 8192, rows past cmeta[0], one row, a
+    cap not a multiple of 4)."""
+    if name in COMPACT_CASES:
+        a, cap = _hand_compact(name, cuda)
+        runs = [(a, {"cap": cap})]
+    else:
+        runs = _recorded(name, cuda)[2]
+        assert len(runs) == (2 if name in ("gyroid", "extruded") else 1)
+    for a, k in runs:
+        G, R, W = a[2].shape
+        launch = _c_launch(shape, R * W, k["cap"], G)
+        n = int(a[0][0])
+        before = tk.compact_bitshift_batched.launches
+        got = tk.compact_bitshift_batched(*a, **k, launch=launch)
+        assert tk.compact_bitshift_batched.launches == before + 1
+        want = tk.compact_bitshift_batched_plain(*a, **k)
+        torch.cuda.synchronize()
+        _assert_compact_same(got, want, n)
+
+
+@pytest.mark.parametrize("shape", sorted(C_SHAPES))
+@pytest.mark.parametrize("name", sorted(COMPACT_CASES))
+def test_compact_order_at_every_launch_shape_matches_plain(cuda, name,
+                                                           shape):
+    """Kernel C2 on the hand-made rows, the planes in another tile order:
+    row g compacts tile order[g]; a bad order entry leaves its row alone
+    (the rows with good entries are compared)."""
+    (cmeta, lens, wrw, irw, rem), cap = _hand_compact(name, cuda)
+    G = wrw.shape[0]
+    order = np.random.default_rng(62).permutation(G).astype(np.int32)
+    inv = torch.from_numpy(order.argsort()).to(cuda)
+    planes = [p[inv].contiguous() for p in (lens, wrw, irw, rem)]
+    order_t = torch.from_numpy(order).to(cuda)
+    good = torch.ones(G, dtype=torch.bool, device=cuda)
+    if G > 2:
+        order_t[1] = -1
+        good[1] = False
+    R, W = wrw.shape[1:]
+    launch = _c_launch(shape, R * W, cap, G)
+    got = tk.compact_bitshift(cmeta, order_t, *planes, G, cap, cap,
+                              launch=launch)
+    want = tk.compact_bitshift_batched_plain(cmeta, lens, wrw, irw, rem, cap)
+    torch.cuda.synchronize()
+    n = int(cmeta[0])
+    keep = good[:n]
+    _assert_compact_same([x[:n][keep] for x in got],
+                         [x[:n][keep] for x in want], int(keep.sum()))
 
 
 # Launch shapes forced on kernel B: each home of the register file, K = 1,
@@ -271,8 +417,7 @@ B_SHAPES = {
 def test_pixel_eval_runs_at_every_launch_shape_matches_plain(cuda, name,
                                                              shape):
     from mpr_tpu_torch.ops import launch as ln
-    _, b_runs = _recorded(name, cuda)
-    (a, k), = b_runs
+    (a, k), = _recorded(name, cuda)[1]
     n = int(a[0][0])
     over = a[10][:n, 2] != 0
     # stress40's tiles at 256^2 all overflow their cap; at 512^2 some of

@@ -130,8 +130,8 @@ def _case(name):
                      *jtd.axis_slots, jtd.num_runs, 0], np.int32)
     runs = np.asarray(jtd.runs)
     runs_b = (ALL_REMAP[runs & 0xFF] | (runs & ~0xFF)).astype(np.int32)
-    levels = sch.tape_levels(np.asarray(jtd.packed), np.asarray(jtd.imms),
-                             jtd.length, jtd.result_slot, jtd.axis_slots)
+    levels = sch.tape_levels(np.asarray(jtd.packed), jtd.length,
+                             jtd.result_slot, jtd.axis_slots)
     return jt, jtd, meta, runs_b, levels
 
 
@@ -259,7 +259,7 @@ def test_a_chain_tape_takes_one_level_a_clause():
                                    for i in range(n - 1)]
     f = _clauses(rows, 4)
     words = (f["ops"] | f["outs"] << 8 | f["lhss"] << 16 | f["rhss"] << 24)
-    lv = sch.tape_levels(words.astype(np.int32), f["imms"], n, 4, (1, 2, 3))
+    lv = sch.tape_levels(words.astype(np.int32), n, 4, (1, 2, 3))
     assert lv.n_levels == n and lv.widest == 1
     _assert_topological(lv)
 
@@ -308,6 +308,41 @@ def test_level_walk_reproduces_each_quirk(name):
     assert (st == tk.ST_AMBIG).any()
     nib = (codes[:, :1] >> (4 * np.arange(8))) & 0xF
     assert nib.any()
+
+
+def test_level_walk_follows_new_imms_under_an_old_schedule():
+    """A schedule outlives a change of the tape's immediates (a fit step or
+    a slider keeps the TapeData and its schedule): the level walk must take
+    each clause's immediate from the call's imms, not from the schedule,
+    and so equal the slot walk and the JAX kernel on the new imms."""
+    jt, jtd, meta, runs_b, _ = _case("stress40")
+    td = TapeData.from_arrays(np.asarray(jtd.packed), np.asarray(jtd.imms),
+                              np.asarray(jtd.runs), length=jtd.length,
+                              num_slots=jtd.num_slots,
+                              axis_slots=jtd.axis_slots,
+                              result_slot=jtd.result_slot,
+                              num_choices=jtd.num_choices,
+                              ops_present=(), num_runs=jtd.num_runs,
+                              device="cpu")
+    old = td.levels()                        # built with the old imms
+    rng = np.random.default_rng(56)
+    imms = np.array(jtd.imms)
+    imms[:jt.length] += rng.normal(0.0, 0.25, jt.length).astype(np.float32)
+    boxes = random_boxes(np.random.default_rng(57), 48, width=0.5)
+    st, codes = jk.interval_shorten(
+        jnp.asarray(meta), jtd.packed, jnp.asarray(imms), jnp.asarray(runs_b),
+        jnp.asarray(boxes), branch_ops=ALL_BRANCHES, s_cap=S_CAP)
+    args = (_t(meta), _t(jtd.packed), _t(imms), _t(boxes))
+    plain = tk.interval_shorten_plain(*args, s_cap=S_CAP)
+    lv = tk._interval_shorten_levels(*args, old)
+    outs = ((np.asarray(st), np.asarray(codes)),
+            tuple(x.numpy() for x in plain), tuple(x.numpy() for x in lv))
+    _assert_same(outs, jt.length)
+    # the new imms change the outcome, so the case can tell them apart
+    before = tk.interval_shorten_plain(_t(meta), _t(jtd.packed),
+                                       _t(jtd.imms), _t(boxes), s_cap=S_CAP)
+    assert not (torch.equal(before[0], plain[0])
+                and torch.equal(before[1], plain[1]))
 
 
 def test_the_quirks_show_in_the_codes():

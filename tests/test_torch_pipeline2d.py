@@ -187,13 +187,13 @@ def test_port_imports_neither_jax_nor_mpr_tpu():
 
 
 def test_port_sources_name_no_jax():
-    """No code token of the port or of chip_smoke.py names ``jax`` or
-    ``mpr_tpu`` (comments and docstrings may cite the JAX kernels a port
-    replaces)."""
+    """No code token of the port, of chip_smoke.py or of chip_frames.py
+    names ``jax`` or ``mpr_tpu`` (comments and docstrings may cite the JAX
+    kernels a port replaces)."""
     import io
     import tokenize
     files = sorted((REPO / "mpr_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "chip_frames.py"]
     assert len(files) > 10
     for p in files:
         toks = tokenize.generate_tokens(io.StringIO(p.read_text()).readline)

@@ -161,3 +161,45 @@ def assert_depth(depth, want, tape, f):
         assert diff.sum() <= band.sum()
     else:
         assert not diff.any(), f"{int(diff.sum())} pixels differ"
+
+
+def compact_planes(rng, kept, tcap, rows=8):
+    """Prepass planes for kernels C and C2 made by hand: row g keeps
+    ``kept[g]`` clauses of a ``tcap``-clause plane at seeded places, with
+    branch ids in runs of 1 to 6 clauses (low byte 1..255, the word's other
+    bytes random, so that many words are negative as int32), random imm
+    bits, and each kept clause's leftward move to its place.  Dropped
+    clauses hold 0 in every plane, as the prepass leaves them.  Returns
+    numpy (lens (G,), wrw, irw, rem (G, rows, tcap // rows)) int32."""
+    G = len(kept)
+    wrw = np.zeros((G, tcap), np.int64)
+    irw = np.zeros((G, tcap), np.int64)
+    rem = np.zeros((G, tcap), np.int64)
+    for g, n in enumerate(kept):
+        t = np.sort(rng.choice(tcap, n, replace=False))
+        bid = np.repeat(rng.integers(1, 256, n),
+                        rng.integers(1, 7, n))[:n]
+        wrw[g, t] = bid | rng.integers(0, 1 << 24, n) << 8
+        irw[g, t] = rng.integers(-2**31, 2**31, n)
+        rem[g, t] = t - np.arange(n)
+    shape = (G, rows, tcap // rows)
+    return (np.asarray(kept, np.int32),
+            *(p.astype(np.uint32).view(np.int32).reshape(shape)
+              for p in (wrw, irw, rem)))
+
+
+# Hand-made inputs of kernels C and C2: name -> (kept clauses of each row,
+# plane length, cap, rows to compact (cmeta[0]))
+COMPACT_CASES = {
+    # the gyroid bucket: rows that overflow cap, empty rows, rows past
+    # cmeta[0]
+    "short": ([0, 1, 22, 128, 129, 256, 60, 7] * 5, 256, 128, 33),
+    # one row, over cap
+    "one_row": ([300], 512, 64, 1),
+    # the 16384 bucket: moves past 8192, a row over cap, an empty row
+    "far": ([300, 2500, 0, 16384], 16384, 2048, 4),
+    # extruded's bucket: rows that keep most of the plane overflow
+    "long": ([2659, 164, 0, 4096, 2048, 2049, 1000, 3] * 2, 4096, 2048, 13),
+    # a cap that is not a multiple of 4
+    "odd_cap": ([0, 5, 13, 14, 700, 1024, 50], 1024, 13, 7),
+}
