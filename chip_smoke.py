@@ -72,9 +72,27 @@ Phases (any failure exits non-zero before the final line):
  11. the effects (``draw_ssao`` in both modes, ``draw_shaded``) on the
      1024^2 depth and normals, on the card against the same tensors on the
      CPU, and timed;
+ 13. the unrolled engine (run after phase 11, before the report): the
+     kernels ``ops/unrolled_eval.py`` generates for the tapes of the
+     ``stress_2d(600)`` 1024^2, gyroid 1024^3 and extruded 512^3 cells
+     (float, interval, deriv; their nvcc processes start with phase 1's,
+     and each one's nvcc seconds and ptxas registers, stack and spills are
+     printed; a spill here is printed, not fatal), then with the counts set
+     to 0 before each frame ``render.unrolled.render2d`` / ``render3d`` on
+     each cell: a 2D frame must launch the interval kernel twice and the
+     float kernel once, a 3D frame the interval kernel three times, the
+     float and deriv kernels once, and no frame may run a plain
+     evaluator; every recorded launch bit for bit against its plain
+     version, the images against ``render*_brute`` and the interpreter
+     engine (0 pixels differ; normals within 1e-4), frames and launches
+     timed (lane-clauses per second printed beside kernel B's and V's),
+     and ``cli render2d stress:600 --size 1024 --engine unrolled --check``
+     as a subprocess;
  12. print the kernel times of the previous designs of A, B, C, C2, V and
      D (recorded, labelled as such; not measured here), the card line, one
-     JSON ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+     JSON ``kernels`` line (the eight TPU kernels' rows, then the three
+     generated kernels', marked ``port_kernel``), and last ``{"ok": true,
+     "device": {...}}``.
 
 Exits non-zero when no CUDA device is present and when run outside the
 repository (it needs the ``mpr_tpu_torch`` package beside it).
@@ -115,6 +133,33 @@ KERNEL_ROWS = (
 )
 # no render path calls these three: the kernel phase drives them
 KERNELS_V1 = ("pixel_eval", "compact_runs", "compact_bitshift")
+# The port's own kernels of the unrolled engine (phase 13): generated per
+# tape by mpr_tpu_torch/ops/unrolled_eval.py, one kind a semantics; the
+# wrapper in that module, and the JAX package's evaluator it stands for
+# (XLA code there, no pallas_call).
+UNROLLED_ROWS = (
+    ("unrolled_interval", "unrolled_eval",
+     "mpr_tpu/ops/unrolled_eval.py:411 (build_interval; XLA, no TPU "
+     "kernel)"),
+    ("unrolled_float", "unrolled_eval",
+     "mpr_tpu/ops/unrolled_eval.py:397 (build_float; XLA, no TPU kernel), "
+     "mpr_tpu/render/brute.py:88"),
+    ("unrolled_deriv", "unrolled_eval",
+     "mpr_tpu/ops/unrolled_eval.py:421 (build_deriv; XLA, no TPU kernel)"),
+)
+UNROLLED_SOURCE = ("mpr_tpu_torch/ops/unrolled_eval.py (generated per "
+                   "tape) + mpr_tpu_torch/ops/csrc/unrolled.cuh")
+# launches of each evaluator a frame of the unrolled engine must make
+UNROLLED_2D = {"unrolled_interval": 2, "unrolled_float": 1,
+               "unrolled_deriv": 0}
+UNROLLED_3D = {"unrolled_interval": 3, "unrolled_float": 1,
+               "unrolled_deriv": 1}
+# Float operations of a generated statement, for the bound: one per IEEE
+# arithmetic operation or math-library call, the Cephes forms counted out;
+# none for compares, selects, min/max, loads and stores.
+GEN_CALL_OPS = {"sqrtf": 1, "sinf": 1, "cosf": 1, "expf": 1, "logf": 1,
+                "asinf": 1, "acosf": 1, "atanf": 1, "c_asin": 14,
+                "c_acos": 15, "c_atan": 15, "floorf": 1, "ceilf": 1}
 # limits of the card-against-CPU comparison of the effects (the card-only
 # tests use the same): share of pixels further apart than 1e-5, and the
 # largest difference
@@ -252,26 +297,31 @@ def profile_frames(fn, n=5):
     return wall_us / n / 1e3, rows, busy / wall_us
 
 
-def device_ms(fn, n=10):
+def device_ms(fn, n=10, name=None, tries=1):
     """Device time of the one kernel ``fn()`` launches, in ms: the mean
     duration of the kernels torch.profiler traces over ``n`` calls (the
-    mean of those traced, which holds where the trace drops a record).
-    The events of :func:`cuda_ms` also time the host's work around a short
-    kernel's launch; this does not.  None where the trace holds no device
-    time."""
+    mean of those traced, which holds where the trace drops a record), or
+    of those whose name starts with ``name`` where ``fn`` launches others
+    too.  The events of :func:`cuda_ms` also time the host's work around a
+    short kernel's launch; this does not.  A trace with no such record is
+    taken again, ``tries`` times in all; then None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    return round(sum(us) / len(us) / 1e3, 6) if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and (name is None or e.name.startswith(name))]
+        if us:
+            return round(sum(us) / len(us) / 1e3, 6)
+    return None
 
 
 def print_profile(label, fn, card, n):
@@ -292,10 +342,11 @@ class Recorder:
     and outputs of every launch in ``log``; the original wrappers still
     count their launches."""
 
-    def __init__(self, mods):
+    def __init__(self, mods, rows=KERNEL_ROWS):
         self.mods = mods
+        self.rows = rows
         self.originals = {name: getattr(mods[mod], name)
-                          for name, mod, *_ in KERNEL_ROWS}
+                          for name, mod, *_ in rows}
 
     def reset_counts(self):
         for fn in self.originals.values():
@@ -305,7 +356,7 @@ class Recorder:
         return {name: fn.launches for name, fn in self.originals.items()}
 
     def install(self, log):
-        for name, mod, *_ in KERNEL_ROWS:
+        for name, mod, *_ in self.rows:
             def rec(*a, _fn=self.originals[name], _name=name, **k):
                 out = _fn(*a, **k)
                 log.setdefault(_name, []).append((a, k, out))
@@ -313,7 +364,7 @@ class Recorder:
             setattr(self.mods[mod], name, rec)
 
     def remove(self):
-        for name, mod, *_ in KERNEL_ROWS:
+        for name, mod, *_ in self.rows:
             setattr(self.mods[mod], name, self.originals[name])
 
 
@@ -504,11 +555,12 @@ def compare_kernels(tk, rec, tape, size):
     full_ops = sum(FLOAT_OPS.get(int(o), 0) for o in tape.ops)
     P = fill.shape[1]
     flops = P * row_ops(gmeta, runs_h, table, full_ops, FLOAT_OPS)
+    fits = gmeta[:, 2] == 0
     res["pixel_eval_runs"] = dict(
         mismatches=n_fill, max_abs_err=float((fill - pfill).abs().max()),
         bytes=n_amb * 3 * P * 4 + fill.numel() * 4 + 12 * kept,
-        ops=flops)
-    fits = gmeta[:, 2] == 0
+        ops=flops, clauses=P * (int(gmeta[fits, 0].sum())
+                                + int((~fits).sum()) * tape.length))
     print(f"  B pixel_eval_runs @{size}^2: fill mismatches {n_fill}; "
           f"{int(fits.sum())} tiles on their own tapes, mean "
           f"{gmeta[fits, 0].mean() if fits.any() else 0:.1f} clauses in "
@@ -549,11 +601,13 @@ def compare_kernels_3d(tk, tk3, rec, tape, name, keep):
     full_f = sum(FLOAT_OPS.get(int(o), 0) for o in tape.ops)
     flops = 4096 * (row_ops(gmeta, runs_h, table, full_f, FLOAT_OPS)
                     + n_amb1 * COORD_OPS)
+    fits = gmeta[:, 2] == 0
     res["voxel_eval_3d"] = dict(
         mismatches=n_v + n_sign, max_abs_err=e_v, rows=n_amb1,
         bytes=12 * kept + 4 * int(gmeta[:, 1].sum()) + 36 * n_amb1
         + 4 * a[2].numel() + 64 + n_amb1 * 4096 * 4,
-        ops=flops)
+        ops=flops, clauses=4096 * (int(gmeta[fits, 0].sum())
+                                   + int((~fits).sum()) * tape.length))
     print(f"  V voxel_eval_3d {name}: {n_amb1} cells, "
           f"{int(gmeta[:, 2].sum())} overflowed: value mismatches {n_v}, "
           f"sign mismatches {n_sign}, max |err| {e_v:.3g}")
@@ -670,6 +724,7 @@ def run_2d(ctx, results, launches):
             check(r["mismatches"] == 0, f"{name} disagrees with its plain "
                   f"version at {size}^2 ({r['mismatches']} mismatches)")
         want = render2d_brute(tapes[size], size=size)
+        ctx.setdefault("brute2d", {})[size] = want
         bad = img != want
         print(f"  image vs render2d_brute @{size}^2: {int(bad.sum())} pixels "
               "differ")
@@ -737,6 +792,7 @@ def run_2d(ctx, results, launches):
     ctx["recs2d"] = recs
     ctx["frame2d"] = dict(rec=recs[size], tape=tapes[size], size=size,
                           image=images[size])
+    ctx["images2d"] = images
 
 
 def run_stale_imms(ctx):
@@ -883,6 +939,7 @@ def run_3d(ctx, results, launches):
                       f"({rr['mismatches']} mismatches)")
         t0 = time.perf_counter()
         want = render3d_brute(tapes[name], mat=mats[name], size=size)
+        ctx.setdefault("brute3d", {})[name] = want
         bad = depth != want
         print(f"  depth vs render3d_brute @{size}^3: {int(bad.sum())} pixels "
               f"differ ({time.perf_counter() - t0:.1f} s of dense "
@@ -955,6 +1012,7 @@ def run_3d(ctx, results, launches):
         print_profile(f"{name} @{size}^3", frame, card, 3)
     name = CASES_3D[0][0]
     ctx["frame3d"] = dict(name=name, size=CASES_3D[0][3], frame=frames[name])
+    ctx["frames3d"] = frames
 
 
 def masked_same(a, b, lens):
@@ -1574,6 +1632,324 @@ def run_edges(ctx, results):
         torch.cuda.synchronize()
 
 
+def unrolled_cells():
+    """Phase 13's cells: (name, tape, mat or None, size), the first 2D
+    cell and both 3D cells."""
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.render import camera
+    n_blobs, size = CASES[0]
+    cells = [(f"stress_2d({n_blobs})",
+              mpr_tpu_torch.compile_tree(shapes.stress_2d(n_blobs)), None,
+              size)]
+    for name, make, view, size3 in CASES_3D:
+        cells.append((name, mpr_tpu_torch.compile_tree(make(shapes)),
+                      camera.gui3d_view(*view), size3))
+    return cells
+
+
+def start_unrolled_builds():
+    """Start building phase 13's kernels (three cells x three semantics)
+    in a thread, so that their nvcc processes run beside phase 1's."""
+    import threading
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.render import unrolled
+    cells = unrolled_cells()
+    evals = [e for _, tape, _, _ in cells
+             for r in [unrolled.get_renderer(tape)] for e in (r.fi, r.f, r.fd)]
+    box = {"cells": cells, "evals": evals}
+
+    def work():
+        t0 = time.perf_counter()
+        try:
+            ue.build_all(evals)
+        except BaseException as e:       # re-raised by phase 13
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+    box["thread"] = threading.Thread(target=work, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def gen_ops(src):
+    """Float operations a lane of a generated kernel does (GEN_CALL_OPS)."""
+    import re
+    n = 0
+    for line in src.splitlines():
+        m = re.match(r"\s*const float v\d+ = (.*);$", line)
+        if not m:
+            continue
+        expr = m.group(1)
+        call = re.match(r"(\w+)\(", expr)
+        if call:
+            n += GEN_CALL_OPS.get(call.group(1), 0)
+        elif "?" not in expr and "[" not in expr and "__ldg" not in expr:
+            n += 1       # a + b, a - b, a * b, a / b, -a
+    return n
+
+
+def bare_launch(ue, ev, args, imms):
+    """``ev``'s kernel alone: the inputs flattened and the outputs
+    allocated once, so that timing the returned closure times the launch
+    and the kernel, not the wrapper's work around them (which
+    ``wrapper_ms`` times).  Returns (closure, the tensors it reads and
+    writes, to keep alive)."""
+    import torch
+    lanes = [t.reshape(-1).contiguous() for t in torch.broadcast_tensors(
+        *args)]
+    n = lanes[0].numel()
+    outs = [torch.empty(n, dtype=torch.float32, device=lanes[0].device)
+            for _ in range(ue.N_OUT[ev.kind])]
+    blocks, threads = ue.ln.unrolled_launch(n)
+    ptrs = ([t.data_ptr() for t in lanes] + [None] * (6 - len(lanes))
+            + [imms.data_ptr() if ev.take_imms else None]
+            + [t.data_ptr() for t in outs] + [None] * (4 - len(outs)))
+    fn = ue._libs[ev.key].mpr_unrolled
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(*ptrs, n, blocks, threads, stream)
+        check(err == 0, f"the {ev.kind} kernel's launch failed: {err}")
+    return run, (lanes, outs, imms)
+
+
+def ptxas_of(log):
+    import re
+    regs = re.findall(r"Used (\d+) registers", log)
+    stack = re.findall(r"(\d+) bytes stack frame", log)
+    spill = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       log)
+    return (regs[-1] if regs else "?", stack[-1] if stack else "?",
+            "/".join(spill[-1]) if spill else "?")
+
+
+def run_unrolled(ctx, results, launches, pre):
+    """Phase 13: the unrolled engine (render/unrolled.py on the evaluators
+    generated by ops/unrolled_eval.py)."""
+    import numpy as np
+    import torch
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.render import unrolled
+    card, dev = ctx["card"], ctx["dev"]
+    pre["thread"].join()
+    if "error" in pre:
+        raise pre["error"]
+    cells, evals = pre["cells"], pre["evals"]
+    print(f"unrolled engine: {len(evals)} evaluators built in "
+          f"{pre['seconds']:.1f} s (their nvcc processes ran beside phase "
+          f"1's)  [{card}]")
+    for (cell, tape, _, _), trio in zip(cells, zip(*[iter(evals)] * 3)):
+        for e in trio:
+            b = ue.BUILDS[e.key]
+            regs, stack, spill = ptxas_of(b["log"])
+            print(f"  build {cell} {e.kind}: {tape.length} clauses, "
+                  f"{b['seconds']:.1f} s of nvcc"
+                  f"{'' if b['compiled'] else ' (earlier build, loaded)'}; "
+                  f"{regs} registers, {stack} B stack, spill stores/loads "
+                  f"{spill} B")
+
+    # ---- the main path: each frame with every count at 0 ----------------------
+    recorder = Recorder({"unrolled_eval": ue}, UNROLLED_ROWS)
+    plain_calls = [0]
+    real_plain = ue.UnrolledEval.plain
+
+    def counted_plain(self, *a, **k):
+        plain_calls[0] += 1
+        return real_plain(self, *a, **k)
+    recs, frames, per_cell = {}, {}, {}
+    ue.UnrolledEval.plain = counted_plain
+    try:
+        for cell, tape, mat, size in cells:
+            recs[cell] = {}
+            recorder.install(recs[cell])
+            recorder.reset_counts()
+            t0 = time.perf_counter()
+            if mat is None:
+                frames[cell] = unrolled.render2d(tape, size=size)
+            else:
+                frames[cell] = unrolled.render3d(tape, mat=mat, size=size)
+            torch.cuda.synchronize()
+            per_cell[cell] = recorder.counts()
+            recorder.remove()
+            print(f"unrolled {cell} @{size}: {time.perf_counter() - t0:.3f} "
+                  f"s (first frame, host clock); launches {per_cell[cell]}")
+            need = UNROLLED_2D if mat is None else UNROLLED_3D
+            for kname, n in need.items():
+                check(per_cell[cell][kname] == n, f"{kname} launched "
+                      f"{per_cell[cell][kname]} times in the unrolled {cell} "
+                      f"frame, {n} expected")
+    finally:
+        recorder.remove()
+        ue.UnrolledEval.plain = real_plain
+    check(plain_calls[0] == 0, f"the unrolled frames ran a plain evaluator "
+          f"{plain_calls[0]} times")
+    launches["unrolled"] = {k: sum(c[k] for c in per_cell.values())
+                            for k, *_ in UNROLLED_ROWS}
+    launches["unrolled_per_frame"] = per_cell
+    print(f"unrolled path launches over {len(cells)} frames: "
+          f"{launches['unrolled']}")
+
+    # ---- every launch against its plain version; images ------------------------
+    rows = {k: {} for k, *_ in UNROLLED_ROWS}
+    for cell, tape, mat, size in cells:
+        for kname, *_ in UNROLLED_ROWS:
+            for j, (a, k, out) in enumerate(recs[cell].get(kname, [])):
+                ev, args = a[0], a[1:]
+                pout = ev.plain(*args, imms=k.get("imms"))
+                outs = out if isinstance(out, tuple) else (out,)
+                pouts = pout if isinstance(pout, tuple) else (pout,)
+                n_bad, err = 0, 0.0
+                for o, p in zip(outs, pouts):
+                    bad_bits = (o.view(torch.int32) != p.view(torch.int32)) \
+                        & ~(torch.isnan(o) & torch.isnan(p))
+                    n_bad += int(bad_bits.sum())
+                    err = max(err, same(o, p)[1])
+                lanes = outs[0].numel()
+                r = rows[kname].setdefault(cell, [])
+                r.append(dict(lanes=lanes, clauses=tape.length,
+                              mismatches=n_bad, max_abs_err=err,
+                              bytes=lanes * 4 * (ue.N_IN[ev.kind]
+                                                 + ue.N_OUT[ev.kind]),
+                              ops=lanes * gen_ops(ev.source())))
+                print(f"  {kname} {cell} launch {j}: {lanes} lanes x "
+                      f"{tape.length} clauses, {n_bad} bits differ from the "
+                      f"plain version, max |err| {err:.3g}")
+                check(n_bad == 0, f"{kname} differs from its plain version "
+                      f"in {cell} (launch {j}): {n_bad} values")
+                del pout, pouts
+        if mat is None:
+            img = frames[cell]
+            for what, want in (("render2d_brute", ctx["brute2d"][size]),
+                               ("the interpreter engine",
+                                ctx["images2d"][size])):
+                bad = int((img != want).sum())
+                print(f"  unrolled image {cell} vs {what}: {bad} pixels "
+                      "differ")
+                check(bad == 0, f"the unrolled {cell} image differs from "
+                      f"{what}")
+        else:
+            depth, normals = frames[cell]
+            idepth, inormals = ctx["frames3d"][cell]
+            for what, want in (("render3d_brute", ctx["brute3d"][cell]),
+                               ("the interpreter engine", idepth)):
+                bad = int((depth != want).sum())
+                print(f"  unrolled depth {cell} vs {what}: {bad} pixels "
+                      "differ")
+                check(bad == 0, f"the unrolled {cell} depth differs from "
+                      f"{what}")
+            m = depth > 0
+            nerr = float(np.abs(normals - inormals).max())
+            ln = np.linalg.norm(normals[m], axis=-1)
+            print(f"  unrolled normals {cell}: max |n - interpreter's| "
+                  f"{nerr:.2e}, | |n| - 1 | <= {np.abs(ln - 1).max():.2e}")
+            check(nerr <= 1e-4 and not normals[~m].any(),
+                  f"the unrolled {cell} normals differ from the "
+                  "interpreter's")
+    torch.cuda.synchronize()
+
+    # ---- timing: frames, each launch, clause rates ------------------------------
+    frame_ms = {}
+    for cell, tape, mat, size in cells:
+        r = unrolled.get_renderer(tape)
+        if mat is None:
+            eye = torch.eye(3, device=dev)
+            z = torch.tensor(0.0, device=dev)
+            frame_ms[cell] = cuda_ms(lambda: r.frame2d(eye, z, size), 20, 3)
+            reps = 20
+        else:
+            mat_t = torch.as_tensor(mat, device=dev)
+            frame_ms[cell] = cuda_ms(lambda: r.frame3d(mat_t, size), 10, 2)
+            reps = 10
+        print(f"unrolled frame {cell} @{size}: {frame_ms[cell]:.3f} ms "
+              f"(events, median of {reps})  [{card}]")
+        for kname, *_ in UNROLLED_ROWS:
+            fn = recorder.originals[kname]
+            for (a, k, _), rr in zip(recs[cell].get(kname, []),
+                                     rows[kname].get(cell, [])):
+                run, keep = bare_launch(ue, a[0], a[1:], k.get("imms"))
+                rr["ms"] = cuda_ms(run, 10, 2)
+                rr["wrapper_ms"] = cuda_ms(lambda: fn(*a, **k), 10, 2)
+                rr["device_ms"] = device_ms(run, 5, "mpr_unrolled_kernel", 3)
+                del keep
+                rr["plain_ms"] = plain_ms(lambda: a[0].plain(
+                    *a[1:], imms=k.get("imms")))
+                rr["rate"] = rr["lanes"] * rr["clauses"] / rr["ms"] / 1e9
+                rr["bound_ms"], rr["bound_by"] = bound(rr)
+                print(f"  {kname} {cell}: {rr['ms']:.4f} ms (events around "
+                      f"the bare launch; device {rr['device_ms']}; through "
+                      f"the wrapper {rr['wrapper_ms']:.4f}), plain "
+                      f"{rr['plain_ms']:.1f} ms, bound {rr['bound_ms']:.5f} "
+                      f"ms ({rr['bound_by']}); {rr['rate']:.3f} T "
+                      f"lane-clauses/s  [{card}]")
+        print_profile(f"unrolled {cell} @{size}",
+                      (lambda: r.frame2d(eye, z, size)) if mat is None
+                      else (lambda: r.frame3d(mat_t, size)), card, 3)
+    b = results[CASES[0][1]]["pixel_eval_runs"]
+    v = results[CASES_3D[0][0]]["voxel_eval_3d"]
+    for label, rr in (("B (interpreter, stress 1024^2)", b),
+                      ("V (interpreter, gyroid 1024^3)", v)):
+        if rr.get("device_ms"):
+            print(f"  beside: {label} {rr['clauses'] / rr['device_ms'] / 1e9:.3f}"
+                  " T pixel-clauses/s")
+
+    # ---- the command line ----------------------------------------------------
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    n_blobs, size = CASES[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["render2d", f"stress:{n_blobs}", "--size", str(size),
+                "--engine", "unrolled", "--check"]
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "mpr_tpu_torch.cli", *argv],
+                           cwd=tmp, env=env, capture_output=True, text=True,
+                           timeout=600)
+        print(f"cli {' '.join(argv)}: exit {p.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        for line in p.stdout.strip().splitlines():
+            print("    " + line)
+        check(p.returncode == 0, f"cli render2d --engine unrolled failed:\n"
+              f"{p.stderr}")
+        check("oracle cross-check: mismatch 0.00e+00" in p.stdout,
+              "cli render2d --engine unrolled printed no exact cross-check")
+
+    # ---- the kernels line's rows -------------------------------------------------
+    out = []
+    for kname, _, replaces in UNROLLED_ROWS:
+        per = {}
+        for cell, *_ in cells:
+            rr = rows[kname].get(cell)
+            if not rr:
+                continue
+            per[cell] = {
+                "launches": len(rr),
+                "lanes": [x["lanes"] for x in rr],
+                "ms": round(sum(x["ms"] for x in rr), 6),
+                "wrapper_ms": round(sum(x["wrapper_ms"] for x in rr), 6),
+                "device_ms": None if any(x["device_ms"] is None for x in rr)
+                else round(sum(x["device_ms"] for x in rr), 6),
+                "plain_ms": round(sum(x["plain_ms"] for x in rr), 3),
+                "bound_ms": round(sum(x["bound_ms"] for x in rr), 6),
+                "bound_by": rr[-1]["bound_by"],
+                "T_lane_clauses_per_s": [round(x["rate"], 4) for x in rr],
+                "frame_ms": round(frame_ms[cell], 4)}
+        at = max(per, key=lambda c: per[c]["ms"])
+        p = per[at]
+        out.append({
+            "name": kname, "route": "cuda", "source": UNROLLED_SOURCE,
+            "replaces": replaces, "port_kernel": True,
+            "launches": launches["unrolled"][kname],
+            "max_abs_err": max(x["max_abs_err"] for c in rows[kname].values()
+                               for x in c),
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": None, "at": at, "per_cell": per,
+            "build_s": {c: round(ue.BUILDS[e.key]["seconds"], 2)
+                        for (c, *_), trio in zip(cells, zip(*[iter(evals)] * 3))
+                        for e in trio if "unrolled_" + e.kind == kname}})
+    results["unrolled"] = out
+
+
 def main() -> int:
     try:
         import torch
@@ -1585,6 +1961,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        import mpr_tpu_torch.render.unrolled  # noqa: F401  (phase 13)
         from mpr_tpu_torch.ops import build
         from mpr_tpu_torch.ops import kernels as tk
         from mpr_tpu_torch.ops import kernels3d as tk3
@@ -1599,7 +1976,8 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, {kind}")
 
-    # ---- 1. build ------------------------------------------------------------
+    # ---- 1. build (phase 13's generated kernels start building too) ---------
+    pre = _PRE["box"] = start_unrolled_builds()
     for lib_name in build.LIBRARIES:
         build.lib(lib_name)
         print(f"build {lib_name}: {build.BuildStats.seconds[lib_name]:.1f} s"
@@ -1634,6 +2012,9 @@ def main() -> int:
     run_cli(ctx, launches)
     sys.stdout.flush()
     effect_rows = run_effects(ctx)
+    sys.stdout.flush()
+    run_unrolled(ctx, results, launches, pre)
+    sys.stdout.flush()
 
     check(not spills, f"kernel A, B, C, C2, V or D spills registers: "
           f"{spills}")
@@ -1722,6 +2103,7 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "at": at, **extra,
         })
+    rows.extend(results["unrolled"])
     print(json.dumps({"effects": effect_rows}))
     sweeps = {f"stress_2d({nb}) {sz}^2": results[sz]["sweep"]
               for nb, sz in CASES}
@@ -1738,9 +2120,17 @@ def main() -> int:
     return 0
 
 
+# phase 13's build thread, joined on the way out so that no nvcc process
+# outlives the script
+_PRE = {}
+
+
 if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        if "box" in _PRE:
+            _PRE["box"]["thread"].join()

@@ -1,4 +1,4 @@
-"""Command-line render & benchmark suite on the interpreter engine.
+"""Command-line render & benchmark suite.
 
 Counterpart of ``mpr_tpu.cli`` (the reference's benchmark executables,
 reference/benchmark/CMakeLists.txt:18-32, behind one entry point), with
@@ -9,15 +9,19 @@ the same arguments, outputs and printed lines:
     python -m mpr_tpu_torch.cli table2d FILE.frep        # render_2d_table
     python -m mpr_tpu_torch.cli table3d FILE.frep        # render_3d_table
     python -m mpr_tpu_torch.cli brute FILE.frep          # brute comparison
+    python -m mpr_tpu_torch.cli table-effects FILE.frep  # render_effects
     python -m mpr_tpu_torch.cli tape-time FILE.frep      # tape_building_time
     python -m mpr_tpu_torch.cli dump-tape FILE.frep      # print_tape_table
 
 FILE is a ``.frep`` archive, a ``.io`` Scheme scene or ``stress:N``.
 Every command runs on ``--device`` (default ``cuda``): without a card it
 fails, and ``--device cpu`` is the way to ask for the plain PyTorch
-versions of the kernels.  The unrolled engine, the sharded renderers,
-``table-effects``, ``fit`` and ``mesh`` of ``mpr_tpu.cli`` are not ported
-yet and not registered.
+versions of the kernels.  ``--engine`` picks the interpreter pipelines
+(``interp``, no per-tape build) or the unrolled engine (``unrolled``:
+kernels generated for the tape, built at its first frame); the tables
+and ``table-effects`` default to the unrolled engine, as ``mpr_tpu.cli``'s
+do.  The sharded renderers, ``fit`` and ``mesh`` of ``mpr_tpu.cli`` are
+not ported yet and not registered.
 
 Timing protocol: warm-up + timed-runs mean, like benchmark/stats.cpp:19-47
 (utils/timing.py: CUDA events around the timed runs).
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import sys
 import time
 
@@ -105,10 +110,12 @@ def _apply_sets(tape, sets):
 
 
 def cmd_render2d(args):
-    from .render import brute, pipeline2d
+    from .render import brute, pipeline2d, unrolled
     dev = _device(args)
     tape = _apply_sets(_load(args.file), getattr(args, "sets", None))
-    fn = brute.render2d_brute if args.brute else pipeline2d.render2d
+    fn = (brute.render2d_brute if args.brute else
+          unrolled.render2d if args.engine == "unrolled" else
+          pipeline2d.render2d)
     img = fn(tape, size=args.size, device=dev)
     _save(args.out, (img * np.uint8(255)))
     if args.check:
@@ -151,7 +158,10 @@ def _ssao_override(args):
 
 def cmd_render3d(args):
     from .render import camera, effects
-    from .render.pipeline3d import render3d
+    if args.engine == "unrolled":
+        from .render.unrolled import render3d
+    else:
+        from .render.pipeline3d import render3d
     dev = _device(args)
     tape = _apply_sets(_load(args.file), getattr(args, "sets", None))
     mat = camera.bench3d_view() if args.view == "bench" else (
@@ -216,16 +226,26 @@ def cmd_table2d(args):
     # sizes per reference/benchmark/render_2d_table.cpp:50
     import torch
     from .ops.tape_data import TapeData
-    from .render import camera, pipeline2d
+    from .render import camera, pipeline2d, unrolled
     dev = _device(args)
-    td = TapeData.from_tape(_load(args.file), device=dev)
+    tape = _load(args.file)
     mat = torch.as_tensor(camera.identity2(), device=dev)
     z = torch.tensor(0.0, dtype=torch.float32, device=dev)
 
-    def frame_of_size(size):
-        def frame(mat):
-            return pipeline2d.render_tile_block(td, mat, z, size)[0]
-        return frame, (mat,)
+    if args.engine == "unrolled":
+        r = unrolled.get_renderer(tape)
+
+        def frame_of_size(size):
+            def frame(mat):
+                return r.frame2d(mat, z, size)[0]
+            return frame, (mat,)
+    else:
+        td = TapeData.from_tape(tape, device=dev)
+
+        def frame_of_size(size):
+            def frame(mat):
+                return pipeline2d.render_tile_block(td, mat, z, size)[0]
+            return frame, (mat,)
 
     sizes = args.sizes or [256, 512, 1024, 2048, 3072, 4096]
     _table(sizes, frame_of_size, profile_dir=args.profile)
@@ -237,24 +257,36 @@ def cmd_table3d(args):
     # is no capacity to converge before timing.
     import torch
     from .ops.tape_data import TapeData
-    from .render import camera, pipeline3d
+    from .render import camera, pipeline3d, unrolled
     dev = _device(args)
-    td = TapeData.from_tape(_load(args.file), device=dev)
+    tape = _load(args.file)
     mat = torch.as_tensor(camera.bench3d_view(), device=dev)
 
-    def frame_of_size(size):
-        def frame(mat):
-            return pipeline3d.render3d_rows(td, mat, size, 0,
-                                            size // pipeline3d.TILE, True)[0]
-        return frame, (mat,)
+    if args.engine == "unrolled":
+        r = unrolled.get_renderer(tape)
+
+        def frame_of_size(size):
+            base = r.steady_frame3d(camera.bench3d_view(), size, device=dev)
+            return (lambda mat: base(mat)[0]), (mat,)
+    else:
+        td = TapeData.from_tape(tape, device=dev)
+
+        def frame_of_size(size):
+            def frame(mat):
+                return pipeline3d.render3d_rows(td, mat, size, 0,
+                                                size // pipeline3d.TILE,
+                                                True)[0]
+            return frame, (mat,)
 
     sizes = args.sizes or [256, 512, 1024, 1536, 2048]
     _table(sizes, frame_of_size, stop_ms=750.0, profile_dir=args.profile)
 
 
 def cmd_brute(args):
-    """Consistency + speed comparison, like benchmark/brute.cu: the brute
-    interpreter against the full culling pipeline."""
+    """Three-way consistency + speed comparison, like benchmark/brute.cu:
+    (a) the tape as one generated kernel (``unrolled-CUDA``; its plain
+    torch version on the CPU, ``unrolled-torch``), (b) the brute
+    interpreter, (c) the full culling pipeline."""
     import torch
     from .ops import eval_scan
     from .ops.tape_data import TapeData
@@ -273,6 +305,11 @@ def cmd_brute(args):
     print(f"culling vs brute agreement: {agree:.6f}")
 
     p = brute._centers(size, dev)
+    f_unrolled = brute.build_unrolled_f(tape)
+
+    def frame_a(mat):
+        x, y = camera.transform2(mat, p[None, :], p[:, None])
+        return f_unrolled(x.expand(size, size), y.expand(size, size)) < 0.0
 
     def frame_b(mat):
         x, y = camera.transform2(mat, p[None, :], p[:, None])
@@ -282,7 +319,9 @@ def cmd_brute(args):
     def frame_c(mat):
         return pipeline2d.render_tile_block(td, mat, z, size)[0]
 
-    for name, f in [("brute-interp", frame_b), ("full-pipeline", frame_c)]:
+    name_a = "unrolled-CUDA" if dev.type == "cuda" else "unrolled-torch"
+    for name, f in [(name_a, frame_a), ("brute-interp", frame_b),
+                    ("full-pipeline", frame_c)]:
         ms = time_frames(f, mat, n=20, n0=3)
         print(f"{name:>14}: {ms:9.3f} ms @ {size}")
 
@@ -360,6 +399,13 @@ def _heat_png(path, h):
 
 
 def cmd_heatmap2d(args):
+    if args.engine == "unrolled":
+        from .render.workmap import workmap2d
+        heat, totals = workmap2d(_load(args.file), size=args.size,
+                                 device=_device(args))
+        print(json.dumps(totals))
+        _heat_png(args.out, heat)
+        return
     from .render.heatmap import render2d_heatmap
     _heat_png(args.out, render2d_heatmap(_load(args.file), size=args.size,
                                          device=_device(args)))
@@ -367,11 +413,53 @@ def cmd_heatmap2d(args):
 
 def cmd_heatmap3d(args):
     from .render import camera
+    if args.engine == "unrolled":
+        from .render.workmap import workmap3d
+        heat, totals = workmap3d(_load(args.file),
+                                 mat=camera.bench3d_view(), size=args.size,
+                                 device=_device(args))
+        print(json.dumps(totals))
+        _heat_png(args.out, heat)
+        return
     from .render.heatmap import render3d_heatmap
     _heat_png(args.out, render3d_heatmap(_load(args.file),
                                          mat=camera.bench3d_view(),
                                          size=args.size,
                                          device=_device(args)))
+
+
+def cmd_table_effects(args):
+    """Frame times for depth+normals / +SSAO / +shaded at each size: the
+    render_effects benchmark (reference/benchmark/render_effects.cpp), on
+    the unrolled engine."""
+    import torch
+    from .render import camera, effects, unrolled
+    from .utils.timing import time_frames
+    dev = _device(args)
+    r = unrolled.get_renderer(_load(args.file))
+    mat_np = camera.bench3d_view()
+    mat = torch.as_tensor(mat_np, device=dev)
+    print(f"{'size':>6} {'depth+normals':>14} {'+ssao':>10} "
+          f"{'+shaded':>10}   (ms/frame)")
+    for size in (int(s) for s in args.sizes.split(",")):
+        base = r.steady_frame3d(mat_np, size, device=dev)
+
+        def f_plain(mat):
+            return base(mat)[0]
+
+        def f_ssao(mat):
+            depth, normals = base(mat)
+            return effects.draw_ssao(depth, normals)
+
+        def f_shaded(mat):
+            depth, normals = base(mat)
+            return effects.draw_shaded(depth, normals)
+
+        with _ssao_override(args):
+            cols = [time_frames(f, mat, n=args.frames, n0=3)
+                    for f in (f_plain, f_ssao, f_shaded)]
+        print(f"{size:>6} {cols[0]:>14.2f} {cols[1]:>10.2f} "
+              f"{cols[2]:>10.2f}", flush=True)
 
 
 def cmd_tape_time(args):
@@ -429,9 +517,11 @@ def main(argv=None):
     p.add_argument("--set", dest="sets", action="append", metavar="NAME=V",
                    help="override a named var (frontend var() / Scheme "
                    "(var ...)); repeatable")
-    p.add_argument("--engine", default="interp", choices=["interp"],
-                   help="interp: the interpreter kernels, no per-shape "
-                        "build")
+    p.add_argument("--engine", default="interp",
+                   choices=["interp", "unrolled"],
+                   help="interp: the interpreter kernels, no per-tape "
+                        "build; unrolled: kernels generated for the tape "
+                        "(built at its first frame, then kept)")
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--out", default="out_2d.png")
     p.add_argument("--brute", action="store_true")
@@ -444,7 +534,8 @@ def main(argv=None):
     p.add_argument("file")
     p.add_argument("--set", dest="sets", action="append", metavar="NAME=V",
                    help="override a named var; repeatable")
-    p.add_argument("--engine", default="interp", choices=["interp"])
+    p.add_argument("--engine", default="interp",
+                   choices=["interp", "unrolled"])
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--out", default="out_3d.png")
     p.add_argument("--mode", default="all",
@@ -458,7 +549,11 @@ def main(argv=None):
     for name, fn in [("table2d", cmd_table2d), ("table3d", cmd_table3d)]:
         p = sub.add_parser(name)
         p.add_argument("file")
-        p.add_argument("--engine", default="interp", choices=["interp"])
+        p.add_argument("--engine", default="unrolled",
+                       choices=["interp", "unrolled"],
+                       help="benchmark tables default to the unrolled "
+                            "engine (the repeated-render regime the "
+                            "reference protocol measures)")
         p.add_argument("--sizes", type=lambda s: [int(x) for x in
                                                   s.split(",")],
                        default=None)
@@ -489,7 +584,10 @@ def main(argv=None):
     p.add_argument("file")
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--out", default="out_heat2d.png")
-    p.add_argument("--engine", choices=["interp"], default="interp")
+    p.add_argument("--engine", choices=["interp", "unrolled"],
+                   default="interp",
+                   help="unrolled: the unrolled engine's work map "
+                        "(render/workmap.py), work totals on stdout")
     _add_device(p)
     p.set_defaults(fn=cmd_heatmap2d)
 
@@ -497,9 +595,20 @@ def main(argv=None):
     p.add_argument("file")
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--out", default="out_heat3d.png")
-    p.add_argument("--engine", choices=["interp"], default="interp")
+    p.add_argument("--engine", choices=["interp", "unrolled"],
+                   default="interp",
+                   help="unrolled: the unrolled engine's work map "
+                        "(render/workmap.py), work totals on stdout")
     _add_device(p)
     p.set_defaults(fn=cmd_heatmap3d)
+
+    p = sub.add_parser("table-effects")
+    p.add_argument("file")
+    p.add_argument("--sizes", default="1024")
+    p.add_argument("--frames", type=int, default=20)
+    _add_ssao_flags(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_table_effects)
 
     p = sub.add_parser("tape-time")
     p.add_argument("file")

@@ -6,8 +6,13 @@ reference/inc/parameters.hpp:14-22) plus CMake options.  Here the
 settings live in one dataclass, read at call time.  A copy of
 ``mpr_tpu.config`` holding the fields the port reads so far (the 2D
 pipeline reads ``widen_intervals``, the 3D pipeline also ``cap_div``,
-the effects ``ssao_mode`` and ``ao_scale``, the oracle ``tight_sincos``);
-later slices add the others as they port the code that reads them.  The
+the effects ``ssao_mode`` and ``ao_scale``, the oracle and the unrolled
+evaluators ``tight_sincos``, the unrolled evaluators also
+``fast_transcendentals``); later slices add the others as they port the
+code that reads them.  ``compile_effort`` (XLA's optimisation effort for
+the unrolled engine's per-shape compiles) has no nvcc counterpart and is
+left out: the generated kernels always build at ``ops/unrolled_eval.py``'s
+``PTXAS_O``.  The
 3D stage capacities of ``mpr_tpu.config`` (``p0_scale``, ``c1_scale``) and
 its batching factors (``cpi``, ``tpi``) have no counterpart: the port
 sizes each 3D stage from counts read back from the device and its kernels
@@ -37,6 +42,11 @@ class Config:
     # True gives the oracle's interval sin/cos their tight monotone-piece
     # bounds instead of the reference's always-[-1, 1] quirk.
     tight_sincos: bool = False
+    # True routes asin/acos/atan in the unrolled evaluators
+    # (ops/unrolled_eval.py) through the Cephes polynomial forms
+    # (ops/transcendental.py, ~2 ulp f32) that the interpreter kernels
+    # use, instead of the math library's.
+    fast_transcendentals: bool = False
     # -- SSAO (render/effects.py) ---------------------------------------------
     # "static": gather-free sphere-sampling AO: per-sample screen offsets
     # are constants, so every depth lookup is a shifted-image read.

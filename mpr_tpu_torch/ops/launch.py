@@ -484,3 +484,18 @@ def check_compact_launch(launch: CompactLaunch, tcap: int,
     takes, a warp or the block a row, the shared bytes that its rows give
     for ``tcap`` and ``cap``, within the limit."""
     return _check_c(launch, tcap, cap, SMEM_LIMIT)
+
+
+# ---------------------------------------------------------------------------
+# The generated unrolled evaluators (ops/unrolled_eval.py, csrc/unrolled.cuh)
+# ---------------------------------------------------------------------------
+
+# A thread a lane: a long tape keeps up to 255 registers a thread, which a
+# block of 128 can hold on an SM four times over.
+UNROLLED_THREADS = 128
+
+
+def unrolled_launch(n: int):
+    """(blocks, threads) of a generated evaluator over ``n`` lanes: a
+    thread a lane, ``UNROLLED_THREADS`` a block."""
+    return -(-int(n) // UNROLLED_THREADS), UNROLLED_THREADS

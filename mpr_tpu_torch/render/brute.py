@@ -8,6 +8,8 @@ interpreter of ops/eval_scan.py, one executable for every tape.
 
 ``render3d_brute`` works through the volume in slabs of image rows, so a
 frame never holds more than ``SLAB_VOXELS`` voxels per tape register.
+:func:`build_unrolled_f` is the other way round: the tape compiled, not
+interpreted (the reference's ``dump_tape`` codegen).
 """
 
 from __future__ import annotations
@@ -66,3 +68,14 @@ def render3d_brute(tape: Tape, mat=None, size: int = 128,
         v = eval_scan.eval_f(td, x, y, z)          # (rows, W, D)
         out[r0:r0 + rows] = torch.where(v < 0.0, zidx, 0).amax(dim=2)
     return out.cpu().numpy()
+
+
+def build_unrolled_f(tape: Tape):
+    """The tape as straight-line code, ``f(x, y, z=None, imms=None)``: the
+    float evaluator of ops/unrolled_eval.py (the reference's dump_tape
+    codegen, reference/benchmark/dump_tape.cpp:43-171) with the immediates
+    an input, so one build serves every value of them.  ``imms`` defaults
+    to the tape's constants; the plain version is differentiable in
+    them."""
+    from ..ops import unrolled_eval
+    return unrolled_eval.build_float(tape, take_imms=True)

@@ -178,6 +178,83 @@ def test_render3d_ssao_flags_change_the_image(tmp_path, scene_frep):
     assert ((a > 0) == (b > 0)).mean() > 0.98
 
 
+# ---- the unrolled engine ----------------------------------------------------------
+
+def test_render2d_unrolled_equals_the_jax_cli_and_the_interpreter(
+        tmp_path, capsys):
+    a, b, c = tmp_path / "u.png", tmp_path / "j.png", tmp_path / "i.png"
+    args = ["render2d", "stress:12", "--size", "128"]
+    cli.main(args + ["--engine", "unrolled", "--check", "--out", str(a)]
+             + CPU)
+    assert "oracle cross-check: mismatch 0.00e+00" in capsys.readouterr().out
+    jcli.main(args + ["--engine", "unrolled", "--out", str(b)])
+    cli.main(args + ["--out", str(c)] + CPU)
+    assert a.read_bytes() == b.read_bytes() == c.read_bytes()
+
+
+def test_render3d_unrolled_equals_the_interpreter(tmp_path, scene_frep):
+    args = ["render3d", scene_frep, "--size", "128", "--mode", "all",
+            "--view", "gui"]
+    cli.main(args + ["--engine", "unrolled", "--out", str(tmp_path / "u.png")]
+             + CPU)
+    cli.main(args + ["--out", str(tmp_path / "i.png")] + CPU)
+    assert (tmp_path / "u_depth.png").read_bytes() == \
+        (tmp_path / "i_depth.png").read_bytes()
+    for s in ("ssao", "shaded"):
+        a = read_png_gray(str(tmp_path / f"u_{s}.png")).astype(int)
+        b = read_png_gray(str(tmp_path / f"i_{s}.png")).astype(int)
+        assert (np.abs(a - b) <= 1).mean() >= 0.99, s
+    a, b = (_rgb(tmp_path / f"{x}_norm.png").astype(int) for x in "ui")
+    assert (np.abs(a - b) <= 1).all(axis=-1).mean() >= 0.99
+
+
+@pytest.mark.parametrize("engine", ["unrolled", "interp"])
+def test_table2d_on_either_engine(capsys, one_frame, engine):
+    """table2d (and table3d) default to the unrolled engine, as
+    mpr_tpu.cli's do; --engine interp times the interpreter pipeline."""
+    argv = ["table2d", "stress:12", "--sizes", "64,128"] + CPU
+    cli.main(argv if engine == "unrolled" else argv + ["--engine", engine])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].split() == ["size", "mean_ms"]
+    assert [ln.split()[0] for ln in lines[1:]] == ["64", "128"]
+    assert all(float(ln.split()[1]) > 0 for ln in lines[1:])
+
+
+def test_table3d_on_the_interpreter(capsys, one_frame):
+    cli.main(["table3d", "stress:12", "--sizes", "64", "--engine", "interp"]
+             + CPU)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[1].split()[0] == "64" and float(lines[1].split()[1]) > 0
+
+
+def test_table_effects_prints_three_columns(capsys):
+    cli.main(["table-effects", "stress:12", "--sizes", "64,128", "--frames",
+              "1"] + CPU)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].split()[:4] == ["size", "depth+normals", "+ssao",
+                                    "+shaded"]
+    rows = [ln.split() for ln in lines[1:]]
+    assert [r[0] for r in rows] == ["64", "128"]
+    assert all(float(v) > 0 for r in rows for v in r[1:])
+
+
+def test_unrolled_heatmaps_print_totals_and_write_images(tmp_path, capsys):
+    import json
+    a, b = tmp_path / "h2.png", tmp_path / "h3.png"
+    cli.main(["heatmap2d", "stress:12", "--size", "128", "--engine",
+              "unrolled", "--out", str(a)] + CPU)
+    cli.main(["heatmap3d", "stress:12", "--size", "64", "--engine",
+              "unrolled", "--out", str(b)] + CPU)
+    t2, t3 = (json.loads(ln) for ln in
+              capsys.readouterr().out.strip().splitlines())
+    assert t2["clauses"] == t3["clauses"] > 0
+    assert t2["attributable_evals"] == t2["executed_evals"] > 0
+    assert set(t3["counts"]) == {"64^3", "16^3", "4^3"}
+    for p, size in ((a, 128), (b, 64)):
+        img = read_png_gray(str(p))
+        assert img.shape == (size, size) and img.max() == 255
+
+
 # ---- tables, brute, figures ---------------------------------------------------
 
 def test_table2d_prints_a_row_per_size_and_profiles(tmp_path, capsys,
@@ -208,11 +285,14 @@ def test_table3d_stops_past_750_ms(capsys, monkeypatch):
 
 
 def test_brute_prints_agreement_and_two_rows(capsys, one_frame):
+    """The agreement line and the timed rows: the tape as straight-line
+    code (its plain torch version on the CPU), the brute interpreter and
+    the full pipeline."""
     cli.main(["brute", "stress:12", "--size", "64"] + CPU)
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "culling vs brute agreement: 1.000000"
     assert [ln.split(":")[0].strip() for ln in lines[1:]] == \
-        ["brute-interp", "full-pipeline"]
+        ["unrolled-torch", "brute-interp", "full-pipeline"]
     assert all(ln.endswith("ms @ 64") for ln in lines[1:])
 
 
@@ -288,7 +368,16 @@ def test_convert_writes_an_archive_both_packages_read(tmp_path):
 # ---- devices and registration ---------------------------------------------------
 
 RENDERING = [["render2d", "stress:12", "--size", "64"],
+             ["render2d", "stress:12", "--size", "64", "--engine",
+              "unrolled"],
              ["render3d", "stress:12", "--size", "64"],
+             ["render3d", "stress:12", "--size", "64", "--engine",
+              "unrolled"],
+             ["table-effects", "stress:12", "--sizes", "64"],
+             ["heatmap2d", "stress:12", "--size", "64", "--engine",
+              "unrolled"],
+             ["heatmap3d", "stress:12", "--size", "64", "--engine",
+              "unrolled"],
              ["table2d", "stress:12", "--sizes", "64"],
              ["table3d", "stress:12", "--sizes", "64"],
              ["brute", "stress:12", "--size", "64"],
@@ -298,7 +387,8 @@ RENDERING = [["render2d", "stress:12", "--size", "64"],
              ["heatmap3d", "stress:12", "--size", "64"]]
 
 
-@pytest.mark.parametrize("argv", RENDERING, ids=[a[0] for a in RENDERING])
+@pytest.mark.parametrize("argv", RENDERING, ids=[
+    a[0] + ("-unrolled" if "unrolled" in a else "") for a in RENDERING])
 def test_without_a_card_the_default_device_raises(argv, tmp_path,
                                                   monkeypatch):
     """``--device`` defaults to cuda; with no card every rendering command
@@ -314,9 +404,9 @@ def test_without_a_card_the_default_device_raises(argv, tmp_path,
 
 
 @pytest.mark.parametrize("argv", [["render2d", "stress:12", "--engine",
-                                   "unrolled"],
+                                   "unrolled", "--sharded"],
                                   ["render2d", "stress:12", "--sharded"],
-                                  ["table-effects", "stress:12"],
+                                  ["render3d", "stress:12", "--sharded"],
                                   ["fit", "stress:12", "--target", "x.png"],
                                   ["mesh", "stress:12"]])
 def test_what_is_not_ported_is_not_registered(argv, capsys):

@@ -941,3 +941,170 @@ def test_cli_renders_on_the_card(cuda, tmp_path, capsys):
               str(tmp_path / "b.png")])
     for suffix in ("depth", "norm", "ssao", "shaded"):
         assert (tmp_path / f"b_{suffix}.png").exists()
+
+
+# ---------------------------------------------------------------------------
+# The unrolled engine: the kernels ops/unrolled_eval.py generates per tape
+# ---------------------------------------------------------------------------
+
+from mpr_tpu_torch.ops import unrolled_eval as ue  # noqa: E402
+from mpr_tpu_torch.render import brute, unrolled  # noqa: E402
+
+U_NAMES = NAMES + ["stress600"]
+U_BUILDERS = {"float": ue.build_float, "interval": ue.build_interval,
+              "deriv": ue.build_deriv}
+
+
+def _u_tape(name):
+    if name == "stress600":
+        return mpr_tpu_torch.compile_tree(shapes.stress_2d(600))
+    return _tape(name)
+
+
+def _u_args(kind, dev, n=20_000, seed=61):
+    rng = np.random.default_rng(seed)
+    x, y, z = (rng.uniform(-1.5, 1.5, n).astype(np.float32)
+               for _ in range(3))
+    if kind == "interval":
+        w = rng.uniform(0.0, 0.6, (3, n)).astype(np.float32)
+        vals = [x, x + w[0], y, y + w[1], z, z + w[2]]
+    else:
+        vals = [x, y, z]
+    return [torch.from_numpy(v).to(dev) for v in vals]
+
+
+def _bits_equal(got, want):
+    """Every output bit for bit, NaNs (of any payload) in the same
+    places."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        nan = torch.isnan(g)
+        assert torch.equal(nan, torch.isnan(w))
+        assert torch.equal(g.view(torch.int32)[~nan],
+                           w.view(torch.int32)[~nan])
+
+
+@pytest.fixture(scope="module")
+def unrolled_built():
+    """Every evaluator of the parity tapes, both modes, built at once (one
+    nvcc process each, all started together)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    evs = {(kind, name, take): U_BUILDERS[kind](_u_tape(name), take)
+           for kind in U_BUILDERS for name in U_NAMES
+           for take in (False, True)}
+    ue.build_all(list(evs.values()))
+    return evs
+
+
+@pytest.mark.parametrize("take", [False, True], ids=["baked", "imms"])
+@pytest.mark.parametrize("name", U_NAMES)
+@pytest.mark.parametrize("kind", sorted(U_BUILDERS))
+def test_unrolled_kernel_matches_plain(unrolled_built, cuda, kind, name,
+                                       take):
+    ev = unrolled_built[(kind, name, take)]
+    args = _u_args(kind, cuda)
+    imms = torch.as_tensor(ev.tape.imms, device=cuda) if take else None
+    before = getattr(ue, f"unrolled_{kind}").launches
+    got = ev(*args, imms=imms)
+    torch.cuda.synchronize()
+    assert getattr(ue, f"unrolled_{kind}").launches == before + 1
+    _bits_equal(got, ev.plain(*args, imms=imms))
+
+
+@pytest.mark.parametrize("flag", ["tight_sincos", "widen_intervals",
+                                  "fast_transcendentals"])
+@pytest.mark.parametrize("name", ["all_ops", "random3"])
+def test_unrolled_kernel_under_config_flags_matches_plain(cuda, name, flag):
+    from mpr_tpu_torch import config
+    with config.override(**{flag: True}):
+        evs = [b(_u_tape(name)) for b in U_BUILDERS.values()]
+    ue.build_all(evs)
+    for ev in evs:
+        args = _u_args(ev.kind, cuda, seed=67)
+        _bits_equal(ev(*args), ev.plain(*args))
+
+
+def test_unrolled_imm_change_builds_nothing(cuda):
+    """With the immediates an input, new values take the same kernel: no
+    build, no new library, and the result follows the new values."""
+    tape = mpr_tpu_torch.compile_tree(shapes.stress_2d(40))
+    ev = ue.build_float(tape, take_imms=True)
+    args = _u_args("float", cuda)
+    ev(*args)
+    n_builds, n_libs = len(ue.BUILDS), len(ue._libs)
+    imms = torch.as_tensor(tape.imms * np.float32(1.25), device=cuda)
+    other = ue.build_float(mpr_tpu_torch.compile_tree(shapes.stress_2d(40)),
+                           take_imms=True)
+    assert other.key == ev.key
+    got = other(*args, imms=imms)
+    assert (len(ue.BUILDS), len(ue._libs)) == (n_builds, n_libs)
+    _bits_equal(got, ev.plain(*args, imms=imms))
+    assert not torch.equal(got, ev(*args))
+
+
+def test_unrolled_kernels_are_forward_only(cuda):
+    tape = mpr_tpu_torch.compile_tree(shapes.circle(0.5))
+    ev = ue.build_float(tape, take_imms=True)
+    x = torch.linspace(-1, 1, 100, device=cuda)
+    imms = torch.as_tensor(tape.imms, device=cuda).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ev(x, x, x, imms=imms)
+    # the plain version is the differentiable one
+    ev.plain(x, x, x, imms=imms).sum().backward()
+    assert imms.grad is not None
+
+
+def test_a_failed_build_raises_with_no_fallback(cuda, monkeypatch,
+                                                tmp_path):
+    tape = mpr_tpu_torch.compile_tree(shapes.circle(0.25))
+    ev = ue.build_float(tape)
+    monkeypatch.setattr(ue, "UNROLLED_ROOT", tmp_path)
+    monkeypatch.setattr(ue, "generate",
+                        lambda *a: "this is not CUDA C++;\n")
+    launches = ue.unrolled_float.launches
+    x = torch.linspace(-1, 1, 100, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ev(x, x, x)
+    assert ue.unrolled_float.launches == launches
+    assert not (tmp_path / ev.key / "libunrolled.so").exists()
+
+
+@pytest.mark.parametrize("name,size", [("stress40", 256), ("stress40", 1024),
+                                       ("all_ops", 256), ("random2", 256)])
+def test_unrolled_render2d_on_card_equals_brute(cuda, name, size,
+                                                monkeypatch):
+    tape = _tape(name)
+    calls = []
+    real = ue.UnrolledEval.plain
+    monkeypatch.setattr(ue.UnrolledEval, "plain",
+                        lambda self, *a, **k: calls.append(1) or real(
+                            self, *a, **k))
+    before = (ue.unrolled_interval.launches, ue.unrolled_float.launches)
+    img = unrolled.render2d(tape, size=size)
+    assert (ue.unrolled_interval.launches - before[0],
+            ue.unrolled_float.launches - before[1]) == (2, 1)
+    assert not calls
+    assert np.array_equal(img, brute.render2d_brute(tape, size=size))
+
+
+@pytest.mark.parametrize("skip4", [False, True], ids=["full", "skip4"])
+@pytest.mark.parametrize("name", ["two_spheres", "gyroid", "extruded_stress"])
+def test_unrolled_render3d_on_card_equals_brute(cuda, name, skip4):
+    trees = {"two_spheres": shapes.two_spheres(),
+             "gyroid": shapes.intersection(shapes.gyroid(0.4, 0.08),
+                                           shapes.sphere(0.85)),
+             "extruded_stress": shapes.extrude_z(shapes.stress_2d(300),
+                                                 -0.4, 0.4)}
+    tape = mpr_tpu_torch.compile_tree(trees[name])
+    mat = camera.gui3d_view()
+    r = unrolled.UnrolledRenderer(tape)
+    before = ue.unrolled_deriv.launches
+    depth, normals = r.render3d(mat=mat, size=256, skip4=skip4)
+    assert ue.unrolled_deriv.launches == before + 1
+    assert np.array_equal(depth, brute.render3d_brute(tape, mat=mat,
+                                                      size=256))
+    idepth, inormals = pipeline3d.render3d(tape, mat=mat, size=256)
+    assert np.array_equal(depth, idepth)
+    assert float(np.abs(normals - inormals).max()) <= 1e-4
