@@ -79,15 +79,20 @@ Phases (any failure exits non-zero before the final line):
      and each one's nvcc seconds and ptxas registers, stack and spills are
      printed; a spill here is printed, not fatal), then with the counts set
      to 0 before each frame ``render.unrolled.render2d`` / ``render3d`` on
-     each cell: a 2D frame must launch the interval kernel twice and the
-     float kernel once, a 3D frame the interval kernel three times, the
-     float and deriv kernels once, and no frame may run a plain
-     evaluator; every recorded launch bit for bit against its plain
-     version, the images against ``render*_brute`` and the interpreter
-     engine (0 pixels differ; normals within 1e-4), frames and launches
-     timed (lane-clauses per second printed beside kernel B's and V's),
-     and ``cli render2d stress:600 --size 1024 --engine unrolled --check``
-     as a subprocess;
+     each cell, twice on a 3D cell (the first frame takes the full ladder,
+     the second the renderer's own choice, skip4 at gyroid): a 2D frame
+     must launch the interval kernel twice and the float kernel once, a
+     3D frame the interval kernel three times (twice under skip4), the
+     float kernel once for each chunk of at most 2^26 voxel lanes and the
+     deriv kernel once, and no frame may run a plain evaluator; every
+     recorded launch bit for bit against its plain version, the images
+     against ``render*_brute`` and the interpreter engine (0 pixels
+     differ; normals within 1e-4), each frame timed on the branch it
+     checked and its launches timed (lane-clauses per second printed
+     beside kernel B's and V's),
+     and, as subprocesses, ``cli render2d stress:600 --size 1024 --engine
+     unrolled --check`` and ``cli table3d`` on the gyroid model at the
+     table's sizes;
  12. print the kernel times of the previous designs of A, B, C, C2, V and
      D (recorded, labelled as such; not measured here), the card line, one
      JSON ``kernels`` line (the eight TPU kernels' rows, then the three
@@ -149,11 +154,10 @@ UNROLLED_ROWS = (
 )
 UNROLLED_SOURCE = ("mpr_tpu_torch/ops/unrolled_eval.py (generated per "
                    "tape) + mpr_tpu_torch/ops/csrc/unrolled.cuh")
-# launches of each evaluator a frame of the unrolled engine must make
+# launches of each evaluator a 2D frame of the unrolled engine must make
+# (a 3D frame's follow from its branch and counts, run_unrolled)
 UNROLLED_2D = {"unrolled_interval": 2, "unrolled_float": 1,
                "unrolled_deriv": 0}
-UNROLLED_3D = {"unrolled_interval": 3, "unrolled_float": 1,
-               "unrolled_deriv": 1}
 # Float operations of a generated statement, for the bound: one per IEEE
 # arithmetic operation or math-library call, the Cephes forms counted out;
 # none for compares, selects, min/max, loads and stores.
@@ -1689,27 +1693,20 @@ def gen_ops(src):
 
 
 def bare_launch(ue, ev, args, imms):
-    """``ev``'s kernel alone: the inputs flattened and the outputs
-    allocated once, so that timing the returned closure times the launch
-    and the kernel, not the wrapper's work around them (which
-    ``wrapper_ms`` times).  Returns (closure, the tensors it reads and
-    writes, to keep alive)."""
+    """``ev``'s kernel alone (``unrolled_eval._launch``, the launch the
+    wrapper makes): the inputs flattened and the outputs allocated once,
+    so that timing the returned closure times the launch and the kernel,
+    not the wrapper's work around them (which ``wrapper_ms`` times).
+    Returns (closure, the tensors it reads and writes, to keep alive)."""
     import torch
     lanes = [t.reshape(-1).contiguous() for t in torch.broadcast_tensors(
         *args)]
     n = lanes[0].numel()
     outs = [torch.empty(n, dtype=torch.float32, device=lanes[0].device)
             for _ in range(ue.N_OUT[ev.kind])]
-    blocks, threads = ue.ln.unrolled_launch(n)
-    ptrs = ([t.data_ptr() for t in lanes] + [None] * (6 - len(lanes))
-            + [imms.data_ptr() if ev.take_imms else None]
-            + [t.data_ptr() for t in outs] + [None] * (4 - len(outs)))
-    fn = ue._libs[ev.key].mpr_unrolled
-    stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = fn(*ptrs, n, blocks, threads, stream)
-        check(err == 0, f"the {ev.kind} kernel's launch failed: {err}")
+        ue._launch(ev, lanes, imms, outs)
     return run, (lanes, outs, imms)
 
 
@@ -1749,6 +1746,14 @@ def run_unrolled(ctx, results, launches, pre):
                   f"{spill} B")
 
     # ---- the main path: each frame with every count at 0 ----------------------
+    # A 3D cell renders twice, as a user's first two frames: the first takes
+    # the full ladder (no counts yet), the second ("steady") the branch the
+    # renderer picks from the first's counts (skip4 on gyroid_sphere).
+    frames_of = []       # (label, cell, tape, mat, size, skip4)
+    for cell, tape, mat, size in cells:
+        frames_of.append((cell, cell, tape, mat, size, False))
+        if mat is not None:
+            frames_of.append((f"{cell} steady", cell, tape, mat, size, None))
     recorder = Recorder({"unrolled_eval": ue}, UNROLLED_ROWS)
     plain_calls = [0]
     real_plain = ue.UnrolledEval.plain
@@ -1756,44 +1761,63 @@ def run_unrolled(ctx, results, launches, pre):
     def counted_plain(self, *a, **k):
         plain_calls[0] += 1
         return real_plain(self, *a, **k)
-    recs, frames, per_cell = {}, {}, {}
+    recs, frames, per_frame = {}, {}, {}
     ue.UnrolledEval.plain = counted_plain
     try:
-        for cell, tape, mat, size in cells:
-            recs[cell] = {}
-            recorder.install(recs[cell])
+        for i, (label, cell, tape, mat, size, _) in enumerate(frames_of):
+            r = unrolled.get_renderer(tape)
+            if mat is not None:
+                # the branch the renderer's decision will take
+                skip4 = r._skip4_key(("3d", size))
+                frames_of[i] = (label, cell, tape, mat, size, skip4)
+            recs[label] = {}
+            recorder.install(recs[label])
             recorder.reset_counts()
             t0 = time.perf_counter()
             if mat is None:
-                frames[cell] = unrolled.render2d(tape, size=size)
+                frames[label] = unrolled.render2d(tape, size=size)
             else:
-                frames[cell] = unrolled.render3d(tape, mat=mat, size=size)
+                frames[label] = unrolled.render3d(tape, mat=mat, size=size)
             torch.cuda.synchronize()
-            per_cell[cell] = recorder.counts()
+            per_frame[label] = recorder.counts()
             recorder.remove()
-            print(f"unrolled {cell} @{size}: {time.perf_counter() - t0:.3f} "
-                  f"s (first frame, host clock); launches {per_cell[cell]}")
-            need = UNROLLED_2D if mat is None else UNROLLED_3D
+            if mat is None:
+                need = UNROLLED_2D
+            else:
+                obs = r._obs[("3d", size)]
+                need = {"unrolled_interval": 2 if skip4 else 3,
+                        "unrolled_float": unrolled.voxel_launches(
+                            obs[1], 16) if skip4
+                        else unrolled.voxel_launches(obs[2], 4),
+                        "unrolled_deriv": 1}
+            branch = "" if mat is None else (
+                " (skip4: 64^3 -> 16^3 -> voxels)" if skip4
+                else " (full ladder: 64^3 -> 16^3 -> 4^3 -> voxels)")
+            print(f"unrolled {label} @{size}{branch}: "
+                  f"{time.perf_counter() - t0:.3f} s (host clock); launches "
+                  f"{per_frame[label]}, expected {need}")
             for kname, n in need.items():
-                check(per_cell[cell][kname] == n, f"{kname} launched "
-                      f"{per_cell[cell][kname]} times in the unrolled {cell} "
-                      f"frame, {n} expected")
+                check(per_frame[label][kname] == n, f"{kname} launched "
+                      f"{per_frame[label][kname]} times in the unrolled "
+                      f"{label} frame, {n} expected")
     finally:
         recorder.remove()
         ue.UnrolledEval.plain = real_plain
     check(plain_calls[0] == 0, f"the unrolled frames ran a plain evaluator "
           f"{plain_calls[0]} times")
-    launches["unrolled"] = {k: sum(c[k] for c in per_cell.values())
+    check(any(f[5] for f in frames_of), "no unrolled 3D frame took skip4")
+    launches["unrolled"] = {k: sum(c[k] for c in per_frame.values())
                             for k, *_ in UNROLLED_ROWS}
-    launches["unrolled_per_frame"] = per_cell
-    print(f"unrolled path launches over {len(cells)} frames: "
+    launches["unrolled_per_frame"] = per_frame
+    print(f"unrolled path launches over {len(frames_of)} frames: "
           f"{launches['unrolled']}")
 
-    # ---- every launch against its plain version; images ------------------------
+    # ---- every launch against its plain version; images; timing ------------
     rows = {k: {} for k, *_ in UNROLLED_ROWS}
-    for cell, tape, mat, size in cells:
+    frame_ms = {}
+    for label, cell, tape, mat, size, skip4 in frames_of:
         for kname, *_ in UNROLLED_ROWS:
-            for j, (a, k, out) in enumerate(recs[cell].get(kname, [])):
+            for j, (a, k, out) in enumerate(recs[label].get(kname, [])):
                 ev, args = a[0], a[1:]
                 pout = ev.plain(*args, imms=k.get("imms"))
                 outs = out if isinstance(out, tuple) else (out,)
@@ -1805,67 +1829,66 @@ def run_unrolled(ctx, results, launches, pre):
                     n_bad += int(bad_bits.sum())
                     err = max(err, same(o, p)[1])
                 lanes = outs[0].numel()
-                r = rows[kname].setdefault(cell, [])
-                r.append(dict(lanes=lanes, clauses=tape.length,
-                              mismatches=n_bad, max_abs_err=err,
-                              bytes=lanes * 4 * (ue.N_IN[ev.kind]
-                                                 + ue.N_OUT[ev.kind]),
-                              ops=lanes * gen_ops(ev.source())))
-                print(f"  {kname} {cell} launch {j}: {lanes} lanes x "
+                rows[kname].setdefault(label, []).append(dict(
+                    lanes=lanes, clauses=tape.length, mismatches=n_bad,
+                    max_abs_err=err,
+                    bytes=lanes * 4 * (ue.N_IN[ev.kind] + ue.N_OUT[ev.kind]),
+                    ops=lanes * gen_ops(ev.source())))
+                print(f"  {kname} {label} launch {j}: {lanes} lanes x "
                       f"{tape.length} clauses, {n_bad} bits differ from the "
                       f"plain version, max |err| {err:.3g}")
                 check(n_bad == 0, f"{kname} differs from its plain version "
-                      f"in {cell} (launch {j}): {n_bad} values")
+                      f"in {label} (launch {j}): {n_bad} values")
                 del pout, pouts
         if mat is None:
-            img = frames[cell]
+            img = frames[label]
             for what, want in (("render2d_brute", ctx["brute2d"][size]),
                                ("the interpreter engine",
                                 ctx["images2d"][size])):
                 bad = int((img != want).sum())
-                print(f"  unrolled image {cell} vs {what}: {bad} pixels "
+                print(f"  unrolled image {label} vs {what}: {bad} pixels "
                       "differ")
-                check(bad == 0, f"the unrolled {cell} image differs from "
+                check(bad == 0, f"the unrolled {label} image differs from "
                       f"{what}")
         else:
-            depth, normals = frames[cell]
+            depth, normals = frames[label]
             idepth, inormals = ctx["frames3d"][cell]
             for what, want in (("render3d_brute", ctx["brute3d"][cell]),
                                ("the interpreter engine", idepth)):
                 bad = int((depth != want).sum())
-                print(f"  unrolled depth {cell} vs {what}: {bad} pixels "
+                print(f"  unrolled depth {label} vs {what}: {bad} pixels "
                       "differ")
-                check(bad == 0, f"the unrolled {cell} depth differs from "
+                check(bad == 0, f"the unrolled {label} depth differs from "
                       f"{what}")
             m = depth > 0
             nerr = float(np.abs(normals - inormals).max())
             ln = np.linalg.norm(normals[m], axis=-1)
-            print(f"  unrolled normals {cell}: max |n - interpreter's| "
+            print(f"  unrolled normals {label}: max |n - interpreter's| "
                   f"{nerr:.2e}, | |n| - 1 | <= {np.abs(ln - 1).max():.2e}")
             check(nerr <= 1e-4 and not normals[~m].any(),
-                  f"the unrolled {cell} normals differ from the "
+                  f"the unrolled {label} normals differ from the "
                   "interpreter's")
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
 
-    # ---- timing: frames, each launch, clause rates ------------------------------
-    frame_ms = {}
-    for cell, tape, mat, size in cells:
+        # the frame on the branch checked above, then each of its launches
         r = unrolled.get_renderer(tape)
         if mat is None:
             eye = torch.eye(3, device=dev)
             z = torch.tensor(0.0, device=dev)
-            frame_ms[cell] = cuda_ms(lambda: r.frame2d(eye, z, size), 20, 3)
-            reps = 20
+            frame = (lambda: r.frame2d(eye, z, size))
+            reps, branch = 20, ""
         else:
             mat_t = torch.as_tensor(mat, device=dev)
-            frame_ms[cell] = cuda_ms(lambda: r.frame3d(mat_t, size), 10, 2)
+            frame = (lambda: r.frame3d(mat_t, size, skip4=skip4))
             reps = 10
-        print(f"unrolled frame {cell} @{size}: {frame_ms[cell]:.3f} ms "
-              f"(events, median of {reps})  [{card}]")
+            branch = " skip4" if skip4 else " full ladder"
+        frame_ms[label] = cuda_ms(frame, reps, 2)
+        print(f"unrolled frame {label} @{size}{branch}: "
+              f"{frame_ms[label]:.3f} ms (events, median of {reps})  [{card}]")
         for kname, *_ in UNROLLED_ROWS:
             fn = recorder.originals[kname]
-            for (a, k, _), rr in zip(recs[cell].get(kname, []),
-                                     rows[kname].get(cell, [])):
+            for (a, k, _), rr in zip(recs[label].get(kname, []),
+                                     rows[kname].get(label, [])):
                 run, keep = bare_launch(ue, a[0], a[1:], k.get("imms"))
                 rr["ms"] = cuda_ms(run, 10, 2)
                 rr["wrapper_ms"] = cuda_ms(lambda: fn(*a, **k), 10, 2)
@@ -1875,15 +1898,16 @@ def run_unrolled(ctx, results, launches, pre):
                     *a[1:], imms=k.get("imms")))
                 rr["rate"] = rr["lanes"] * rr["clauses"] / rr["ms"] / 1e9
                 rr["bound_ms"], rr["bound_by"] = bound(rr)
-                print(f"  {kname} {cell}: {rr['ms']:.4f} ms (events around "
-                      f"the bare launch; device {rr['device_ms']}; through "
-                      f"the wrapper {rr['wrapper_ms']:.4f}), plain "
-                      f"{rr['plain_ms']:.1f} ms, bound {rr['bound_ms']:.5f} "
-                      f"ms ({rr['bound_by']}); {rr['rate']:.3f} T "
-                      f"lane-clauses/s  [{card}]")
-        print_profile(f"unrolled {cell} @{size}",
-                      (lambda: r.frame2d(eye, z, size)) if mat is None
-                      else (lambda: r.frame3d(mat_t, size)), card, 3)
+                print(f"  {kname} {label}: {rr['lanes']} lanes, "
+                      f"{rr['ms']:.4f} ms (events around the bare launch; "
+                      f"device {rr['device_ms']}; through the wrapper "
+                      f"{rr['wrapper_ms']:.4f}), plain {rr['plain_ms']:.1f} "
+                      f"ms, bound {rr['bound_ms']:.5f} ms ({rr['bound_by']}); "
+                      f"{rr['rate']:.3f} T lane-clauses/s  [{card}]")
+        print_profile(f"unrolled {label} @{size}{branch}", frame, card, 3)
+        del recs[label]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     b = results[CASES[0][1]]["pixel_eval_runs"]
     v = results[CASES_3D[0][0]]["voxel_eval_3d"]
     for label, rr in (("B (interpreter, stress 1024^2)", b),
@@ -1912,16 +1936,38 @@ def run_unrolled(ctx, results, launches, pre):
               f"{p.stderr}")
         check("oracle cross-check: mismatch 0.00e+00" in p.stdout,
               "cli render2d --engine unrolled printed no exact cross-check")
+        # table3d on the gyroid cell's model at the table's own sizes
+        # (unrolled by default: a full-ladder frame, then steady frames)
+        from mpr_tpu_torch.frontend import frep, shapes
+        name, make = CASES_3D[0][:2]
+        path = os.path.join(tmp, f"{name}.frep")
+        frep.dump([frep.ArchiveShape(tree=make(shapes), name=name)], path)
+        argv = ["table3d", path]
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "mpr_tpu_torch.cli", *argv],
+                           cwd=tmp, env=env, capture_output=True, text=True,
+                           timeout=600)
+        print(f"cli table3d {name}.frep (sizes 256-2048, bench3d_view): "
+              f"exit {p.returncode}, {time.perf_counter() - t0:.1f} s  "
+              f"[{card}]")
+        for line in (p.stdout + p.stderr).strip().splitlines():
+            print("    " + line)
+        check(p.returncode == 0, f"cli table3d failed:\n{p.stderr}")
+        rows3 = [ln.split() for ln in p.stdout.splitlines()[1:]]
+        check(rows3 and rows3[0][0] == "256" and all(
+            float(ms) > 0 for _, ms in rows3), "cli table3d printed no row")
 
     # ---- the kernels line's rows -------------------------------------------------
     out = []
     for kname, _, replaces in UNROLLED_ROWS:
         per = {}
-        for cell, *_ in cells:
-            rr = rows[kname].get(cell)
+        for label, _, _, mat, _, skip4 in frames_of:
+            rr = rows[kname].get(label)
             if not rr:
                 continue
-            per[cell] = {
+            per[label] = {
+                "branch": None if mat is None
+                else "skip4" if skip4 else "full ladder",
                 "launches": len(rr),
                 "lanes": [x["lanes"] for x in rr],
                 "ms": round(sum(x["ms"] for x in rr), 6),
@@ -1932,7 +1978,7 @@ def run_unrolled(ctx, results, launches, pre):
                 "bound_ms": round(sum(x["bound_ms"] for x in rr), 6),
                 "bound_by": rr[-1]["bound_by"],
                 "T_lane_clauses_per_s": [round(x["rate"], 4) for x in rr],
-                "frame_ms": round(frame_ms[cell], 4)}
+                "frame_ms": round(frame_ms[label], 4)}
         at = max(per, key=lambda c: per[c]["ms"])
         p = per[at]
         out.append({

@@ -1081,19 +1081,27 @@ def _run(ev: UnrolledEval, args, imms):
             for _ in range(N_OUT[ev.kind])]
     if n:
         build_all([ev])
-        blocks, threads = ln.unrolled_launch(n)
-        ptrs = [t.data_ptr() for t in lanes] + [None] * (6 - len(lanes))
-        optrs = [t.data_ptr() for t in outs] + [None] * (4 - len(outs))
-        with torch.cuda.device(dev):
-            err = _libs[ev.key].mpr_unrolled(
-                *ptrs, imms.data_ptr() if ev.take_imms else None, *optrs,
-                n, blocks, threads,
-                torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"unrolled {ev.kind} kernel failed: CUDA "
-                               f"error {err}")
+        _launch(ev, lanes, imms, outs)
     outs = [t.reshape(shape) for t in outs]
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def _launch(ev: UnrolledEval, lanes, imms, outs):
+    """The launch alone: ``ev``'s built kernel on flat contiguous f32
+    ``lanes`` of one CUDA device (and ``imms`` under ``take_imms``) into
+    the allocated flat ``outs``, on the current stream; raises on a CUDA
+    error."""
+    n = lanes[0].shape[0]
+    blocks, threads = ln.unrolled_launch(n)
+    ptrs = [t.data_ptr() for t in lanes] + [None] * (6 - len(lanes))
+    optrs = [t.data_ptr() for t in outs] + [None] * (4 - len(outs))
+    with torch.cuda.device(lanes[0].device):
+        err = _libs[ev.key].mpr_unrolled(
+            *ptrs, imms.data_ptr() if ev.take_imms else None, *optrs,
+            n, blocks, threads, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"unrolled {ev.kind} kernel failed: CUDA "
+                           f"error {err}")
 
 
 def unrolled_float(ev, x, y, z, imms=None):

@@ -32,7 +32,7 @@ Depth: int32, 0 = empty, else the top filled voxel's index + 1.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +48,9 @@ from .pipeline3d import _mat4_interval
 
 ST_EMPTY, ST_FILLED, ST_AMBIG = 0, 1, 2
 TILE = 64
-# lanes one float launch of the skip4 voxel stage takes at most (a 16^3
-# cell is 4096 lanes): bounds the stage's temporaries
-SKIP4_LANES = 1 << 26
+# lanes one float launch of the voxel stage takes at most (a 4^3 cell is
+# 64 lanes, a 16^3 cell 4096): bounds the stage's temporaries
+VOXEL_LANES = 1 << 26
 
 
 # ---------------------------------------------------------------------------
@@ -178,24 +178,31 @@ def _render2d_impl(fi, f, mat, z, size: int, imms=None):
 # 3D ladder: 64^3 -> 16^3 -> 4^3 -> voxel -> normals
 # ---------------------------------------------------------------------------
 
-def _voxel_hits(f, mat, gx, gy, gz, size: int, imms):
-    """``gz + 1`` where the voxel (gx, gy, gz) is filled, else 0.  The
-    centers are gathered from a table of the ``size`` values
-    :func:`_center` gives (one gather a lane instead of five full-size
-    operations)."""
-    cen = _center(torch.arange(size, device=gx.device), size)
-    wx, wy, wz = camera.transform3(mat, cen[gx], cen[gy], cen[gz])
-    val = f(wx, wy, wz, imms=imms)
-    return torch.where(val < 0.0, gz + 1, 0)
+class Stages3d(NamedTuple):
+    """The interval stages of one 3D frame (:func:`_stages3d`).  Every
+    ``cell*`` is the screen cell of its stage's lanes at that stage's
+    granularity (row-major), every ``surv*`` its lanes that are ambiguous
+    and not occluded, every ``h*`` the heightmap (voxel units) of the
+    filled cells' tops down to that stage, and every ``c*`` the surviving
+    cells' grid coordinates (gx, gy, gz).  The 4^3 fields are None under
+    ``skip4``."""
+    cell64: torch.Tensor
+    surv0: torch.Tensor
+    cell16: torch.Tensor
+    surv1: torch.Tensor
+    h16: torch.Tensor
+    c16: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    cell4: Optional[torch.Tensor]
+    surv2: Optional[torch.Tensor]
+    h4: Optional[torch.Tensor]
+    c4: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    counts: Tuple[int, int, int]       # survivors at 64^3, 16^3, 4^3
 
 
-def _render3d_impl(fi, f, fd, mat, size: int, with_normals: bool,
-                   skip4: bool = False, imms=None):
-    """The 3D ladder with occlusion culls between the stages (the
-    mask_filled_tiles analog, reference/src/context.cu:471-495).  Returns
-    (depth (size, size) int32, normals (size, size, 3) f32 or None,
-    counts (n0, n1, n2, 0, 0, nN)): surviving 64^3 tiles, 16^3 cells and
-    4^3 cells (0 under ``skip4``), and screen tiles with content."""
+def _stages3d(fi, mat, size: int, skip4: bool, imms) -> Stages3d:
+    """The interval stages of the 3D ladder, 64^3 -> 16^3 (-> 4^3 unless
+    ``skip4``), with the occlusion culls between them (the
+    mask_filled_tiles analog, reference/src/context.cu:471-495)."""
     n = size // 64
     dev = mat.device
     i64 = torch.int64
@@ -210,8 +217,9 @@ def _render3d_impl(fi, f, fd, mat, size: int, with_normals: bool,
                      (torch.arange(n, dtype=i64, device=dev) + 1)[:, None,
                                                                   None] * 64,
                      0).amax(dim=0)
-    ids0 = _ids((st0 == ST_AMBIG) & ((tz + 1) * 64 > h0.reshape(-1)[
-        ty * n + tx]))
+    cell64 = ty * n + tx
+    surv0 = (st0 == ST_AMBIG) & ((tz + 1) * 64 > h0.reshape(-1)[cell64])
+    ids0 = _ids(surv0)
 
     # ---- stage B: 16^3 children of the surviving tiles ---------------------
     g16x, g16y, g16z = _children_of_cells(ids0 % n, (ids0 // n) % n,
@@ -222,49 +230,89 @@ def _render3d_impl(fi, f, fd, mat, size: int, with_normals: bool,
     cell16 = g16y * (4 * n) + g16x
     h16 = _up(h0, 4).reshape(-1).scatter_reduce(
         0, cell16, torch.where(st1 == ST_FILLED, top1, 0), "amax")
-    ids1 = _ids((st1 == ST_AMBIG) & (top1 > h16[cell16]))
-    g16x_c, g16y_c, g16z_c = g16x[ids1], g16y[ids1], g16z[ids1]
-
+    surv1 = (st1 == ST_AMBIG) & (top1 > h16[cell16])
+    ids1 = _ids(surv1)
+    c16 = (g16x[ids1], g16y[ids1], g16z[ids1])
+    counts = (int(ids0.shape[0]), int(ids1.shape[0]))
     if skip4:
-        # ---- the 16^3 cells' 4096 voxels at once (interval-hostile
-        # models spend more on the 4^3 stage than it saves) ---------------
-        depth = _up(h16.reshape(4 * n, 4 * n), 16).reshape(-1)
-        vv = torch.arange(4096, dtype=i64, device=dev)
-        step = max(1, SKIP4_LANES // 4096)
-        for c0 in range(0, int(ids1.shape[0]), step):
-            cx, cy, cz = (g[c0:c0 + step] for g in (g16x_c, g16y_c, g16z_c))
-            gvx = (cx[:, None] * 16 + (vv % 16)[None, :]).reshape(-1)
-            gvy = (cy[:, None] * 16 + ((vv // 16) % 16)[None, :]).reshape(-1)
-            gvz = (cz[:, None] * 16 + (vv // 256)[None, :]).reshape(-1)
-            hit = _voxel_hits(f, mat, gvx, gvy, gvz, size, imms)
-            patch = hit.reshape(-1, 16, 256).amax(dim=1)   # max over vz
-            pix = gvy.reshape(-1, 16, 256)[:, 0] * size + gvx.reshape(
-                -1, 16, 256)[:, 0]
-            depth = depth.scatter_reduce(0, pix.reshape(-1),
-                                         patch.reshape(-1), "amax")
-        n2 = 0
-    else:
-        # ---- stage B': 4^3 children of the surviving 16^3 cells ----------
-        g4x, g4y, g4z = _children_of_cells(g16x_c, g16y_c, g16z_c)
-        lo, hi = fi(*_cell_boxes_3d(mat, g4x, g4y, g4z, 16 * n), imms=imms)
-        st2 = _classify(lo, hi)
-        top2 = (g4z + 1) * 4
-        cell4 = g4y * (16 * n) + g4x
-        h4 = _up(h16.reshape(4 * n, 4 * n), 4).reshape(-1).scatter_reduce(
-            0, cell4, torch.where(st2 == ST_FILLED, top2, 0), "amax")
-        ids2 = _ids((st2 == ST_AMBIG) & (top2 > h4[cell4]))
-        n2 = int(ids2.shape[0])
+        return Stages3d(cell64, surv0, cell16, surv1, h16, c16, None, None,
+                        None, None, counts + (0,))
 
-        # ---- voxel stage: the 64 voxels of each surviving 4^3 cell -------
-        gvx, gvy, gvz = _children_of_cells(g4x[ids2], g4y[ids2], g4z[ids2])
+    # ---- stage B': 4^3 children of the surviving 16^3 cells ----------------
+    g4x, g4y, g4z = _children_of_cells(*c16)
+    lo, hi = fi(*_cell_boxes_3d(mat, g4x, g4y, g4z, 16 * n), imms=imms)
+    st2 = _classify(lo, hi)
+    top2 = (g4z + 1) * 4
+    cell4 = g4y * (16 * n) + g4x
+    h4 = _up(h16.reshape(4 * n, 4 * n), 4).reshape(-1).scatter_reduce(
+        0, cell4, torch.where(st2 == ST_FILLED, top2, 0), "amax")
+    surv2 = (st2 == ST_AMBIG) & (top2 > h4[cell4])
+    ids2 = _ids(surv2)
+    return Stages3d(cell64, surv0, cell16, surv1, h16, c16, cell4, surv2, h4,
+                    (g4x[ids2], g4y[ids2], g4z[ids2]),
+                    counts + (int(ids2.shape[0]),))
+
+
+def _voxel_hits(f, mat, gx, gy, gz, size: int, imms):
+    """``gz + 1`` where the voxel (gx, gy, gz) is filled, else 0.  The
+    centers are gathered from a table of the ``size`` values
+    :func:`_center` gives (one gather a lane instead of five full-size
+    operations)."""
+    cen = _center(torch.arange(size, device=gx.device), size)
+    wx, wy, wz = camera.transform3(mat, cen[gx], cen[gy], cen[gz])
+    val = f(wx, wy, wz, imms=imms)
+    return torch.where(val < 0.0, gz + 1, 0)
+
+
+def voxel_launches(cells: int, k: int) -> int:
+    """Float launches of the voxel stage over ``cells`` cells of ``k``^3
+    voxels (:func:`_voxel_stage`)."""
+    step = max(1, VOXEL_LANES // k ** 3)
+    return -(-cells // step)
+
+
+def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms):
+    """The voxel stage: every voxel of the ``k``^3 cells ``cells`` (gx,
+    gy, gz in the grid of ``k``-voxel cells), a float launch for each
+    chunk of at most VOXEL_LANES lanes; the top filled voxel of each
+    column max-reduced into ``depth`` (size*size,).  Returns the depth."""
+    cx, cy, cz = cells
+    vv = torch.arange(k ** 3, dtype=torch.int64, device=depth.device)
+    vx, vy, vz = vv % k, (vv // k) % k, vv // (k * k)
+    step = max(1, VOXEL_LANES // k ** 3)
+    for c0 in range(0, int(cx.shape[0]), step):
+        bx, by, bz = (g[c0:c0 + step] for g in (cx, cy, cz))
+        gvx = (bx[:, None] * k + vx[None, :]).reshape(-1)
+        gvy = (by[:, None] * k + vy[None, :]).reshape(-1)
+        gvz = (bz[:, None] * k + vz[None, :]).reshape(-1)
         hit = _voxel_hits(f, mat, gvx, gvy, gvz, size, imms)
-        patch = hit.reshape(-1, 4, 16).amax(dim=1)          # max over cz
-        pix = (gvy.reshape(-1, 4, 16)[:, 0] * size
-               + gvx.reshape(-1, 4, 16)[:, 0])
-        depth = _up(h4.reshape(16 * n, 16 * n), 4).reshape(-1).scatter_reduce(
-            0, pix.reshape(-1), patch.reshape(-1), "amax")
+        patch = hit.reshape(-1, k, k * k).amax(dim=1)      # max over vz
+        pix = (gvy.reshape(-1, k, k * k)[:, 0] * size
+               + gvx.reshape(-1, k, k * k)[:, 0])
+        depth = depth.scatter_reduce(0, pix.reshape(-1), patch.reshape(-1),
+                                     "amax")
+    return depth
+
+
+def _render3d_impl(fi, f, fd, mat, size: int, with_normals: bool,
+                   skip4: bool = False, imms=None):
+    """The 3D ladder: :func:`_stages3d`, then the voxels of the surviving
+    4^3 cells (of the surviving 16^3 cells under ``skip4``: interval-
+    hostile models spend more on the 4^3 stage than it saves) over the
+    heightmap of the filled cells.  Returns (depth (size, size) int32,
+    normals (size, size, 3) f32 or None, counts (n0, n1, n2, 0, 0, nN)):
+    surviving 64^3 tiles, 16^3 cells and 4^3 cells (0 under ``skip4``),
+    and screen tiles with content."""
+    n = size // 64
+    s = _stages3d(fi, mat, size, skip4, imms)
+    if skip4:
+        depth = _voxel_stage(f, mat, s.c16, 16, size, _up(
+            s.h16.reshape(4 * n, 4 * n), 16).reshape(-1), imms)
+    else:
+        depth = _voxel_stage(f, mat, s.c4, 4, size, _up(
+            s.h4.reshape(16 * n, 16 * n), 4).reshape(-1), imms)
     depth = depth.reshape(size, size).to(torch.int32)
-    counts = [int(ids0.shape[0]), int(ids1.shape[0]), n2, 0, 0, 0]
+    counts = list(s.counts) + [0, 0, 0]
     if not with_normals:
         return depth, None, tuple(counts)
     normals, counts[5] = _normals_pass(fd, mat, depth, size, imms)

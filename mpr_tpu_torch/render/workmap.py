@@ -33,8 +33,7 @@ import torch
 from ..ops.tape_data import resolve_device
 from ..tape.tape import Tape
 from . import camera
-from .unrolled import (ST_AMBIG, ST_FILLED, _cell_boxes_3d, _children_of_cells,
-                       _classify, _ids, _st8_image, _stages2d, _up,
+from .unrolled import (ST_AMBIG, _st8_image, _stages2d, _stages3d, _up,
                        get_renderer)
 
 
@@ -72,66 +71,31 @@ def workmap2d(tape: Tape, mat=None, z: float = 0.0, size: int = 256,
 
 
 def _workmap3d_heat(fi, mat, size: int, skip4: bool, imms):
-    """The interval stages of the 3D ladder (unrolled._render3d_impl's,
-    occlusion culls and skip4 included), with each stage's work scattered
-    into an xy image of its granularity.  Returns (heat, (n0, n1, n2))."""
+    """The interval stages of the 3D ladder (unrolled._stages3d), with
+    each stage's work scattered into an xy image of its granularity.
+    Returns (heat, (n0, n1, n2))."""
     n = size // 64
     dev = mat.device
-    i64 = torch.int64
     f32 = torch.float32
-
-    # stage A: every 64^3 cell costs one interval evaluation over 64^2 px
-    t = torch.arange(n ** 3, dtype=i64, device=dev)
-    tx, ty, tz = t % n, (t // n) % n, t // (n * n)
-    lo, hi = fi(*_cell_boxes_3d(mat, tx, ty, tz, n), imms=imms)
-    st0 = _classify(lo, hi)
-    h0 = torch.where((st0 == ST_FILLED).reshape(n, n, n),
-                     (torch.arange(n, dtype=i64, device=dev) + 1)[:, None,
-                                                                  None] * 64,
-                     0).amax(dim=0)
-    surv0 = (st0 == ST_AMBIG) & ((tz + 1) * 64 > h0.reshape(-1)[ty * n + tx])
-    ids0 = _ids(surv0)
-    # stage B's share: 64 children x L intervals over the parent's 64^2 px
+    s = _stages3d(fi, mat, size, skip4, imms)
+    # every 64^3 cell costs one interval evaluation over 64^2 px; stage
+    # B's share: 64 children x L intervals over the parent's 64^2 px
     heat64 = torch.full((n * n,), n / 4096.0, dtype=f32, device=dev)
-    heat64 = heat64.index_add(0, ty * n + tx,
-                              torch.where(surv0, 64.0 / 4096.0, 0.0))
-
-    g16x, g16y, g16z = _children_of_cells(ids0 % n, (ids0 // n) % n,
-                                          ids0 // (n * n))
-    lo, hi = fi(*_cell_boxes_3d(mat, g16x, g16y, g16z, 4 * n), imms=imms)
-    st1 = _classify(lo, hi)
-    top1 = (g16z + 1) * 16
-    cell16 = g16y * (4 * n) + g16x
-    h16 = _up(h0, 4).reshape(-1).scatter_reduce(
-        0, cell16, torch.where(st1 == ST_FILLED, top1, 0), "amax")
-    surv1 = (st1 == ST_AMBIG) & (top1 > h16[cell16])
-    ids1 = _ids(surv1)
-    heat16 = torch.zeros(16 * n * n, dtype=f32, device=dev)
+    heat64 = heat64.index_add(0, s.cell64,
+                              torch.where(s.surv0, 64.0 / 4096.0, 0.0))
+    # skip4: the surviving 16^3 cells evaluate their 4096 voxels, 16 a px;
+    # else stage B''s share: 64 children x L intervals over 16^2 px
+    heat16 = torch.zeros(16 * n * n, dtype=f32, device=dev).index_add(
+        0, s.cell16, torch.where(s.surv1, 16.0 if skip4 else 64.0 / 256.0,
+                                 0.0))
     heat4 = torch.zeros(256 * n * n, dtype=f32, device=dev)
-    n2 = 0
-    if skip4:
-        # the surviving 16^3 cells evaluate their 4096 voxels: 16 a px
-        heat16 = heat16.index_add(0, cell16, torch.where(surv1, 16.0, 0.0))
-    else:
-        # stage B''s share: 64 children x L intervals over 16^2 px
-        heat16 = heat16.index_add(0, cell16,
-                                  torch.where(surv1, 64.0 / 256.0, 0.0))
-        g4x, g4y, g4z = _children_of_cells(g16x[ids1], g16y[ids1],
-                                           g16z[ids1])
-        lo, hi = fi(*_cell_boxes_3d(mat, g4x, g4y, g4z, 16 * n), imms=imms)
-        st2 = _classify(lo, hi)
-        top2 = (g4z + 1) * 4
-        cell4 = g4y * (16 * n) + g4x
-        h4 = _up(h16.reshape(4 * n, 4 * n), 4).reshape(-1).scatter_reduce(
-            0, cell4, torch.where(st2 == ST_FILLED, top2, 0), "amax")
-        surv2 = (st2 == ST_AMBIG) & (top2 > h4[cell4])
-        n2 = int(surv2.sum())
+    if not skip4:
         # voxel stage: 64 float evaluations over the 4^2 px block = 4 a px
-        heat4 = heat4.index_add(0, cell4, torch.where(surv2, 4.0, 0.0))
+        heat4 = heat4.index_add(0, s.cell4, torch.where(s.surv2, 4.0, 0.0))
     heat = (_up(heat64.reshape(n, n), 64)
             + _up(heat16.reshape(4 * n, 4 * n), 16)
             + _up(heat4.reshape(16 * n, 16 * n), 4))
-    return heat, (int(ids0.shape[0]), int(ids1.shape[0]), n2)
+    return heat, s.counts
 
 
 def workmap3d(tape: Tape, mat=None, size: int = 256, device=None
