@@ -93,11 +93,30 @@ Phases (any failure exits non-zero before the final line):
      and, as subprocesses, ``cli render2d stress:600 --size 1024 --engine
      unrolled --check`` and ``cli table3d`` on the gyroid model at the
      table's sizes;
+ 14. mesh export and fitting (after phase 13): the generated kernels of
+     the fits (imm-input interval and float evaluators and both halves of
+     K1, the unrolled float evaluator's VJP, for the three cells' tapes)
+     build beside phase 1's; ``io.mesh.mesh_tape`` of the gyroid at n=128
+     with both methods (the drilled sphere's mt mesh and the sphere's dc
+     mesh must be watertight); the five fit steps of
+     ``parallel/sharded.py`` (scan, unrolled and culled at 256^2 and
+     culled at 1024^2 on ``stress_2d(600)``, dense 3D ``grid=32`` on the
+     gyroid, the 3D window fit at 512 on the extruded model, each against
+     a render of its tape with seeded perturbed immediates): the first
+     step's gradient through the kernels against the same step through
+     the plain versions (1e-4 of the largest component), the loss over
+     four steps (it must fall), each step timed, the launch counts (K1 or
+     K2 must launch, no plain evaluator may run); K1, K2 and K2f on their
+     recorded inputs against their plain versions, timed beside their
+     bounds; the sharded renders and a sharded step under an NCCL group
+     of one, equal to the one-device results; ``cli fit`` (three engines,
+     both modes, ``--params-only``) and ``cli mesh`` (both methods) as
+     subprocesses;
  12. print the kernel times of the previous designs of A, B, C, C2, V and
      D (recorded, labelled as such; not measured here), the card line, one
      JSON ``kernels`` line (the eight TPU kernels' rows, then the three
-     generated kernels', marked ``port_kernel``), and last ``{"ok": true,
-     "device": {...}}``.
+     generated kernels' and K1, K2 and K2f, marked ``port_kernel``), and
+     last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present and when run outside the
 repository (it needs the ``mpr_tpu_torch`` package beside it).
@@ -113,7 +132,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_F32_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# H100 SXM float32 outside the tensor cores, one operation a lane a clock:
+# 132 SMs x 128 lanes x 1.98 GHz.  The data sheet's 67 TFLOP/s counts a
+# fused multiply-add as two; the kernels build with --fmad=false and the
+# bound counts single IEEE operations, so an FMA is never issued.
+PEAK_F32_PER_S = 33.5e12
 KERNEL_ROWS = (
     # wrapper (its plain version is <wrapper>_plain), its module under
     # mpr_tpu_torch.ops, source, the TPU kernel it replaces
@@ -657,7 +680,7 @@ def check_normals(eval_scan, camera, td, mat_t, depth, normals, size, seed):
     w = [torch.as_tensor(((v + 0.5) / size * 2.0 - 1.0).astype(np.float32),
                          device=mat_t.device) for v in (xs, ys, zi)]
     p = torch.stack(camera.transform3(mat_t, *w)).requires_grad_(True)
-    eval_scan.eval_f(td, p[0], p[1], p[2]).sum().backward()
+    eval_scan.eval_f_plain(td, p[0], p[1], p[2]).sum().backward()
     g = p.grad.cpu().numpy().T
     g = g / np.linalg.norm(g, axis=1, keepdims=True)
     err = float(np.abs(g - normals[ys, xs]).max())
@@ -1996,6 +2019,560 @@ def run_unrolled(ctx, results, launches, pre):
     results["unrolled"] = out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: mesh export and differentiable fitting
+# ---------------------------------------------------------------------------
+
+# The port's own backward kernels (no TPU kernel behind them: on the TPU
+# the gradient is XLA's transpose under jax.value_and_grad): wrapper,
+# module, name, source, what the JAX package does instead.
+FIT_ROWS = (
+    ("unrolled_float_vjp", "unrolled_eval", "K1",
+     "mpr_tpu_torch/ops/unrolled_eval.py (generated per tape: "
+     "generate_vjp_fwd, generate_vjp) + mpr_tpu_torch/ops/csrc/unrolled.cuh"
+     " + adjoint.cuh",
+     "mpr_tpu/parallel/sharded.py:239-584 (jax.value_and_grad of the "
+     "unrolled float chain; XLA, no TPU kernel)"),
+    ("scan_adjoint", "eval_scan", "K2",
+     "mpr_tpu_torch/ops/csrc/scan_adjoint.cu + adjoint.cuh",
+     "mpr_tpu/parallel/sharded.py:192-236 (jax.value_and_grad of "
+     "eval_scan.eval_f; XLA, no TPU kernel)"),
+    ("scan_eval", "eval_scan", "K2f",
+     "mpr_tpu_torch/ops/csrc/scan_adjoint.cu",
+     "mpr_tpu/ops/eval_scan.py:78 (eval_f, a lax.scan; XLA, no TPU "
+     "kernel)"),
+)
+FIT_STEPS = 4
+# phase 14's sizes: the mesh grid, the 2D fits (the culled one also at the
+# 2D cell's size), the dense 3D grid, the 3D window fit; the process
+# group's backend; arguments every command-line run gets
+MESH_N = 128
+FIT_2D, FIT_2D_BIG, FIT_GRID, FIT_WINDOW = 256, 1024, 32, 512
+FIT_BACKEND = "nccl"
+CLI_EXTRA = []
+# gradient of a step's kernels against its plain versions on the same
+# inputs: the largest difference over the largest component.  Float32 sums
+# over up to 2.1 M lanes in another order (warp shuffles, shared atomics,
+# blocks, chunks) against autograd's; measured 4e-7 at 65,536 lanes on the
+# H100.
+FIT_GRAD_TOL = 1e-4
+# lanes a plain VJP takes at once (autograd keeps every clause's output)
+PLAIN_CHUNK = 1 << 16
+# Float operations of the interpreter's adjoint a clause, beside its
+# forward FLOAT_OPS: each partial a product or a quotient and each
+# accumulation an add, about twice the forward's (an estimate from
+# scan_adjoint.cu's rules, stated as such).
+ADJ_FACTOR = 2
+
+
+def fit_cells():
+    """Phase 14's tapes: (name, tape) of stress_2d(600), the gyroid model
+    and the extruded model (the chip cells' tapes)."""
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    n_blobs, _ = CASES[0]
+    out = [(f"stress_2d({n_blobs})",
+            mpr_tpu_torch.compile_tree(shapes.stress_2d(n_blobs)))]
+    for name, make, _, _ in CASES_3D:
+        out.append((name, mpr_tpu_torch.compile_tree(make(shapes))))
+    return out
+
+
+def start_fit_builds():
+    """Start building phase 14's generated kernels (the imm-input float
+    and interval evaluators and both halves of K1 for the three tapes) in
+    a thread, beside phase 1's and phase 13's."""
+    import threading
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.render import unrolled
+    cells = fit_cells()
+    evals = []
+    for _, tape in cells:
+        r = unrolled.get_renderer(tape, imm_inputs=True)
+        evals += [r.fi, r.f] + r.f.vjp.evals
+    box = {"cells": cells, "evals": evals}
+
+    def work():
+        t0 = time.perf_counter()
+        try:
+            ue.build_all(evals)
+        except BaseException as e:       # re-raised by phase 14
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+    box["thread"] = threading.Thread(target=work, daemon=True)
+    box["thread"].start()
+    return box
+
+
+class Counts:
+    """The launch counters phase 14 reads, and the plain evaluators' calls
+    (which no fit step on the card may make)."""
+
+    def __init__(self):
+        from mpr_tpu_torch.ops import eval_scan
+        from mpr_tpu_torch.ops import unrolled_eval as ue
+        self.fns = {"unrolled_float": ue._unrolled_float,
+                    "unrolled_interval": ue._unrolled_interval,
+                    "unrolled_deriv": ue._unrolled_deriv,
+                    "unrolled_float_vjp": ue._unrolled_float_vjp,
+                    "scan_adjoint": eval_scan._scan_adjoint,
+                    "scan_eval": eval_scan._scan_eval}
+        self.plain = [0]
+        self.mods = (ue, eval_scan)
+        self.saved = (ue.UnrolledEval.plain, eval_scan._walk_f)
+        real_plain, real_walk = self.saved
+
+        def plain(ev, *a, **k):
+            self.plain[0] += 1
+            return real_plain(ev, *a, **k)
+
+        def walk(*a, **k):
+            self.plain[0] += 1
+            return real_walk(*a, **k)
+        self.hooks = (plain, walk)
+
+    def __enter__(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+        self.plain[0] = 0
+        self.mods[0].UnrolledEval.plain, self.mods[1]._walk_f = self.hooks
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].UnrolledEval.plain, self.mods[1]._walk_f = self.saved
+        self.read = {k: fn.launches for k, fn in self.fns.items()}
+        self.read["plain"] = self.plain[0]
+
+
+def plain_vjp_unrolled(ue, ev, x, y, z, g, imms):
+    """K1's plain version on the card, in chunks of lanes: autograd
+    through the plain walk (``UnrolledEval.plain``)."""
+    import torch
+    lanes = [t.reshape(-1) for t in torch.broadcast_tensors(x, y, z, g)]
+    T = ev.tape.length
+    out = torch.zeros(T, dtype=torch.float32, device=lanes[0].device)
+    for c0 in range(0, lanes[0].numel(), PLAIN_CHUNK):
+        xs, ys, zs, gs = (t[c0:c0 + PLAIN_CHUNK] for t in lanes)
+        im = imms.detach()[:T].clone().requires_grad_(True)
+        with torch.enable_grad():
+            v = ev.plain(xs, ys, zs, imms=im)
+            d, = torch.autograd.grad(v, im, gs, allow_unused=True)
+        if d is not None:
+            out += d
+    return out
+
+
+def plain_vjp_scan(eval_scan, td, x, y, z, g):
+    """K2's plain version on the card, in chunks of lanes: autograd
+    through the plain interpreter walk."""
+    import torch
+    out = torch.zeros_like(td.imms)
+    for c0 in range(0, x.numel(), PLAIN_CHUNK):
+        sl = slice(c0, c0 + PLAIN_CHUNK)
+        im = td.imms.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            v = eval_scan.eval_f_plain(td.replace_imms(im), x[sl], y[sl],
+                                       z[sl])
+            d, = torch.autograd.grad(v, im, g[sl], allow_unused=True)
+        if d is not None:
+            out += d
+    return out
+
+
+def run_fit(ctx, results, launches, pre):
+    """Phase 14: mesh export, the five fit steps on K1 and K2, the sharded
+    render and step under a process group of one (NCCL), and ``cli fit``
+    / ``cli mesh`` as subprocesses."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from mpr_tpu_torch.io import mesh as mmesh
+    from mpr_tpu_torch.ops import build, eval_scan
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.ops.tape_data import TapeData
+    from mpr_tpu_torch.parallel import sharded
+    from mpr_tpu_torch.render import brute, camera, pipeline2d, pipeline3d
+    card, dev = ctx["card"], ctx["dev"]
+    pre["thread"].join()
+    if "error" in pre:
+        raise pre["error"]
+    cells = dict(pre["cells"])
+    print(f"fit phase: {len(pre['evals'])} generated kernels built in "
+          f"{pre['seconds']:.1f} s (beside phases 1 and 13)  [{card}]")
+    builds = {}
+    for ev in pre["evals"]:
+        b = ue.BUILDS[ev.key]
+        regs, stack, spill = ptxas_of(b["log"])
+        cell = next(c for c, t in pre["cells"] if t is ev.tape)
+        kind = ev.kind if ev.kind != "vjp" else f"vjp{ev.seg}"
+        builds.setdefault(cell, {})[kind] = dict(
+            seconds=round(b["seconds"], 2), registers=regs, stack=stack,
+            spills=spill)
+        print(f"  build {cell} {kind}: {ev.tape.length} clauses, "
+              f"{b['seconds']:.1f} s of nvcc; {regs} registers, {stack} B "
+              f"stack, spill stores/loads {spill} B")
+    for line in build.BuildStats.log["main"].split("== scan_adjoint.cu")[
+            1].split("==")[0].splitlines():
+        if "registers" in line or "spill" in line:
+            print("  scan_adjoint.cu " + line.strip())
+
+    # ---- mesh export on the card ---------------------------------------------
+    # The gyroid scene at n=128, both methods.  mpr_tpu's own meshes of it
+    # (the same NumPy on its oracle) are not watertight by is_watertight at
+    # n=64 and 128, nor is its dc mesh of the drilled sphere at 128; the
+    # shapes whose meshes it closes are held to watertight here.
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    gname = CASES_3D[0][0]
+    gtape = cells[gname]
+    closed = {"mt": ("drilled sphere", shapes.difference(
+                  shapes.sphere(0.7), shapes.cylinder_z(0.3, -1, 1))),
+              "dc": ("sphere", shapes.sphere(0.6))}
+    mesh_rows = {}
+    for method in ("mt", "dc"):
+        for name, tape, must_close in (
+                (gname, gtape, False),
+                (closed[method][0],
+                 mpr_tpu_torch.compile_tree(closed[method][1]), True)):
+            with Counts() as c:
+                t0 = time.perf_counter()
+                tris = mmesh.mesh_tape(tape, n=MESH_N, method=method)
+                secs = time.perf_counter() - t0
+            tight = mmesh.is_watertight(tris)
+            vol = mmesh.mesh_volume(tris)
+            mesh_rows[f"{name} {method}"] = dict(
+                triangles=len(tris), seconds=round(secs, 3),
+                watertight=tight, volume=vol, launches=c.read)
+            print(f"mesh {name} n={MESH_N} {method}: {len(tris)} triangles, "
+                  f"watertight {tight}, volume {vol:.5f}, {secs:.2f} s "
+                  f"(host clock; the first call builds the baked "
+                  f"evaluators); launches {c.read}  [{card}]")
+            check(len(tris) > 1000 and vol > 0, f"mesh {method} of {name} "
+                  "is empty or inside out")
+            check(c.read["plain"] == 0, "mesh export ran a plain evaluator")
+            check(c.read["unrolled_float"] > 0 and (
+                method == "mt" or c.read["unrolled_deriv"] > 0),
+                f"mesh {method} launched no generated kernel")
+            check(tight or not must_close, f"the {method} mesh of {name} "
+                  "is not watertight")
+    results["mesh"] = mesh_rows
+
+    # ---- the five fit steps ----------------------------------------------------
+    rng = np.random.default_rng(14)
+
+    def perturbed(tape):
+        return dataclasses.replace(tape, imms=(tape.imms * (
+            1.0 + 0.02 * rng.standard_normal(tape.length))).astype(
+                np.float32))
+    sname = f"stress_2d({CASES[0][0]})"
+    stape, etape = cells[sname], cells[CASES_3D[1][0]]
+    fills = {}
+    for size in (FIT_2D, FIT_2D_BIG):
+        fills[size] = torch.as_tensor(pipeline2d.render2d(
+            perturbed(stape), size=size), dtype=torch.float32, device=dev)
+    depth_grid = torch.as_tensor(brute.render3d_brute(
+        perturbed(gtape), size=FIT_GRID), dtype=torch.float32, device=dev)
+    depth_window = torch.as_tensor(pipeline3d.render3d(
+        perturbed(etape), size=FIT_WINDOW, with_normals=False)[0],
+        dtype=torch.float32, device=dev)
+    s2, s2b = FIT_2D, FIT_2D_BIG
+    fits = [
+        # label, engine, tape, make(lr) -> step, initial state, target
+        (f"scan {s2}^2", "scan", stape,
+         lambda lr: sharded.make_fit_step(s2, lr=lr),
+         lambda: TapeData.from_tape(stape), fills[s2]),
+        (f"unrolled {s2}^2", "unrolled", stape,
+         lambda lr: sharded.make_fit_step_unrolled(stape, s2, lr=lr),
+         lambda: torch.as_tensor(stape.imms, device=dev), fills[s2]),
+        (f"culled {s2}^2", "culled", stape,
+         lambda lr: sharded.make_fit_step_culled(stape, s2, lr=lr),
+         lambda: torch.as_tensor(stape.imms, device=dev), fills[s2]),
+        (f"culled {s2b}^2", "culled", stape,
+         lambda lr: sharded.make_fit_step_culled(stape, s2b, lr=lr),
+         lambda: torch.as_tensor(stape.imms, device=dev), fills[s2b]),
+        (f"3d grid={FIT_GRID}", "3d", gtape,
+         lambda lr: sharded.make_fit_step_3d(gtape, FIT_GRID, lr=lr),
+         lambda: torch.as_tensor(gtape.imms, device=dev), depth_grid),
+        (f"3d window {FIT_WINDOW}", "window", etape,
+         lambda lr: sharded.make_fit_step_3d_window(etape, FIT_WINDOW,
+                                                    lr=lr),
+         lambda: torch.as_tensor(etape.imms, device=dev), depth_window),
+    ]
+    # the JAX package's default rates (cli fit's for the window), but the
+    # dense 3D fit's on the gyroid: its gradient is about 100 (thin
+    # sheets), and at 3e-4 the loss went 54.3, 51.1, 51.6, 57.4 (H100)
+    lrs = {"scan": 1e-2, "unrolled": 1e-2, "culled": 1e-2, "3d": 3e-5,
+           "window": 2e-5}
+    probe_lr = 2.0 ** 20
+    fit_rows, kcalls = {}, {k: [] for k, *_ in FIT_ROWS}
+    recorder = Recorder({"unrolled_eval": ue, "eval_scan": eval_scan},
+                        FIT_ROWS)
+    for label, engine, tape, make, init, target in fits:
+        # the gradient at the first step, kernels against plain versions
+        # (a step at lr 2**20 moves the immediates by 2**20 x the
+        # gradient, so (imms - new) / lr recovers it to float32 precision)
+        st0 = init()
+        base = (st0.imms if isinstance(st0, TapeData) else st0).double()
+        log = {}
+        recorder.install(log)
+        try:
+            with Counts() as c:
+                _, new = make(probe_lr)(st0, target)
+                torch.cuda.synchronize()
+        finally:
+            recorder.remove()
+        new = new.imms if isinstance(new, TapeData) else new
+        g_kernel = (base - new.double()) / probe_lr
+        check(c.read["plain"] == 0, f"fit {label} ran a plain evaluator")
+        kname = "scan_adjoint" if engine == "scan" else "unrolled_float_vjp"
+        check(c.read[kname] > 0, f"fit {label} launched no {kname}")
+        real = (ue.unrolled_float_vjp, eval_scan.scan_adjoint)
+
+        def plain_k1(ev, x, y, z, g, imms):
+            return plain_vjp_unrolled(ue, ev, x, y, z, g, imms)
+
+        def plain_k2(td, x, y, z, g):
+            return plain_vjp_scan(eval_scan, td, x, y, z, g)
+        ue.unrolled_float_vjp, eval_scan.scan_adjoint = plain_k1, plain_k2
+        try:
+            _, newp = make(probe_lr)(init(), target)
+        finally:
+            ue.unrolled_float_vjp, eval_scan.scan_adjoint = real
+        newp = newp.imms if isinstance(newp, TapeData) else newp
+        g_plain = (base - newp.double()) / probe_lr
+        n = tape.length
+        gmax = float(g_plain[:n].abs().max())
+        gerr = float((g_kernel[:n] - g_plain[:n]).abs().max())
+        print(f"fit {label}: first-step gradient, kernels against plain "
+              f"versions: max |diff| {gerr:.3e} of max |g| {gmax:.3e}; "
+              f"launches {c.read}")
+        check(gmax > 0 and gerr <= FIT_GRAD_TOL * gmax, f"fit {label}: the "
+              f"kernels' gradient differs from the plain one by {gerr} "
+              f"(max |g| {gmax})")
+        for k, *_ in FIT_ROWS:
+            for a, kw, out in log.get(k, []):
+                kcalls[k].append((label, tape, a, kw, out))
+
+        # the loss over FIT_STEPS steps at the default rate, each timed
+        step, st = make(lrs[engine]), init()
+        losses, ms = [], []
+        with Counts() as c:
+            for _ in range(FIT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, st = step(st, target)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        st0 = init()
+        step_ms = cuda_ms(lambda: step(st0, target), 3, 1)
+        print(f"fit {label}: losses {['%.6g' % v for v in losses]}, step "
+              f"{['%.1f' % v for v in ms]} ms (host clock), steady step "
+              f"{step_ms:.3f} ms (events, median of 3); launches over "
+              f"{FIT_STEPS} steps {c.read}  [{card}]")
+        check(c.read["plain"] == 0, f"fit {label} ran a plain evaluator")
+        check(c.read[kname] >= FIT_STEPS, f"fit {label}: {kname} launched "
+              f"{c.read[kname]} times in {FIT_STEPS} steps")
+        check(losses[-1] < losses[0], f"fit {label}: the loss did not fall "
+              f"({losses})")
+        fit_rows[label] = dict(engine=engine, losses=losses, step_ms=ms,
+                               steady_step_ms=step_ms, launches=c.read,
+                               grad_err=gerr, grad_max=gmax,
+                               counts=getattr(step, "last_counts", None))
+    results["fits"] = fit_rows
+    launches["fit"] = {k: sum(r["launches"][k] for r in fit_rows.values())
+                       for k, *_ in FIT_ROWS}
+
+    # ---- each backward kernel against its plain version, timed ---------------
+    rows = {}
+    for kname, _, short, source, replaces in FIT_ROWS:
+        per = {}
+        for label, tape, a, kw, out in kcalls[kname]:
+            if label in per:
+                continue            # the first launch of each fit
+            if kname == "unrolled_float_vjp":
+                ev, x, y, z, g, imms = a
+                run = (lambda: ue.unrolled_float_vjp(ev, x, y, z, g, imms))
+                plain = (lambda: plain_vjp_unrolled(ue, ev, x, y, z, g,
+                                                    imms))
+                lanes = x.numel()
+                ops = lanes * sum(gen_ops(e.source()) for e in ev.segments)
+            elif kname == "scan_adjoint":
+                td, x, y, z, g = a
+                run = (lambda: eval_scan.scan_adjoint(td, x, y, z, g))
+                plain = (lambda: plain_vjp_scan(eval_scan, td, x, y, z, g))
+                lanes = x.numel()
+                fops = sum(FLOAT_OPS.get(int(o), 0) for o in tape.ops)
+                ops = lanes * fops * (1 + ADJ_FACTOR)
+            else:
+                td, x, y, z = a[:4]
+                if kw.get("vals") is not None or (len(a) > 4 and a[4]
+                                                  is not None):
+                    continue        # the adjoint's own forward launches
+                run = (lambda: eval_scan.scan_eval(td, x, y, z))
+                plain = (lambda: eval_scan.eval_f_plain(td, x, y, z))
+                lanes = x.numel()
+                ops = lanes * sum(FLOAT_OPS.get(int(o), 0) for o in tape.ops)
+            got = run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            diff = torch.where(torch.isnan(got) & torch.isnan(want), 0.0,
+                               (got - want).abs())
+            err = float(diff.max())
+            scale = float(want.abs().max())
+            tol = FIT_GRAD_TOL * scale if kname != "scan_eval" else 0.0
+            check(err <= tol, f"{kname} ({label}) differs from its plain "
+                  f"version by {err} (largest {scale})")
+            rr = dict(lanes=lanes, clauses=tape.length, max_abs_err=err,
+                      bytes=lanes * 16 + tape.length * 8, ops=ops)
+            rr["ms"] = cuda_ms(run, 5, 1)
+            _, prow, _ = profile_frames(run, 3)
+            rr["device_ms"] = (round(sum(v for _, v in prow), 6) if prow
+                               else None)
+            # the plain version's one run above (host clock, synchronised;
+            # several seconds at the large fits)
+            rr["plain_ms"] = plain_s * 1e3
+            rr["bound_ms"], rr["bound_by"] = bound(rr)
+            per[label] = rr
+            print(f"  {short} {kname} {label}: {lanes} lanes x "
+                  f"{tape.length} clauses, {rr['ms']:.4f} ms (events; "
+                  f"device, all kernels of the call, {rr['device_ms']}), "
+                  f"plain {rr['plain_ms']:.1f} ms, bound "
+                  f"{rr['bound_ms']:.5f} ms ({rr['bound_by']}), max |err| "
+                  f"{err:.3e} of {scale:.3e}  [{card}]")
+            del got, want
+        check(per, f"no launch of {kname} was recorded in the fit phase")
+        rows[kname] = per
+
+    # ---- sharded render and step under a process group of one (NCCL) -------
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    st0 = torch.as_tensor(stape.imms, device=dev)
+    l0, n0 = sharded.make_fit_step_unrolled(stape, FIT_2D)(st0,
+                                                           fills[FIT_2D])
+    dist.init_process_group(FIT_BACKEND,
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = sharded.make_mesh()
+        size2 = CASES[0][1]
+        for eng, fn in (("interp", sharded.render2d_sharded),
+                        ("unrolled", sharded.render2d_sharded_unrolled)):
+            img = fn(stape, size=size2, mesh=mesh)
+            bad = int((img != ctx["images2d"][size2]).sum())
+            print(f"sharded render2d ({eng}, {FIT_BACKEND} group of 1) "
+                  f"@{size2}: "
+                  f"{bad} pixels differ from the one-device image")
+            check(bad == 0, f"the sharded {eng} 2D render differs")
+        d, _ = sharded.render3d_sharded_unrolled(
+            etape, camera.gui3d_view(*CASES_3D[1][2]), size=CASES_3D[1][3],
+            mesh=mesh)
+        want = ctx["frames3d"][CASES_3D[1][0]][0]
+        bad = int((d != want).sum())
+        print(f"sharded render3d (unrolled, {FIT_BACKEND} group of 1) @"
+              f"{CASES_3D[1][3]}: {bad} pixels differ from the interpreter")
+        check(bad == 0, "the sharded unrolled 3D render differs")
+        l1, n1 = sharded.make_fit_step_unrolled(stape, FIT_2D, mesh)(
+            st0, fills[FIT_2D])
+        print(f"sharded fit step (unrolled, {FIT_BACKEND} group of 1): loss "
+              f"{float(l1):.9g} vs one device {float(l0):.9g}, imms equal "
+              f"{bool(torch.equal(n1, n0))}")
+        check(float(l1) == float(l0) and torch.equal(n1, n0),
+              "the sharded fit step differs from the one-device step")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the command line: every way into fit and mesh, in parallel --------
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        from mpr_tpu_torch import cli
+        from mpr_tpu_torch.frontend import frep, shapes
+        from mpr_tpu_torch.io import checkpoint
+        gpath = os.path.join(tmp, f"{gname}.frep")
+        frep.dump([frep.ArchiveShape(tree=CASES_3D[0][1](shapes),
+                                     name=gname)], gpath)
+        scene = os.path.join(tmp, "param.io")
+        with open(scene, "w") as fh:
+            fh.write("(circle (var r 0.4) [0.1 0])\n(circle 0.2 [-0.5 0])\n")
+        base = ["fit", "stress:40", "--target", "stress:41", "--steps", "3"]
+        runs = [base + ["--engine", eng, "--out", f"f_{eng}.npz"]
+                for eng in ("scan", "unrolled", "culled")]
+        runs += [base + ["--mode", "3d", "--engine", eng, "--out",
+                         f"f3_{eng}.npz"] for eng in ("scan", "culled")]
+        runs += [["fit", scene, "--target", "stress:41", "--steps", "3",
+                  "--params-only", "--out", "f_params.npz"]]
+        runs += [["mesh", gpath, "--size", "96", "--method", m, "--out",
+                  os.path.join(tmp, f"g_{m}.stl")] for m in ("mt", "dc")]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "mpr_tpu_torch.cli",
+                                   *argv, *CLI_EXTRA], cwd=tmp, env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for argv in runs]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        print(f"cli: {len(runs)} runs in parallel, {time.perf_counter() - t0:.1f}"
+              f" s  [{card}]")
+        for argv, p, (so, se) in zip(runs, procs, outs):
+            shown = (argv if argv[0] == "fit" else
+                     [argv[0], os.path.basename(argv[1])] + argv[2:-2])
+            print(f"cli {' '.join(shown)}: exit {p.returncode}")
+            for line in so.strip().splitlines():
+                print("    " + line)
+            check(p.returncode == 0, f"cli {argv[0]} failed:\n{se}")
+            if argv[0] == "fit":
+                ls = [float(ln.split()[-1]) for ln in so.splitlines()
+                      if ln.startswith("step ")]
+                check(len(ls) == 3, f"cli fit printed {len(ls)} steps")
+            else:
+                tris = mmesh.read_stl(argv[-1])
+                check(len(tris) > 0 and mmesh.mesh_volume(tris) > 0,
+                      "cli mesh wrote an empty mesh")
+        ptape = cli._load(scene)
+        fitted = checkpoint.load_tape(os.path.join(tmp, "f_params.npz"))
+        moved = set(np.flatnonzero(fitted.imms != ptape.imms).tolist())
+        print(f"cli fit --params-only: moved immediates {sorted(moved)}, "
+              f"the parameter's {ptape.params['r']}")
+        check(moved and moved <= set(ptape.params["r"]),
+              "cli fit --params-only moved other immediates")
+
+    # ---- the kernels line's rows -------------------------------------------------
+    out = []
+    for kname, _, short, source, replaces in FIT_ROWS:
+        per = rows[kname]
+        at = max(per, key=lambda c: per[c]["ms"])
+        p = per[at]
+        out.append({
+            "name": kname, "kernel": short, "route": "cuda",
+            "source": source, "replaces": replaces, "port_kernel": True,
+            "launches": launches["fit"][kname],
+            "max_abs_err": max(x["max_abs_err"] for x in per.values()),
+            "ms": round(p["ms"], 6), "plain_ms": round(p["plain_ms"], 3),
+            "bound_ms": round(p["bound_ms"], 6), "bound_by": p["bound_by"],
+            "library_ms": None, "at": at,
+            "per_fit": {c: {k: (round(v, 6) if isinstance(v, float) else v)
+                            for k, v in x.items()} for c, x in per.items()},
+            "build_s": {c: {k: v["seconds"] for k, v in b.items()
+                            if k.startswith("vjp")}
+                        for c, b in builds.items()}
+            if kname == "unrolled_float_vjp" else None})
+    results["fit_rows"] = out
+
+
 def main() -> int:
     try:
         import torch
@@ -2022,8 +2599,9 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, {kind}")
 
-    # ---- 1. build (phase 13's generated kernels start building too) ---------
+    # ---- 1. build (phase 13's and 14's generated kernels start building too)
     pre = _PRE["box"] = start_unrolled_builds()
+    pre14 = _PRE["box14"] = start_fit_builds()
     for lib_name in build.LIBRARIES:
         build.lib(lib_name)
         print(f"build {lib_name}: {build.BuildStats.seconds[lib_name]:.1f} s"
@@ -2060,6 +2638,8 @@ def main() -> int:
     effect_rows = run_effects(ctx)
     sys.stdout.flush()
     run_unrolled(ctx, results, launches, pre)
+    sys.stdout.flush()
+    run_fit(ctx, results, launches, pre14)
     sys.stdout.flush()
 
     check(not spills, f"kernel A, B, C, C2, V or D spills registers: "
@@ -2150,6 +2730,8 @@ def main() -> int:
             "at": at, **extra,
         })
     rows.extend(results["unrolled"])
+    rows.extend(results["fit_rows"])
+    print(json.dumps({"fits": results["fits"], "mesh": results["mesh"]}))
     print(json.dumps({"effects": effect_rows}))
     sweeps = {f"stress_2d({nb}) {sz}^2": results[sz]["sweep"]
               for nb, sz in CASES}
@@ -2166,8 +2748,8 @@ def main() -> int:
     return 0
 
 
-# phase 13's build thread, joined on the way out so that no nvcc process
-# outlives the script
+# phase 13's and 14's build threads, joined on the way out so that no nvcc
+# process outlives the script
 _PRE = {}
 
 
@@ -2178,5 +2760,6 @@ if __name__ == "__main__":
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)
     finally:
-        if "box" in _PRE:
-            _PRE["box"]["thread"].join()
+        for box in ("box", "box14"):
+            if box in _PRE:
+                _PRE[box]["thread"].join()

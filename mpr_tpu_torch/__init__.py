@@ -13,10 +13,14 @@ Layers (bottom-up):
              and the decompiler back to a Tree
   oracle.py  pure-NumPy reference interpreters (float / interval / deriv)
   ops/       device tape, CUDA kernels (csrc/) with their plain PyTorch
-             versions, the plain tape interpreters, and the nvcc build
-  render/    the staged 2D and 3D interpreter render pipelines, the brute
-             renderers, the work heatmaps, SSAO and shading
-  io/        PNG output, tape checkpoints
+             versions, the plain tape interpreters, the evaluators
+             generated per tape (and their backward kernels), the nvcc
+             build
+  render/    the staged 2D and 3D interpreter render pipelines, the
+             unrolled engine, the brute renderers, the work heatmaps,
+             SSAO and shading
+  parallel/  sharded renders and fit steps over torch.distributed
+  io/        PNG output, tape checkpoints, mesh export (STL / OBJ)
   utils/     frame timing
   cli.py     the command line (``python -m mpr_tpu_torch.cli``)
 

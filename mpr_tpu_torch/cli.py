@@ -12,6 +12,8 @@ the same arguments, outputs and printed lines:
     python -m mpr_tpu_torch.cli table-effects FILE.frep  # render_effects
     python -m mpr_tpu_torch.cli tape-time FILE.frep      # tape_building_time
     python -m mpr_tpu_torch.cli dump-tape FILE.frep      # print_tape_table
+    python -m mpr_tpu_torch.cli fit A.frep --target B.frep  # fit constants
+    python -m mpr_tpu_torch.cli mesh FILE.frep --out m.stl  # mesh export
 
 FILE is a ``.frep`` archive, a ``.io`` Scheme scene or ``stress:N``.
 Every command runs on ``--device`` (default ``cuda``): without a card it
@@ -20,8 +22,10 @@ versions of the kernels.  ``--engine`` picks the interpreter pipelines
 (``interp``, no per-tape build) or the unrolled engine (``unrolled``:
 kernels generated for the tape, built at its first frame); the tables
 and ``table-effects`` default to the unrolled engine, as ``mpr_tpu.cli``'s
-do.  The sharded renderers, ``fit`` and ``mesh`` of ``mpr_tpu.cli`` are
-not ported yet and not registered.
+do.  ``--sharded`` renders over the ranks of a ``torch.distributed``
+process group (one process: the whole image), and ``fit`` steps over
+them; ``fit`` differentiates through the port's backward kernels on a
+card (K2 for ``--engine scan``, K1 otherwise).
 
 Timing protocol: warm-up + timed-runs mean, like benchmark/stats.cpp:19-47
 (utils/timing.py: CUDA events around the timed runs).
@@ -113,9 +117,14 @@ def cmd_render2d(args):
     from .render import brute, pipeline2d, unrolled
     dev = _device(args)
     tape = _apply_sets(_load(args.file), getattr(args, "sets", None))
-    fn = (brute.render2d_brute if args.brute else
-          unrolled.render2d if args.engine == "unrolled" else
-          pipeline2d.render2d)
+    if getattr(args, "sharded", False):
+        from .parallel import sharded
+        fn = (sharded.render2d_sharded_unrolled
+              if args.engine == "unrolled" else sharded.render2d_sharded)
+    else:
+        fn = (brute.render2d_brute if args.brute else
+              unrolled.render2d if args.engine == "unrolled" else
+              pipeline2d.render2d)
     img = fn(tape, size=args.size, device=dev)
     _save(args.out, (img * np.uint8(255)))
     if args.check:
@@ -158,7 +167,12 @@ def _ssao_override(args):
 
 def cmd_render3d(args):
     from .render import camera, effects
-    if args.engine == "unrolled":
+    if getattr(args, "sharded", False):
+        from .parallel import sharded
+        render3d = (sharded.render3d_sharded_unrolled
+                    if args.engine == "unrolled"
+                    else sharded.render3d_sharded)
+    elif args.engine == "unrolled":
         from .render.unrolled import render3d
     else:
         from .render.pipeline3d import render3d
@@ -501,6 +515,146 @@ def cmd_convert(args):
     print(f"wrote {args.out}", file=sys.stderr)
 
 
+def cmd_mesh(args):
+    """Mesh extraction and STL / OBJ export (io/mesh.py): the geometry
+    export the reference's users go back to libfive for."""
+    from .io import mesh
+    from .tape.tape import compile_tree
+    dev = _device(args)
+    tree, script = _load_tree(args.file)
+    lo, hi = args.bounds
+    if (tuple(args.bounds) == (-1.0, 1.0) and script is not None
+            and script.bounds is not None):
+        # honor the scene's (set-bounds! lo hi) when the user didn't pass
+        # --bounds (per-axis; the box need not be a cube)
+        lo = np.asarray(script.bounds[0], np.float32)
+        hi = np.asarray(script.bounds[1], np.float32)
+        print(f"using script bounds {script.bounds}", file=sys.stderr)
+    tape = compile_tree(tree)
+    tris = mesh.mesh_tape(tape, n=args.size, lo=lo, hi=hi,
+                          method=args.method, device=dev)
+    if args.out.endswith(".obj"):
+        mesh.write_obj(args.out, tris)
+    else:
+        mesh.write_stl(args.out, tris)
+    print(f"mesh: {len(tris)} triangles, area {mesh.mesh_area(tris):.4f}, "
+          f"volume {mesh.mesh_volume(tris):.4f}")
+    print(f"wrote {args.out}", file=sys.stderr)
+
+
+def _oracle_fill(tape, size):
+    """NumPy-oracle boolean fill image (the fit target and render-out
+    convention, one definition so the two can't drift apart)."""
+    from . import oracle
+    from .render import camera
+    p = camera.pixel_centers(size)
+    X, Y = np.meshgrid(p, p)
+    return oracle.eval_f(tape, X, Y) < 0
+
+
+def _oracle_depth(tape, size):
+    """NumPy-oracle dense-grid depth (voxel units, the render3d depth
+    convention: 0 = empty, else top filled voxel index + 1)."""
+    from . import oracle
+    from .render import camera
+    c = camera.pixel_centers(size)
+    Z, Y, X = np.meshgrid(c, c, c, indexing="ij")
+    filled = oracle.eval_f(tape, X, Y, Z) < 0
+    zi = np.arange(size, dtype=np.float32)[:, None, None] + 1.0
+    return np.max(np.where(filled, zi, 0.0), axis=0)
+
+
+def cmd_fit(args):
+    """Differentiable fitting: gradient-descend FILE's tape constants until
+    its soft render matches a target, another model's oracle render
+    (.frep, .io, stress:N) or a grayscale PNG (the render2d / render3d
+    conventions).  --mode 2d fits a fill image; --mode 3d a depth image
+    through volume compositing.  Steps run over the ranks of the default
+    process group (one process: the whole image); --engine scan
+    differentiates the interpreter (kernel K2 on a card), unrolled and
+    culled the generated float evaluator (kernel K1)
+    (parallel/sharded.py)."""
+    import torch
+
+    from .io import checkpoint
+    from .ops.tape_data import TapeData
+    from .parallel import sharded
+    from .render import camera
+    dev = _device(args)
+    tape = _load(args.file)
+    fit3d = args.mode == "3d"
+    grad_mask = None
+    if args.params_only:
+        if not tape.params:
+            sys.exit("--params-only: the shape declares no named vars")
+        grad_mask = np.zeros(tape.length, np.float32)
+        for idxs in tape.params.values():
+            grad_mask[list(idxs)] = 1.0
+    # 3d's dense grid is cubed (size^3 voxels through the gradient every
+    # step): default small; the culled (depth-window) engine is
+    # O(size^2 * window) and affords render-resolution fits
+    if args.size is not None:
+        size = args.size
+    elif fit3d:
+        size = 128 if args.engine == "culled" else 32
+    else:
+        size = 256
+    lr = args.lr
+    if lr is None:
+        # voxel-unit losses steepen with resolution
+        lr = (2e-5 if args.engine == "culled" else 3e-4) if fit3d else 1e-2
+    if args.target.endswith(".png"):
+        from .io.png import read_png_gray
+        tgt = read_png_gray(args.target).astype(np.float32) / 255.0
+        if tgt.shape != (size, size):
+            sys.exit(f"target is {tgt.shape}, expected {(size, size)}")
+        if fit3d:
+            tgt *= size       # undo render3d's _depth_to_u8 scaling
+    elif fit3d:
+        tgt = _oracle_depth(_load(args.target), size)
+    else:
+        tgt = _oracle_fill(_load(args.target), size).astype(np.float32)
+    mesh = sharded.make_mesh()
+    tgt_t = torch.as_tensor(tgt, device=dev)
+    every = max(1, args.steps // 10)
+    kw = dict(lr=lr, grad_mask=grad_mask, device=dev)
+    state = torch.as_tensor(tape.imms, device=dev)
+    if fit3d and args.engine == "culled":
+        step = sharded.make_fit_step_3d_window(tape, size, mesh, **kw)
+    elif fit3d:
+        step = sharded.make_fit_step_3d(tape, size, mesh, **kw)
+    elif args.engine == "culled":
+        step = sharded.make_fit_step_culled(tape, size, mesh, **kw)
+    elif args.engine == "unrolled":
+        step = sharded.make_fit_step_unrolled(tape, size, mesh, **kw)
+    else:
+        step = sharded.make_fit_step(size, mesh, lr=lr, grad_mask=grad_mask)
+        state = TapeData.from_tape(tape, device=dev)
+    for i in range(args.steps):
+        loss, state = step(state, tgt_t)
+        if i % every == 0 or i == args.steps - 1:
+            print(f"step {i}: loss {float(loss):.6f}")
+    fitted = (state.imms if isinstance(state, TapeData) else state)
+    checkpoint.save_tape(args.out, tape, imms=fitted.cpu().numpy())
+    print(f"wrote {args.out}", file=sys.stderr)
+    if args.out_frep:
+        # decompile the fitted tape back to an expression and archive it:
+        # the artifact loads anywhere .frep does
+        from .frontend import frep
+        from .tape.decompile import tape_to_tree
+        t2 = checkpoint.load_tape(args.out)
+        frep.dump([frep.ArchiveShape(tree=tape_to_tree(t2), name="fitted")],
+                  args.out_frep)
+        print(f"wrote {args.out_frep}", file=sys.stderr)
+    if args.render_out:
+        t2 = checkpoint.load_tape(args.out)
+        if fit3d:
+            _save(args.render_out, _depth_to_u8(_oracle_depth(t2, size),
+                                                size))
+        else:
+            _save(args.render_out, _oracle_fill(t2, size) * np.uint8(255))
+
+
 def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu (the "
@@ -525,6 +679,10 @@ def main(argv=None):
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--out", default="out_2d.png")
     p.add_argument("--brute", action="store_true")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard tile rows over the ranks of the default "
+                        "process group (either engine; equal to the "
+                        "one-device image)")
     p.add_argument("--check", action="store_true",
                    help="cross-check against the NumPy oracle")
     _add_device(p)
@@ -542,6 +700,9 @@ def main(argv=None):
                    choices=["heightmap", "normals", "ssao", "shaded", "all"])
     p.add_argument("--view", default="bench",
                    choices=["identity", "bench", "gui"])
+    p.add_argument("--sharded", action="store_true",
+                   help="shard tile rows over the ranks of the default "
+                        "process group")
     _add_ssao_flags(p)
     _add_device(p)
     p.set_defaults(fn=cmd_render3d)
@@ -626,6 +787,57 @@ def main(argv=None):
     p.add_argument("out")
     p.add_argument("--name", default="converted")
     p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("fit", help="fit tape constants to a target image")
+    p.add_argument("file")
+    p.add_argument("--target", required=True,
+                   help=".frep / .io / stress:N (oracle-rendered) or "
+                        "grayscale .png")
+    p.add_argument("--mode", default="2d", choices=["2d", "3d"],
+                   help="2d: soft fill vs a fill image; 3d: volume-"
+                        "compositing soft depth vs a depth image "
+                        "(--size is the voxel grid side, CUBED in "
+                        "memory: keep it small)")
+    p.add_argument("--size", type=int, default=None,
+                   help="default 256 (2d) / 32 (3d: size^3 voxels a "
+                        "gradient step) / 128 (3d culled)")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--params-only", action="store_true",
+                   help="update only the named vars (frontend var() / "
+                        "Scheme (var ...)) and freeze every other constant")
+    p.add_argument("--lr", type=float, default=None,
+                   help="default 1e-2 (2d) / 3e-4 (3d) / 2e-5 (3d culled)")
+    p.add_argument("--engine", default="scan",
+                   choices=["scan", "unrolled", "culled"],
+                   help="scan: the interpreter (kernels K2f/K2); unrolled: "
+                        "the generated float evaluator on every pixel "
+                        "(K1); culled: the unrolled ladder with the "
+                        "backward pass on ambiguous tiles only (2d) / a "
+                        "depth window (3d)")
+    p.add_argument("--out", default="fitted.npz")
+    p.add_argument("--out-frep", default="",
+                   help="also decompile the fitted tape to a .frep archive")
+    p.add_argument("--render-out", default="",
+                   help="also render the fitted tape (oracle) to PNG")
+    _add_device(p)
+    p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("mesh", help="extract a watertight triangle mesh "
+                       "(marching tetrahedra over the unrolled evaluator) "
+                       "and write binary STL or OBJ")
+    p.add_argument("file")
+    p.add_argument("--size", type=int, default=64,
+                   help="voxel grid resolution per axis")
+    p.add_argument("--bounds", type=float, nargs=2, default=(-1.0, 1.0),
+                   metavar=("LO", "HI"))
+    p.add_argument("--method", default="mt", choices=("mt", "dc"),
+                   help="mt: marching tetrahedra (robust); dc: dual "
+                        "contouring (sharp edges from forward-mode "
+                        "normals)")
+    p.add_argument("--out", default="out.stl",
+                   help=".stl (binary) or .obj (welded vertices)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_mesh)
 
     args = ap.parse_args(argv)
     args.fn(args)

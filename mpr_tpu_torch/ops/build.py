@@ -57,7 +57,10 @@ SIGNATURES = {
     "mpr_pixel_eval_v1": [_P] * 7 + [_I] * 4 + [_P],
     "mpr_compact_runs": [_P] * 10 + [_I] * 6 + [_P],
     "mpr_compact_order": [_P] * 10 + [_I] * 7 + [_P],
+    "mpr_scan_adjoint": [_P] * 10 + [_I] * 6 + [_P],
 }
+# further entry points of a source, beside ``mpr_<stem>``
+EXTRA_ENTRIES = {"mpr_scan_adjoint_eval": [_P] * 7 + [_I] * 7 + [_P]}
 
 
 class BuildStats:
@@ -166,6 +169,10 @@ def lib(name: str = "main") -> ctypes.CDLL:
             fn = getattr(handle, "mpr_" + src.stem)
             fn.argtypes = SIGNATURES["mpr_" + src.stem]
             fn.restype = ctypes.c_int
+        for entry, sig in EXTRA_ENTRIES.items():
+            if hasattr(handle, entry):
+                getattr(handle, entry).argtypes = sig
+                getattr(handle, entry).restype = ctypes.c_int
         BuildStats.loads += 1
         BuildStats.seconds[name] = time.perf_counter() - t0
         _libs[name] = handle

@@ -18,12 +18,34 @@
 //
 // Numerics: built with ops/build.py's flags (--fmad=false, no fast math),
 // so each statement rounds as the plain torch version's operation does.
+//
+// Kernel K1, the VJP of an imm-input float evaluator, is generated per tape
+// too, in two halves (two libraries, built in parallel): the forward half
+// is a float evaluator (the frame above) that stores every clause value a
+// later clause reads, vals[t * n + lane] (out0); the reverse half
+// (MPR_UNROLLED_VJP_*: in0..in2 = x y z, in3 = the upstream gradient g),
+// in segments of at most 512 clauses, one kernel each (ops/unrolled_eval.py
+// VJP_SEGMENT), run last first, walks its clauses backwards in a
+// grid-stride loop over lanes: a clause whose value has an adjoint loads
+// its operands from vals, recomputes its statements and runs their reverse
+// sweep (jax.grad's rules, ops/unrolled_eval.py _CAdjoint.reverse); the
+// adjoints a segment hands to an earlier one go through adj (a float a
+// clause and lane); each immediate's share goes into the block's
+// accumulator in shared memory, written as the segment's columns of a row
+// of partials (blocks, T); the reduce entry then sums the rows into grad
+// (adjoint.cuh).  A single kernel that kept every forward value live into
+// its reverse sweep took 456 s of nvcc (sm_90a, on the H100's host) and
+// spilled 58 KB a thread on a 5,373-clause tape; one reverse kernel a
+// tape, 530 s.
+// Bound: the bytes of vals (written once, read about twice) for long
+// tapes, plus five shuffles an immediate a warp.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "adjoint.cuh"
 #include "clause.cuh"
 
 using mpr::nmax;
@@ -31,6 +53,13 @@ using mpr::nmin;
 using mpr::c_asin;
 using mpr::c_acos;
 using mpr::c_atan;
+
+// jax.grad's share of a min/max's gradient for operand p (q the other
+// operand, r the result): 1 where p equals the result, 0.5 each at a tie,
+// 0 where the result is NaN.
+__device__ __forceinline__ float mpr_bal(float p, float q, float r) {
+  return p == r ? (q == r ? 0.5f : 1.0f) : 0.0f;
+}
 
 #ifndef MPR_UNROLLED_THREADS
 #define MPR_UNROLLED_THREADS 128
@@ -68,4 +97,45 @@ using mpr::c_atan;
         static_cast<float*>(out1), static_cast<float*>(out2),                \
         static_cast<float*>(out3), n);                                       \
     return (int)cudaGetLastError();                                          \
+  }
+
+#define MPR_UNROLLED_VJP_KERNEL                                              \
+  __global__ void __launch_bounds__(MPR_UNROLLED_THREADS)                    \
+      mpr_unrolled_vjp_kernel(                                               \
+          const float* __restrict__ in0, const float* __restrict__ in1,      \
+          const float* __restrict__ in2, const float* __restrict__ in3,      \
+          const float* __restrict__ imms, const float* __restrict__ vals,    \
+          float* __restrict__ adj, float* __restrict__ partials, int n,      \
+          int T)
+
+// K1's reverse half's C entry points: one segment's kernel on `blocks`
+// blocks over n lanes (its columns [T0, T1) of the partials, blocks x T
+// floats; the segment's clauses in shared memory), and the sum of the
+// partials' rows into grad (T floats; added to it with `accumulate`); each
+// returns the first CUDA error (0 when the launch was taken).
+#define MPR_UNROLLED_VJP_ENTRY                                               \
+  extern "C" int mpr_unrolled_vjp(                                           \
+      const void* x, const void* y, const void* z, const void* g,            \
+      const void* imms, const void* vals, void* adj, void* partials, int n,  \
+      int T, int blocks, int threads, void* stream) {                        \
+    if (threads != MPR_UNROLLED_THREADS || n < 1 || T < T1 || blocks < 1)    \
+      return (int)cudaErrorInvalidValue;                                     \
+    const int smem = (T1 - T0 > 0 ? T1 - T0 : 1) * (int)sizeof(float);      \
+    int err = mpr::allow_smem((const void*)mpr_unrolled_vjp_kernel, smem);   \
+    if (err) return err;                                                     \
+    mpr_unrolled_vjp_kernel<<<blocks, threads, smem,                         \
+                              static_cast<cudaStream_t>(stream)>>>(          \
+        static_cast<const float*>(x), static_cast<const float*>(y),          \
+        static_cast<const float*>(z), static_cast<const float*>(g),          \
+        static_cast<const float*>(imms), static_cast<const float*>(vals),    \
+        static_cast<float*>(adj), static_cast<float*>(partials), n, T);      \
+    return (int)cudaGetLastError();                                          \
+  }                                                                          \
+  extern "C" int mpr_unrolled_vjp_reduce(void* partials, void* grad, int T,  \
+                                         int blocks, int accumulate,         \
+                                         void* stream) {                     \
+    return mpr::reduce_partials(static_cast<const float*>(partials),         \
+                                static_cast<float*>(grad), T, blocks,        \
+                                accumulate,                                  \
+                                static_cast<cudaStream_t>(stream));          \
   }

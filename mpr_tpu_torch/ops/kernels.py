@@ -730,15 +730,15 @@ def float_clause(op: int, a, b, imm):
     if op == Op.COS_LHS:
         return torch.cos(a)
     if op == Op.ASIN_LHS:
-        return tc.asin(a)
+        return tc.asin_analytic(a)
     if op == Op.ACOS_LHS:
-        return tc.acos(a)
+        return tc.acos_analytic(a)
     if op == Op.ATAN_LHS:
-        return tc.atan(a)
+        return tc.atan_analytic(a)
     if op == Op.EXP_LHS:
         return torch.exp(a)
     if op == Op.ABS_LHS:
-        return torch.abs(a)
+        return tc.abs(a)
     if op == Op.LOG_LHS:
         return torch.log(a)
     if op == Op.ADD_LHS_IMM:
@@ -750,13 +750,13 @@ def float_clause(op: int, a, b, imm):
     if op == Op.MUL_LHS_RHS:
         return a * b
     if op == Op.MIN_LHS_IMM:
-        return torch.minimum(a, imm.expand_as(a))
+        return tc.minimum(a, imm.expand_as(a))
     if op == Op.MIN_LHS_RHS:
-        return torch.minimum(a, b)
+        return tc.minimum(a, b)
     if op == Op.MAX_LHS_IMM:
-        return torch.maximum(a, imm.expand_as(a))
+        return tc.maximum(a, imm.expand_as(a))
     if op == Op.MAX_LHS_RHS:
-        return torch.maximum(a, b)
+        return tc.maximum(a, b)
     if op == Op.SUB_LHS_IMM:
         return a - imm
     if op == Op.SUB_IMM_RHS:

@@ -25,6 +25,24 @@ def _round_bucket(n: int, buckets=(256, 512, 1024, 2048, 4096, 8192, 16384)) -> 
     raise ValueError(f"tape too long: {n}")
 
 
+def operand_sources(outs, lhss, rhss, axis_slots) -> np.ndarray:
+    """Where each clause's operands come from: int64 (2, clauses), row 0
+    the lhs and row 1 the rhs; the clause whose output the operand reads
+    (the last earlier clause that wrote that slot), -1 / -2 / -3 for the
+    x / y / z input, -4 for a slot never written (zero)."""
+    last = np.full(256, -4, np.int64)
+    for k, s in enumerate(axis_slots):
+        if s:
+            last[s] = -1 - k
+    src = np.empty((2, len(outs)), np.int64)
+    for t, (o, l, r) in enumerate(zip(np.asarray(outs).tolist(),
+                                      np.asarray(lhss).tolist(),
+                                      np.asarray(rhss).tolist())):
+        src[0, t], src[1, t] = last[l], last[r]
+        last[o] = t
+    return src
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another.  With no card and no explicit device this raises — the port
@@ -63,6 +81,7 @@ class TapeData:
         self.num_choices = int(num_choices)
         self.ops_present = tuple(int(o) for o in ops_present)
         self._levels = None
+        self._sources = None
 
     @classmethod
     def from_tape(cls, tape: Tape, device=None) -> "TapeData":
@@ -132,6 +151,37 @@ class TapeData:
                                        self.result_slot, self.axis_slots,
                                        device=self.device)
         return self._levels
+
+    def replace_imms(self, imms) -> "TapeData":
+        """The same tape with another constant plane (a fit step, a
+        slider): ``imms`` (the capacity's length, on the tape's device;
+        it may require grad).  The new TapeData keeps this one's
+        dependency schedule and the interval adjoint's operand table,
+        neither of which holds an immediate (kernel A reads ``imms``
+        through the schedule's ``t`` plane)."""
+        imms = torch.as_tensor(imms, dtype=torch.float32, device=self.device)
+        if imms.shape != self.imms.shape:
+            raise ValueError(f"imms: shape {tuple(imms.shape)}, want "
+                             f"{tuple(self.imms.shape)}")
+        td = TapeData(self.packed, imms, self.runs, self.length,
+                      self.num_slots, self.axis_slots, self.result_slot,
+                      self.num_choices, self.ops_present, self.num_runs)
+        td._levels = self._levels
+        td._sources = self._sources
+        return td
+
+    def sources(self):
+        """:func:`operand_sources` of the tape as int32 on its device, for
+        the interpreter's adjoint (``ops/eval_scan.py``); built at the
+        first call and kept."""
+        if self._sources is None:
+            w = self.packed[:self.length].cpu().numpy().astype(
+                np.int64) & 0xFFFFFFFF
+            src = operand_sources((w >> 8) & 0xFF, (w >> 16) & 0xFF,
+                                  w >> 24, self.axis_slots)
+            self._sources = torch.from_numpy(src.astype(np.int32)).to(
+                self.device)
+        return self._sources
 
     @property
     def capacity(self) -> int:

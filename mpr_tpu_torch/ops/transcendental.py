@@ -10,6 +10,17 @@ by the reciprocal (a second rounding), so the division is spelled
 :func:`div_scalar` divides by a tensor; ``torch.sign`` maps NaN to 0, so :func:`sign` keeps NaN and
 signed zeros as XLA's sign does; and the vectorised CPU ``torch.sqrt`` of
 float32 is not correctly rounded, so :func:`sqrt` is.
+
+Some gradients differ from ``jax.grad``'s, and the plain walks that a fit
+differentiates take :func:`abs`, :func:`minimum`, :func:`maximum` and, in
+the interpreter, :func:`asin_analytic` (and acos, atan) for them.  The
+interpreter's asin/acos/atan are the Cephes forms, where ``mpr_tpu``'s
+interpreter takes ``jnp.arcsin`` and its analytic gradient, which the
+``*_analytic`` forms give them.  And torch gives ``abs`` the gradient 0 at +-0 and at NaN where JAX gives
+1 at +-0 (``x >= 0``) and -1 at NaN, and torch's ``minimum``/``maximum``
+pass the whole gradient to both operands where the result is NaN, where
+JAX passes none (each side gets 1 where it equals the result, 0.5 at a
+tie, 0 otherwise).  Their forward values are torch's own, bit for bit.
 """
 
 from __future__ import annotations
@@ -37,8 +48,9 @@ def div_scalar(x, s: float):
 
 
 def sign(x):
-    """-1, +1, or ``x`` itself for ±0 and NaN."""
-    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x))
+    """-1, +1, or ``x`` itself for ±0 and NaN; its gradient is 0, as
+    ``jnp.sign``'s."""
+    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x.detach()))
 
 
 def atan(x):
@@ -75,3 +87,97 @@ def asin(x):
 def acos(x):
     """f32 arccosine; NaN outside [-1, 1]."""
     return _PI_2 - asin(x)
+
+
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a):
+        ctx.save_for_backward(a)
+        return torch.abs(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, = ctx.saved_tensors
+        return torch.where(a >= 0.0, g, -g)
+
+
+def _balanced(x, y, r):
+    """JAX's share of a min/max's gradient for operand ``x``."""
+    return torch.where(x == r, torch.where(y == r, 0.5, 1.0), 0.0)
+
+
+class _MinMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, fn):
+        r = fn(a, b)
+        ctx.save_for_backward(a, b, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, r = ctx.saved_tensors
+        return g * _balanced(a, b, r), g * _balanced(b, a, r), None
+
+
+def _grad_wanted(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in ts)
+
+
+def abs(x):
+    """``torch.abs`` with ``jax.grad``'s gradient (module doc)."""
+    return _Abs.apply(x) if _grad_wanted(x) else torch.abs(x)
+
+
+def minimum(a, b):
+    """``torch.minimum`` with ``jax.grad``'s gradient (module doc)."""
+    if _grad_wanted(a, b):
+        return _MinMax.apply(a, b, torch.minimum)
+    return torch.minimum(a, b)
+
+
+def maximum(a, b):
+    """``torch.maximum`` with ``jax.grad``'s gradient (module doc)."""
+    if _grad_wanted(a, b):
+        return _MinMax.apply(a, b, torch.maximum)
+    return torch.maximum(a, b)
+
+
+class _Analytic(torch.autograd.Function):
+    """A Cephes form's value with its function's analytic gradient."""
+
+    @staticmethod
+    def forward(ctx, a, fn, grad):
+        ctx.save_for_backward(a)
+        ctx.grad = grad
+        return fn(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, = ctx.saved_tensors
+        return ctx.grad(g, a), None, None
+
+
+def _inv_root(g, a):
+    return torch.div(g, sqrt(1.0 - a * a))
+
+
+def asin_analytic(x):
+    """:func:`asin` with ``jnp.arcsin``'s gradient ``1 / sqrt(1 - x^2)``."""
+    if not _grad_wanted(x):
+        return asin(x)
+    return _Analytic.apply(x, asin, _inv_root)
+
+
+def acos_analytic(x):
+    """:func:`acos` with ``jnp.arccos``'s gradient."""
+    if not _grad_wanted(x):
+        return acos(x)
+    return _Analytic.apply(x, acos, lambda g, a: -_inv_root(g, a))
+
+
+def atan_analytic(x):
+    """:func:`atan` with ``jnp.arctan``'s gradient ``1 / (1 + x^2)``."""
+    if not _grad_wanted(x):
+        return atan(x)
+    return _Analytic.apply(x, atan, lambda g, a: torch.div(g, 1.0 + a * a))

@@ -32,8 +32,19 @@ implementations of one clause walk:
 One statement of each semantics drives both: the semantic classes below
 call the operations of a backend, :class:`_TorchOps` (eager tensors) or
 :class:`_CEmitter` (C statements), so the kernel and the plain version run
-the same float32 operations in the same order.  The kernels are
-forward-only: CUDA inputs with ``imms.requires_grad`` raise.
+the same float32 operations in the same order.
+
+The float evaluator with ``take_imms`` is differentiable in ``imms`` on
+the card too: it is a ``torch.autograd.Function`` whose forward is the
+float kernel and whose backward is kernel K1, generated per tape too
+(:func:`generate_vjp_fwd`, :func:`generate_vjp`, :class:`_CAdjoint`): a
+forward half stores the clause values later clauses read, and reverse
+segments of ``VJP_SEGMENT`` clauses walk them backwards from the
+upstream gradient with ``jax.grad``'s rules, handing adjoints to earlier
+segments in memory and summing each immediate's share over the lanes
+(``csrc/adjoint.cuh``).  Its plain version is autograd through the plain
+walk.  The baked kernels, the interval and the deriv kernels are
+forward-only: CUDA inputs with ``imms.requires_grad`` raise there.
 
 Numerics follow ``mpr_tpu``'s unrolled semantics, which differ from the
 interpreter's (``clause.cuh``):
@@ -76,6 +87,7 @@ from ..tape.tape import Tape
 from . import build
 from . import launch as ln
 from . import transcendental as tc
+from .tape_data import operand_sources
 
 # inputs and outputs of each semantics' kernel, SoA float32 planes of n lanes
 N_IN = {"float": 3, "interval": 6, "deriv": 3}
@@ -195,10 +207,10 @@ class _TorchOps(_Folding):
         return -a
 
     def minimum(self, a, b):
-        return torch.minimum(a, self._t(b, a))
+        return tc.minimum(a, self._t(b, a))
 
     def maximum(self, a, b):
-        return torch.maximum(a, self._t(b, a))
+        return tc.maximum(a, self._t(b, a))
 
     def where(self, c, a, b):
         if not isinstance(a, float) and not isinstance(b, float):
@@ -227,7 +239,7 @@ class _TorchOps(_Folding):
         return p | q
 
     def abs(self, a):
-        return torch.abs(a)
+        return tc.abs(a)
 
     def sqrt(self, a):
         return tc.sqrt(a)
@@ -400,6 +412,147 @@ class _CEmitter(_Folding):
 
     def full(self, v, like):
         return v
+
+
+class _CAdjoint(_CEmitter):
+    """A :class:`_CEmitter` that also records each differentiable
+    operation ``(name, out, args)`` as it emits it, and each immediate it
+    reads (``("imm", var, (t,))``), for :meth:`reverse`."""
+
+    def __init__(self, fast: bool, t0: int = 0):
+        super().__init__(fast)
+        self.rec = []
+        self.t0 = t0          # the accumulator's first immediate
+
+    def _op(self, name, out, *args):
+        self.rec.append((name, out, args))
+        return out
+
+    def _add(self, a, b):
+        return self._op("add", super()._add(a, b), a, b)
+
+    def _sub(self, a, b):
+        return self._op("sub", super()._sub(a, b), a, b)
+
+    def _mul(self, a, b):
+        return self._op("mul", super()._mul(a, b), a, b)
+
+    def div(self, a, b):
+        return self._op("div", super().div(a, b), a, b)
+
+    def neg(self, a):
+        return self._op("neg", super().neg(a), a)
+
+    def minimum(self, a, b):
+        return self._op("minmax", super().minimum(a, b), a, b)
+
+    def maximum(self, a, b):
+        return self._op("minmax", super().maximum(a, b), a, b)
+
+    def abs(self, a):
+        return self._op("abs", super().abs(a), a)
+
+    def sqrt(self, a):
+        return self._op("sqrt", super().sqrt(a), a)
+
+    def sin(self, a):
+        return self._op("sin", super().sin(a), a)
+
+    def cos(self, a):
+        return self._op("cos", super().cos(a), a)
+
+    def exp(self, a):
+        return self._op("exp", super().exp(a), a)
+
+    def log(self, a):
+        return self._op("log", super().log(a), a)
+
+    def asin(self, a):
+        return self._op("asin", super().asin(a), a)
+
+    def acos(self, a):
+        return self._op("acos", super().acos(a), a)
+
+    def atan(self, a):
+        return self._op("atan", super().atan(a), a)
+
+    def imm(self, t: int):
+        return self._op("imm", self._new(f"__ldg(imms + {t})"), t)
+
+    def reverse(self, result, seed: str, leaves=()) -> dict:
+        """Emit the reverse sweep of the recorded operations from
+        ``result`` (adjoint ``seed``): in reverse order, each operation
+        whose output has an adjoint adds its partials into its operands'
+        adjoints with ``jax.grad``'s rules, as torch's autograd spells
+        them (the module doc of ``csrc/scan_adjoint.cu``); an immediate's
+        adjoint, complete once the sweep passes its load, is summed over
+        the lanes.  Returns the adjoints of ``leaves`` (values made before
+        the recording, e.g. operands loaded from memory) that got one."""
+        leaves = {v for v in leaves if not isinstance(v, float)}
+        live = {out for _, out, _ in self.rec} | leaves
+        adj = {}
+        e = self._e
+
+        def add(v, expr):
+            if isinstance(v, float) or v not in live:
+                return
+            c = self._new(expr)
+            adj[v] = c if v not in adj else self._new(f"{adj[v]} + {c}")
+
+        if isinstance(result, float) or result not in live:
+            return {}
+        adj[result] = seed
+        for name, out, args in reversed(self.rec):
+            g = adj.get(out)
+            if g is None:
+                continue
+            if name == "imm":
+                self.lines.append(f"mpr::acc_imm(acc, {args[0] - self.t0}, "
+                                  f"live ? {g} : 0.0f);")
+                continue
+            a = args[0]
+            A = e(a)
+            if len(args) == 2:
+                b = args[1]
+                B = e(b)
+            if name == "add":
+                add(a, g)
+                add(b, g)
+            elif name == "sub":
+                add(a, g)
+                add(b, f"-{g}")
+            elif name == "mul":
+                add(a, f"{g} * {B}")
+                add(b, f"{g} * {A}")
+            elif name == "div":
+                add(a, f"{g} / {B}")
+                add(b, f"-{g} * {A} / ({B} * {B})")
+            elif name == "neg":
+                add(a, f"-{g}")
+            elif name == "minmax":
+                add(a, f"{g} * mpr_bal({A}, {B}, {out})")
+                add(b, f"{g} * mpr_bal({B}, {A}, {out})")
+            elif name == "abs":
+                add(a, f"{A} >= 0.0f ? {g} : -{g}")
+            elif name == "sqrt":
+                add(a, f"{g} / (2.0f * {out})")
+            elif name == "sin":
+                add(a, f"{g} * cosf({A})")
+            elif name == "cos":
+                add(a, f"{g} * -sinf({A})")
+            elif name == "exp":
+                add(a, f"{g} * {out}")
+            elif name == "log":
+                add(a, f"{g} / {A}")
+            elif name == "asin":
+                add(a, f"{g} / sqrtf(1.0f - {A} * {A})")
+            elif name == "acos":
+                add(a, f"-{g} / sqrtf(1.0f - {A} * {A})")
+            elif name == "atan":
+                add(a, f"{g} / (1.0f + {A} * {A})")
+            else:
+                raise AssertionError(name)
+        return {v: adj[v] for v in leaves if v in adj}
 
 
 # ---------------------------------------------------------------------------
@@ -755,7 +908,7 @@ class _DerivSem:
 
 
 def _sem(kind: str, K, flags):
-    if kind == "float":
+    if kind in ("float", "vjp", "vjpf"):
         return _FloatSem(K)
     if kind == "interval":
         return _IntervalSem(K, flags["tight_sincos"],
@@ -810,7 +963,7 @@ def _nvcc_flags():
 def _generator_hash() -> str:
     h = hashlib.sha256(" ".join(_nvcc_flags()).encode())
     for p in (Path(__file__), build.CSRC / "unrolled.cuh",
-              build.CSRC / "clause.cuh"):
+              build.CSRC / "clause.cuh", build.CSRC / "adjoint.cuh"):
         h.update(p.read_bytes())
     return h.hexdigest()
 
@@ -876,6 +1029,150 @@ def generate(tape: Tape, kind: str, take_imms: bool, flags: dict) -> str:
             f"MPR_UNROLLED_ENTRY\n")
 
 
+def tape_sources(tape: Tape) -> np.ndarray:
+    """``tape_data.operand_sources`` of the tape's clauses."""
+    return operand_sources(tape.outs, tape.lhss, tape.rhss, tape.axis_slots)
+
+
+def _result_source(tape: Tape, src) -> int:
+    last = {s: -1 - k for k, s in enumerate(tape.axis_slots) if s}
+    for t, o in enumerate(tape.outs.tolist()):
+        last[o] = t
+    return last.get(tape.result_slot, -4)
+
+
+def generate_vjp_fwd(tape: Tape, flags: dict) -> str:
+    """The CUDA source of K1's forward half (``mpr_unrolled`` frame, the
+    float evaluator's statements): each clause whose output a later clause
+    reads stores it, ``out0[t * n + lane]`` (``vals``, the values the
+    reverse half reads)."""
+    K = _CEmitter(flags["fast_transcendentals"])
+    sem = _FloatSem(K)
+    x, y, z = (K._new(f"in{k}[i]") for k in range(3))
+
+    class _Imms:
+        def __getitem__(self, t):
+            return K._new(f"__ldg(imms + {t})")
+    stored = set(tape_sources(tape).ravel().tolist())
+    step = iter(range(tape.length))
+
+    def store(v):
+        t = next(step)
+        if t in stored:
+            K.lines.append(f"out0[(size_t){t} * n + i] = {K._e(v)};")
+        return v
+    sem.post = store
+    _walk(tape, sem, x, y, z, _Imms())
+    body = "\n    ".join(K.lines)
+    head = (f"// K1 forward half: the float evaluator of a {tape.length}-"
+            f"clause tape storing its clause values (flags {flags}), "
+            f"written by mpr_tpu_torch/ops/unrolled_eval.py")
+    return (f"{head}\n#define MPR_UNROLLED_THREADS {ln.UNROLLED_THREADS}\n"
+            f"#include \"unrolled.cuh\"\n\nMPR_UNROLLED_KERNEL {{\n"
+            f"    const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+            f"    if (i >= n) return;\n    {body}\n}}\n\n"
+            f"MPR_UNROLLED_ENTRY\n")
+
+
+def vjp_segments(tape: Tape):
+    """K1's reverse half in segments of at most ``VJP_SEGMENT`` clauses:
+    [(t0, t1), ...] in forward order (they run last first)."""
+    L = tape.length
+    return [(t0, min(L, t0 + VJP_SEGMENT))
+            for t0 in range(0, L, VJP_SEGMENT)] or [(0, 0)]
+
+
+def generate_vjp(tape: Tape, flags: dict, seg) -> str:
+    """The CUDA source of one segment ``seg = (t0, t1)`` of K1's reverse
+    half, the VJP of the imm-input float evaluator:
+    ``mpr_unrolled_vjp_kernel`` (a thread a lane in a grid-stride loop
+    walks the segment's clauses backwards: for each clause whose output
+    has an adjoint, it loads the operands' values that the forward half
+    stored, recomputes the clause's statements, and runs their reverse
+    sweep (:meth:`_CAdjoint.reverse`), adding into the adjoints of the
+    clauses that made the operands and summing the immediate's share into
+    the block's accumulator) and its entry points (csrc/unrolled.cuh).
+
+    A clause output's adjoint lives in a register within a segment; one
+    that a later segment contributed to is read from ``adj`` (a float a
+    clause and lane), and what this segment adds to an earlier segment's
+    clause is added into ``adj`` at its end.  The last clause writing the
+    result slot starts from the upstream gradient ``g``.  Segments keep
+    each kernel a few thousand statements: nvcc's time and the registers
+    grow faster than the code (one kernel for a 5,373-clause tape took
+    530 s of nvcc for sm_90a and spilled)."""
+    t0, t1 = seg
+    K = _CAdjoint(flags["fast_transcendentals"], t0)
+    sem = _FloatSem(K)
+    src = tape_sources(tape)
+    ins = {}
+
+    def load(s_):
+        if s_ >= 0:
+            return K._new(f"vals[(size_t){s_} * n + i]")
+        if s_ == -4:
+            return 0.0
+        if s_ not in ins:
+            ins[s_] = K._new(f"in{-1 - s_}[i]")
+        return ins[s_]
+    names = {int(o): o.name for o in Op}
+    ops, outs = tape.ops.tolist(), tape.outs.tolist()
+    lhss, rhss = tape.lhss.tolist(), tape.rhss.tolist()
+    # clauses of this segment read by a later segment: their adjoints
+    # start from adj
+    later = set(int(v) for v in src[:, t1:].ravel() if t0 <= v < t1)
+    adj = {}
+    rw = _result_source(tape, src)
+    if t0 <= rw < t1:
+        adj[rw] = K._new("in3[i]")
+    reduced = 0
+    for t in range(t1 - 1, t0 - 1, -1):
+        if t in later:
+            c = K._new(f"adj[(size_t){t} * n + i]")
+            adj[t] = c if t not in adj else K._new(f"{adj[t]} + {c}")
+        g = adj.pop(t, None)
+        if g is None:
+            continue
+        op = ops[t]
+        if op not in sem.table:
+            raise ValueError(f"clause {t}: opcode {op} has no unrolled form")
+        K.lines.append(f"// {t}: s{outs[t]} = {names.get(op, op)} "
+                       f"s{lhss[t]} s{rhss[t]}")
+        a, b = load(src[0, t]), load(src[1, t])
+        K.rec = []
+        imm = K.imm(t)
+        out = sem.table[op](a, b, imm)
+        n_acc = len(K.lines)
+        got = K.reverse(out, g, leaves=(a, b))
+        reduced += sum("acc_imm" in ln for ln in K.lines[n_acc:])
+        for v, s_ in ((a, src[0, t]), (b, src[1, t])):
+            if s_ >= 0 and not isinstance(v, float) and v in got:
+                c = got.pop(v)
+                adj[s_] = c if s_ not in adj else K._new(f"{adj[s_]} + {c}")
+    for s_, c in sorted(adj.items()):        # earlier segments' clauses
+        # (a lane past n stands in at lane n - 1 and writes nothing)
+        K.lines.append(f"if (live) adj[(size_t){s_} * n + i] += {c};")
+    body = "\n        ".join(K.lines)
+    head = (f"// K1 reverse half, clauses [{t0}, {t1}) of {tape.length}: VJP "
+            f"(d/d imms) of the float evaluator ({reduced} immediates "
+            f"reduced; flags {flags}), written by "
+            f"mpr_tpu_torch/ops/unrolled_eval.py")
+    return (f"{head}\n#define MPR_UNROLLED_THREADS {ln.UNROLLED_THREADS}\n"
+            f"#include \"unrolled.cuh\"\n\nconstexpr int T0 = {t0}, "
+            f"T1 = {t1};\n\nMPR_UNROLLED_VJP_KERNEL {{\n"
+            f"    extern __shared__ float acc[];\n"
+            f"    mpr::acc_zero(acc, T1 - T0);\n"
+            f"    const int stride = gridDim.x * blockDim.x;\n"
+            f"    for (int base = blockIdx.x * blockDim.x; base < n; "
+            f"base += stride) {{\n"
+            f"        const int lane = base + threadIdx.x;\n"
+            f"        const bool live = lane < n;\n"
+            f"        const int i = live ? lane : n - 1;\n"
+            f"        {body}\n    }}\n"
+            f"    mpr::acc_store(acc, partials + T0, T1 - T0, T);\n}}\n\n"
+            f"MPR_UNROLLED_VJP_ENTRY\n")
+
+
 # ---------------------------------------------------------------------------
 # Build: nvcc at first use, one process an evaluator, all started together
 # ---------------------------------------------------------------------------
@@ -887,6 +1184,22 @@ _lock = threading.Lock()
 _libs = {}
 _SIGNATURE = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
               + [ctypes.c_void_p])
+# kinds with other entry points: K1's reverse half (a segment: x, y, z, g,
+# imms, vals, adj, partials; n, T, blocks, threads; stream) and its sum of
+# the blocks' rows (partials, grad; T, blocks, accumulate; stream)
+_ENTRIES = {"vjp": [("mpr_unrolled_vjp", [ctypes.c_void_p] * 8
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+                    ("mpr_unrolled_vjp_reduce", [ctypes.c_void_p] * 2
+                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])]}
+# clauses of a segment of K1's reverse half at most
+VJP_SEGMENT = 512
+# blocks of a K1 launch at most (its grid-stride loop takes the rest), and
+# so the rows of its partial sums
+VJP_BLOCKS = 1024
+# the bytes of stored clause values and adjoints (twice clauses x lanes
+# floats) one K1 launch uses: a VJP over more lanes runs in chunks within
+# this
+VALS_BYTES = 1 << 31
 
 
 def _lib_path(key: str) -> Path:
@@ -909,7 +1222,7 @@ def build_all(evals) -> None:
             seen.add(e.key)
             out.parent.mkdir(parents=True, exist_ok=True)
             src = out.parent / "kernel.cu"
-            src.write_text(generate(e.tape, e.kind, e.take_imms, e.flags))
+            src.write_text(e.source())
             tmp = out.parent / f"tmp{os.getpid()}.so"
             log = open(out.parent / f"tmp{os.getpid()}.log", "w+")
             starts[e.key] = time.perf_counter()
@@ -958,8 +1271,11 @@ def build_all(evals) -> None:
                     "log": log.read_text() if log.exists() else "",
                     "compiled": False}
             handle = ctypes.CDLL(str(out))
-            handle.mpr_unrolled.argtypes = _SIGNATURE
-            handle.mpr_unrolled.restype = ctypes.c_int
+            for entry, sig in _ENTRIES.get(e.kind,
+                                           [("mpr_unrolled", _SIGNATURE)]):
+                fn = getattr(handle, entry)
+                fn.argtypes = sig
+                fn.restype = ctypes.c_int
             _libs[e.key] = handle
 
 
@@ -989,6 +1305,10 @@ class UnrolledEval:
         self.key = f"{kind}-{structure_key(tape, self.take_imms, self.flags)}"
 
     def source(self) -> str:
+        if self.kind == "vjp":
+            return generate_vjp(self.tape, self.flags, self.seg)
+        if self.kind == "vjpf":
+            return generate_vjp_fwd(self.tape, self.flags)
         return generate(self.tape, self.kind, self.take_imms, self.flags)
 
     def _imms_list(self, imms):
@@ -1029,6 +1349,41 @@ class _FloatEval(UnrolledEval):
             z = torch.zeros_like(torch.as_tensor(x, dtype=torch.float32))
         return _module.unrolled_float(self, x, y, z, imms=imms)
 
+    @property
+    def vjp(self) -> "_VjpEval":
+        """Kernel K1's evaluators (imm-input evaluators only), made at the
+        first use."""
+        if not self.take_imms:
+            raise RuntimeError("a baked float evaluator has no imms to "
+                               "differentiate: build_float(tape, "
+                               "take_imms=True)")
+        if getattr(self, "_vjp", None) is None:
+            self._vjp = _VjpEval(self)
+        return self._vjp
+
+
+class _VjpEval:
+    """Kernel K1 of one float evaluator: its forward half ``fwd`` (kind
+    ``vjpf``) and the segments of its reverse half ``segments`` (kind
+    ``vjp``, one generated kernel each, built in parallel)."""
+
+    def __init__(self, f: "_FloatEval"):
+        self.tape, self.flags, self.take_imms = f.tape, f.flags, True
+        base = f.key[len("float-"):]
+
+        def half(kind, key, seg=None):
+            ev = UnrolledEval(self.tape, kind, True)
+            ev.flags, ev.key, ev.seg = self.flags, key, seg
+            return ev
+        self.fwd = half("vjpf", f"vjpf-{base}")
+        self.segments = [half("vjp", f"vjp{VJP_SEGMENT}-{k}-{base}", seg)
+                         for k, seg in enumerate(vjp_segments(self.tape))]
+        self.evals = [self.fwd] + self.segments
+
+    def plain(self, *args, imms=None):
+        """The float evaluator's plain walk (what K1 differentiates)."""
+        return UnrolledEval.plain(self.fwd, *args, imms=imms)
+
 
 class _IntervalEval(UnrolledEval):
     def __call__(self, xl, xh, yl, yh, zl, zh, imms=None):
@@ -1066,10 +1421,12 @@ def _run(ev: UnrolledEval, args, imms):
             imms = torch.as_tensor(ev.tape.imms, device=dev)
         if not torch.is_tensor(imms):
             imms = torch.as_tensor(np.asarray(imms, np.float32), device=dev)
-        if imms.requires_grad:
+        if imms.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
-                "the unrolled CUDA kernels are forward-only: imms that "
-                "require grad take the plain version (UnrolledEval.plain)")
+                f"the unrolled {ev.kind} kernel is forward-only: only the "
+                "imm-input float evaluator differentiates in imms on the "
+                "card (kernel K1); the plain version (UnrolledEval.plain) "
+                "differentiates everywhere")
         if imms.device != dev or imms.dtype != torch.float32:
             raise ValueError(f"imms: {imms.dtype} on {imms.device}, want "
                              f"float32 on {dev}")
@@ -1106,13 +1463,103 @@ def _launch(ev: UnrolledEval, lanes, imms, outs):
 
 def unrolled_float(ev, x, y, z, imms=None):
     """The float evaluator's kernel on CUDA inputs (counted in
-    ``unrolled_float.launches``), its plain version on CPU inputs."""
+    ``unrolled_float.launches``), its plain version on CPU inputs.  On
+    CUDA, imm-input evaluators with ``imms`` that require grad go through
+    :class:`_FloatFn` (backward: kernel K1)."""
     if not _on_cuda((x, y, z, imms)):
         return ev.plain(x, y, z, imms=imms)
+    if any(torch.is_tensor(a) and a.requires_grad for a in (x, y, z)):
+        raise RuntimeError("the unrolled kernels differentiate in imms "
+                           "only: coordinate gradients take the plain "
+                           "version (UnrolledEval.plain)")
+    if (ev.take_imms and torch.is_tensor(imms) and imms.requires_grad
+            and torch.is_grad_enabled()):
+        return _FloatFn.apply(imms, x, y, z, ev)
     out = _run(ev, (x, y, z), imms)
     if out.numel():
         _unrolled_float.launches += 1
     return out
+
+
+class _FloatFn(torch.autograd.Function):
+    """The imm-input float evaluator on the card, differentiable in
+    ``imms``: forward the float kernel, backward kernel K1."""
+
+    @staticmethod
+    def forward(ctx, imms, x, y, z, ev):
+        ctx.ev = ev
+        ctx.save_for_backward(imms, *(torch.as_tensor(a) for a in (x, y, z)))
+        out = _run(ev, (x, y, z), imms.detach())
+        if out.numel():
+            _unrolled_float.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        imms, x, y, z = ctx.saved_tensors
+        grad = _module.unrolled_float_vjp(ctx.ev.vjp, x, y, z, g, imms)
+        full = torch.zeros_like(imms)
+        full[:grad.shape[0]] = grad
+        return full, None, None, None, None
+
+
+def unrolled_float_vjp(ev, x, y, z, g, imms):
+    """Kernel K1 on CUDA inputs (counted in ``unrolled_float_vjp.launches``,
+    one a chunk of lanes: the forward half storing the clause values, the
+    reverse half's segments last first, the sum over blocks):
+    d(sum(g * f(x, y, z)))/d(imms[t]) for t < the tape's length, ``ev`` a
+    float evaluator's ``.vjp``; on CPU inputs its plain version, autograd
+    through the plain walk."""
+    T = ev.tape.length
+    if not _on_cuda((x, y, z, g, imms)):
+        im = torch.as_tensor(imms, dtype=torch.float32).detach()
+        im = im[:T].clone().requires_grad_(True)
+        with torch.enable_grad():
+            v = ev.plain(x, y, z, imms=im)
+            out, = torch.autograd.grad(v, im, torch.as_tensor(g).expand_as(v),
+                                       allow_unused=True)
+        return torch.zeros(T, dtype=torch.float32) if out is None else out
+    dev = next(a.device for a in (x, y, z, g) if torch.is_tensor(a))
+    lanes = [t.reshape(-1).detach().contiguous()
+             for t in _as_lanes((x, y, z, g), dev)]
+    imms = torch.as_tensor(imms, dtype=torch.float32, device=dev).detach()
+    if imms.shape[0] < T:
+        raise ValueError(f"imms: {imms.shape[0]} values for a {T}-clause "
+                         "tape")
+    imms = imms.contiguous()
+    n = lanes[0].shape[0]
+    grad = torch.zeros(T, dtype=torch.float32, device=dev)
+    if n == 0 or T == 0:
+        return grad
+    build_all(ev.evals)
+    chunk = max(1, min(n, VALS_BYTES // (8 * T)))
+    vals = torch.empty(T * chunk, dtype=torch.float32, device=dev)
+    adj = torch.empty(T * chunk, dtype=torch.float32, device=dev)
+    for c0 in range(0, n, chunk):
+        m = min(n, c0 + chunk) - c0
+        part = [t[c0:c0 + m] for t in lanes]
+        _launch(ev.fwd, part[:3], imms, [vals])
+        adj[:T * m].zero_()
+        blocks = min(VJP_BLOCKS, -(-m // ln.UNROLLED_THREADS))
+        partials = torch.empty(blocks, T, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        with torch.cuda.device(dev):
+            for seg in reversed(ev.segments):
+                err = _libs[seg.key].mpr_unrolled_vjp(
+                    *(t.data_ptr() for t in part), imms.data_ptr(),
+                    vals.data_ptr(), adj.data_ptr(), partials.data_ptr(), m,
+                    T, blocks, ln.UNROLLED_THREADS, stream)
+                if err:
+                    break
+            else:
+                err = _libs[ev.segments[0].key].mpr_unrolled_vjp_reduce(
+                    partials.data_ptr(), grad.data_ptr(), T, blocks,
+                    int(c0 > 0), stream)
+        if err:
+            raise RuntimeError(f"unrolled VJP kernel failed: CUDA error "
+                               f"{err}")
+        _unrolled_float_vjp.launches += 1
+    return grad
 
 
 def unrolled_interval(ev, xl, xh, yl, yh, zl, zh, imms=None):
@@ -1141,8 +1588,10 @@ def unrolled_deriv(ev, x, y, z, imms=None):
 unrolled_float.launches = 0
 unrolled_interval.launches = 0
 unrolled_deriv.launches = 0
+unrolled_float_vjp.launches = 0
 # the counters' homes, kept if a module attribute is rebound (a recorder)
 _unrolled_float = unrolled_float
+_unrolled_float_vjp = unrolled_float_vjp
 _unrolled_interval = unrolled_interval
 _unrolled_deriv = unrolled_deriv
 _module = sys.modules[__name__]
@@ -1151,7 +1600,8 @@ _module = sys.modules[__name__]
 def build_float(tape: Tape, take_imms: bool = False) -> Callable:
     """``f(x, y, z=None, imms=None) -> v``.  With ``take_imms`` the
     immediates are an input (default: the tape's own), differentiable in
-    the plain version."""
+    them: on the CPU through the plain walk, on the card through kernel
+    K1 (:class:`_FloatFn`)."""
     return _FloatEval(tape, "float", take_imms)
 
 

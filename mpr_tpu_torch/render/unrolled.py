@@ -27,6 +27,17 @@ evaluations are the generated kernels (two interval launches, one float
 launch a 2D frame; two or three interval launches, one float, one deriv a
 3D frame with normals).
 
+The ladders also run on a slab of 64px tile rows ``[r0, r0 + rows)``
+(``r0`` / ``rows64`` in 2D, ``r0`` / ``rows`` in 3D): tiles have no
+cross-tile dependence, and 3D slabs keep whole z columns, so slabs
+compose exactly.  ``parallel/sharded.py`` gives each rank of a process
+group one (:meth:`UnrolledRenderer.render2d_sharded`,
+:meth:`UnrolledRenderer.render3d_sharded`).  :func:`_soft_render2d_impl`
+is the differentiable soft render of the culled fit: the interval stages
+without gradient, widened by ``4 / sharpness``, and the soft pixels of
+the ambiguous 8px tiles through the float evaluator, which on the card
+differentiates in ``imms`` through kernel K1.
+
 Depth: int32, 0 = empty, else the top filled voxel's index + 1.
 """
 
@@ -57,8 +68,12 @@ VOXEL_LANES = 1 << 26
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def _classify(lo, hi):
-    """0 empty / 1 filled / 2 ambiguous; NaN bounds classify ambiguous."""
+def _classify(lo, hi, delta: float = 0.0):
+    """0 empty / 1 filled / 2 ambiguous; NaN bounds classify ambiguous.
+    ``delta`` widens the test to |f| > delta (``lo - delta``, ``hi +
+    delta``)."""
+    if delta:
+        lo, hi = lo - delta, hi + delta
     return torch.where(lo > 0.0, ST_EMPTY,
                        torch.where(hi < 0.0, ST_FILLED, ST_AMBIG))
 
@@ -121,56 +136,113 @@ def _children_of_cells(gx, gy, gz):
 # 2D ladder: 64px -> 8px -> pixel
 # ---------------------------------------------------------------------------
 
-def _stages2d(fi, mat, z, size: int, imms):
-    """The interval stages of the 2D ladder: 64px classification, the
-    ambiguous tiles' 64 8px children, their classification.  Returns
-    (st64 (n64^2,), ids64, st8c (len(ids64)*64,), ids8, gx8, gy8) with
-    ids into st64 and st8c, and gx8/gy8 the children's 8px coordinates."""
+def _stages2d(fi, mat, z, size: int, imms, delta: float = 0.0, r0: int = 0,
+              rows64: Optional[int] = None):
+    """The interval stages of the 2D ladder on the slab of 64px tile rows
+    ``[r0, r0 + rows64)`` (default: the whole image): 64px
+    classification, the ambiguous tiles' 64 8px children, their
+    classification, each widened by ``delta`` (:func:`_classify`; the
+    soft render's ``4 / sharpness``).  Returns (st64 (rows64*n64,), ids64,
+    st8c (len(ids64)*64,), ids8, gx8, gy8) with ids into st64 and st8c,
+    and gx8/gy8 the children's global 8px coordinates."""
     n64, n8 = size // 64, size // 8
+    rows64 = n64 if rows64 is None else rows64
     dev = mat.device
-    t = torch.arange(n64 * n64, dtype=torch.int64, device=dev)
+    t = r0 * n64 + torch.arange(rows64 * n64, dtype=torch.int64, device=dev)
     xl, xh = _axis_box(t % n64, n64)
     yl, yh = _axis_box(t // n64, n64)
     bxl, bxh, byl, byh = _mat3_interval(mat, xl, xh, yl, yh)
     zc = z.expand_as(bxl)
     lo, hi = fi(bxl, bxh, byl, byh, zc, zc, imms=imms)
-    st64 = _classify(lo, hi)
+    st64 = _classify(lo, hi, delta)
     ids64 = _ids(st64 == ST_AMBIG)
 
     c = torch.arange(64, dtype=torch.int64, device=dev)
     gx8 = ((ids64 % n64)[:, None] * 8 + (c % 8)[None, :]).reshape(-1)
-    gy8 = ((ids64 // n64)[:, None] * 8 + (c // 8)[None, :]).reshape(-1)
+    gy8 = ((ids64 // n64 + r0)[:, None] * 8 + (c // 8)[None, :]).reshape(-1)
     xl, xh = _axis_box(gx8, n8)
     yl, yh = _axis_box(gy8, n8)
     bxl, bxh, byl, byh = _mat3_interval(mat, xl, xh, yl, yh)
     zc = z.expand_as(bxl)
     lo, hi = fi(bxl, bxh, byl, byh, zc, zc, imms=imms)
-    st8c = _classify(lo, hi)
+    st8c = _classify(lo, hi, delta)
     ids8 = _ids(st8c == ST_AMBIG)
     return st64, ids64, st8c, ids8, gx8, gy8
 
 
-def _st8_image(st64, st8c, gx8, gy8, size: int):
-    """Statuses at 8px granularity, (n8, n8): parent statuses upsampled,
-    the ambiguous parents' children their own (the copy_filled_2d
-    upsample analog, reference/src/context.cu:664-692)."""
+def _st8_image(st64, st8c, gx8, gy8, size: int, r0: int = 0):
+    """Statuses at 8px granularity, (rows64*8, n8) for the slab at tile
+    row ``r0``: parent statuses upsampled, the ambiguous parents' children
+    their own (the copy_filled_2d upsample analog,
+    reference/src/context.cu:664-692)."""
     n64 = size // 64
-    st8 = _up(st64.reshape(n64, n64), 8)
-    st8[gy8, gx8] = st8c
+    st8 = _up(st64.reshape(-1, n64), 8)
+    st8[gy8 - r0 * 8, gx8] = st8c
     return st8
 
 
-def _render2d_impl(fi, f, mat, z, size: int, imms=None):
-    """The 2D ladder: (size, size) bool image (row = y) and the exact
-    ambiguous counts (64px tiles, 8px tiles)."""
-    st64, ids64, st8c, ids8, gx8, gy8 = _stages2d(fi, mat, z, size, imms)
-    p = torch.arange(64, dtype=torch.int64, device=mat.device)
-    gpx = (gx8[ids8][:, None] * 8 + (p % 8)[None, :]).reshape(-1)
-    gpy = (gy8[ids8][:, None] * 8 + (p // 8)[None, :]).reshape(-1)
+def _ambiguous_pixels(gx8, gy8, ids8):
+    """Global pixel coordinates of the 64 pixels of each ambiguous 8px
+    tile."""
+    p = torch.arange(64, dtype=torch.int64, device=gx8.device)
+    return ((gx8[ids8][:, None] * 8 + (p % 8)[None, :]).reshape(-1),
+            (gy8[ids8][:, None] * 8 + (p // 8)[None, :]).reshape(-1))
+
+
+def _render2d_impl(fi, f, mat, z, size: int, imms=None, r0: int = 0,
+                   rows64: Optional[int] = None):
+    """The 2D ladder on the slab of 64px tile rows ``[r0, r0 + rows64)``
+    (default: the whole image): (rows64*64, size) bool image (row = y)
+    and the exact ambiguous counts (64px tiles, 8px tiles)."""
+    st64, ids64, st8c, ids8, gx8, gy8 = _stages2d(fi, mat, z, size, imms,
+                                                  r0=r0, rows64=rows64)
+    gpx, gpy = _ambiguous_pixels(gx8, gy8, ids8)
     px, py = camera.transform2(mat, _center(gpx, size), _center(gpy, size))
     v = f(px, py, z.expand_as(px), imms=imms)
-    img = _up(_st8_image(st64, st8c, gx8, gy8, size) == ST_FILLED, 8)
-    img[gpy, gpx] = v < 0.0
+    img = _up(_st8_image(st64, st8c, gx8, gy8, size, r0) == ST_FILLED, 8)
+    img[gpy - r0 * 64, gpx] = v < 0.0
+    return img, (int(ids64.shape[0]), int(ids8.shape[0]))
+
+
+def _soft_render2d_impl(fi, f, mat, z, size: int, sharpness: float, imms,
+                        r0: int = 0, rows64: Optional[int] = None):
+    """The differentiable soft render restricted to ambiguous tiles, on
+    the slab of 64px tile rows ``[r0, r0 + rows64)``: the culled fit's
+    forward (``mpr_tpu.render.unrolled._soft_render2d_impl``).
+
+    The interval ladder is structure without gradient (``imms`` detached,
+    the straight-through convention of the reference's Deriv, which
+    treats min/max discontinuously, reference/inc/gpu_deriv.hpp:106-130);
+    gradients flow through the soft pixels ``tanh(-sharpness * f) / 2 +
+    1/2`` of the ambiguous 8px tiles and their scatter into the composed
+    image.  Culling is sound for gradients because the classification is
+    widened by ``4 / sharpness``: a culled tile has |f| > delta
+    everywhere, so its pixels' tanh sits within tanh(4) ~ 1 - 2.5e-4 of
+    saturation and their gradient is O(sech^2(4)) ~ 1.3e-3 of a boundary
+    pixel's.  Culled tiles contribute their saturated constant (filled 1,
+    empty 0).
+
+    Every lane evaluated is a pixel of an ambiguous tile: the exact count
+    read back sizes the launch.  (The JAX package pads to a cap and pins
+    the lanes past its count at pixel (0, 0)'s centre, not at the
+    origin, or tapes with hypot/sqrt, singular there, NaN-poison the
+    gradient through the padding's zero cotangents; here there is no
+    padding.)
+
+    Returns ((rows64*64, size) f32 soft image, counts)."""
+    delta = 4.0 / float(sharpness)
+    with torch.no_grad():
+        st64, ids64, st8c, ids8, gx8, gy8 = _stages2d(
+            fi, mat, z, size, None if imms is None else imms.detach(),
+            delta, r0, rows64)
+        st8img = _st8_image(st64, st8c, gx8, gy8, size, r0)
+        gpx, gpy = _ambiguous_pixels(gx8, gy8, ids8)
+        px, py = camera.transform2(mat, _center(gpx, size),
+                                   _center(gpy, size))
+    v = f(px, py, z.expand_as(px), imms=imms)
+    soft = torch.tanh(-sharpness * v) * 0.5 + 0.5
+    base = _up((st8img == ST_FILLED).to(torch.float32), 8)
+    img = base.index_put((gpy - r0 * 64, gpx), soft)
     return img, (int(ids64.shape[0]), int(ids8.shape[0]))
 
 
@@ -199,35 +271,40 @@ class Stages3d(NamedTuple):
     counts: Tuple[int, int, int]       # survivors at 64^3, 16^3, 4^3
 
 
-def _stages3d(fi, mat, size: int, skip4: bool, imms) -> Stages3d:
+def _stages3d(fi, mat, size: int, skip4: bool, imms, r0: int = 0,
+              rows: Optional[int] = None) -> Stages3d:
     """The interval stages of the 3D ladder, 64^3 -> 16^3 (-> 4^3 unless
     ``skip4``), with the occlusion culls between them (the
-    mask_filled_tiles analog, reference/src/context.cu:471-495)."""
+    mask_filled_tiles analog, reference/src/context.cu:471-495), on the
+    slab of screen tile rows ``[r0, r0 + rows)`` (default: the whole
+    image; whole z columns, so the culls stay exact).  Screen cells are
+    slab-local, cell coordinates global."""
     n = size // 64
+    rows = n if rows is None else rows
     dev = mat.device
     i64 = torch.int64
 
-    # ---- stage A: 64^3 tiles, t = (tz*n + ty)*n + tx -----------------------
-    t = torch.arange(n ** 3, dtype=i64, device=dev)
-    tx, ty, tz = t % n, (t // n) % n, t // (n * n)
-    lo, hi = fi(*_cell_boxes_3d(mat, tx, ty, tz, n), imms=imms)
+    # ---- stage A: 64^3 tiles, t = (tz*rows + tyl)*n + tx -------------------
+    t = torch.arange(n * rows * n, dtype=i64, device=dev)
+    tx, tyl, tz = t % n, (t // n) % rows, t // (n * rows)
+    lo, hi = fi(*_cell_boxes_3d(mat, tx, tyl + r0, tz, n), imms=imms)
     st0 = _classify(lo, hi)
-    # heightmap (ty, tx) of filled tiles' tops: (tz + 1) * 64
-    h0 = torch.where((st0 == ST_FILLED).reshape(n, n, n),
+    # heightmap (tyl, tx) of filled tiles' tops: (tz + 1) * 64
+    h0 = torch.where((st0 == ST_FILLED).reshape(n, rows, n),
                      (torch.arange(n, dtype=i64, device=dev) + 1)[:, None,
                                                                   None] * 64,
                      0).amax(dim=0)
-    cell64 = ty * n + tx
+    cell64 = tyl * n + tx
     surv0 = (st0 == ST_AMBIG) & ((tz + 1) * 64 > h0.reshape(-1)[cell64])
     ids0 = _ids(surv0)
 
     # ---- stage B: 16^3 children of the surviving tiles ---------------------
-    g16x, g16y, g16z = _children_of_cells(ids0 % n, (ids0 // n) % n,
-                                          ids0 // (n * n))
+    g16x, g16y, g16z = _children_of_cells(ids0 % n, (ids0 // n) % rows + r0,
+                                          ids0 // (n * rows))
     lo, hi = fi(*_cell_boxes_3d(mat, g16x, g16y, g16z, 4 * n), imms=imms)
     st1 = _classify(lo, hi)
     top1 = (g16z + 1) * 16
-    cell16 = g16y * (4 * n) + g16x
+    cell16 = (g16y - 4 * r0) * (4 * n) + g16x
     h16 = _up(h0, 4).reshape(-1).scatter_reduce(
         0, cell16, torch.where(st1 == ST_FILLED, top1, 0), "amax")
     surv1 = (st1 == ST_AMBIG) & (top1 > h16[cell16])
@@ -243,8 +320,8 @@ def _stages3d(fi, mat, size: int, skip4: bool, imms) -> Stages3d:
     lo, hi = fi(*_cell_boxes_3d(mat, g4x, g4y, g4z, 16 * n), imms=imms)
     st2 = _classify(lo, hi)
     top2 = (g4z + 1) * 4
-    cell4 = g4y * (16 * n) + g4x
-    h4 = _up(h16.reshape(4 * n, 4 * n), 4).reshape(-1).scatter_reduce(
+    cell4 = (g4y - 16 * r0) * (16 * n) + g4x
+    h4 = _up(h16.reshape(4 * rows, 4 * n), 4).reshape(-1).scatter_reduce(
         0, cell4, torch.where(st2 == ST_FILLED, top2, 0), "amax")
     surv2 = (st2 == ST_AMBIG) & (top2 > h4[cell4])
     ids2 = _ids(surv2)
@@ -271,11 +348,12 @@ def voxel_launches(cells: int, k: int) -> int:
     return -(-cells // step)
 
 
-def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms):
+def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms, r0: int = 0):
     """The voxel stage: every voxel of the ``k``^3 cells ``cells`` (gx,
     gy, gz in the grid of ``k``-voxel cells), a float launch for each
     chunk of at most VOXEL_LANES lanes; the top filled voxel of each
-    column max-reduced into ``depth`` (size*size,).  Returns the depth."""
+    column max-reduced into ``depth`` (rows*64*size,: the slab at tile row
+    ``r0``).  Returns the depth."""
     cx, cy, cz = cells
     vv = torch.arange(k ** 3, dtype=torch.int64, device=depth.device)
     vx, vy, vz = vv % k, (vv // k) % k, vv // (k * k)
@@ -287,7 +365,7 @@ def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms):
         gvz = (bz[:, None] * k + vz[None, :]).reshape(-1)
         hit = _voxel_hits(f, mat, gvx, gvy, gvz, size, imms)
         patch = hit.reshape(-1, k, k * k).amax(dim=1)      # max over vz
-        pix = (gvy.reshape(-1, k, k * k)[:, 0] * size
+        pix = ((gvy.reshape(-1, k, k * k)[:, 0] - 64 * r0) * size
                + gvx.reshape(-1, k, k * k)[:, 0])
         depth = depth.scatter_reduce(0, pix.reshape(-1), patch.reshape(-1),
                                      "amax")
@@ -295,52 +373,57 @@ def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms):
 
 
 def _render3d_impl(fi, f, fd, mat, size: int, with_normals: bool,
-                   skip4: bool = False, imms=None):
-    """The 3D ladder: :func:`_stages3d`, then the voxels of the surviving
-    4^3 cells (of the surviving 16^3 cells under ``skip4``: interval-
-    hostile models spend more on the 4^3 stage than it saves) over the
-    heightmap of the filled cells.  Returns (depth (size, size) int32,
-    normals (size, size, 3) f32 or None, counts (n0, n1, n2, 0, 0, nN)):
-    surviving 64^3 tiles, 16^3 cells and 4^3 cells (0 under ``skip4``),
-    and screen tiles with content."""
+                   skip4: bool = False, imms=None, r0: int = 0,
+                   rows: Optional[int] = None):
+    """The 3D ladder on the slab of screen tile rows ``[r0, r0 + rows)``
+    (default: the whole image): :func:`_stages3d`, then the voxels of the
+    surviving 4^3 cells (of the surviving 16^3 cells under ``skip4``:
+    interval-hostile models spend more on the 4^3 stage than it saves)
+    over the heightmap of the filled cells.  Returns (depth (rows*64,
+    size) int32, normals (rows*64, size, 3) f32 or None, counts (n0, n1,
+    n2, 0, 0, nN)): surviving 64^3 tiles, 16^3 cells and 4^3 cells (0
+    under ``skip4``), and screen tiles with content."""
     n = size // 64
-    s = _stages3d(fi, mat, size, skip4, imms)
+    rows = n if rows is None else rows
+    s = _stages3d(fi, mat, size, skip4, imms, r0, rows)
     if skip4:
         depth = _voxel_stage(f, mat, s.c16, 16, size, _up(
-            s.h16.reshape(4 * n, 4 * n), 16).reshape(-1), imms)
+            s.h16.reshape(4 * rows, 4 * n), 16).reshape(-1), imms, r0)
     else:
         depth = _voxel_stage(f, mat, s.c4, 4, size, _up(
-            s.h4.reshape(16 * n, 16 * n), 4).reshape(-1), imms)
-    depth = depth.reshape(size, size).to(torch.int32)
+            s.h4.reshape(16 * rows, 16 * n), 4).reshape(-1), imms, r0)
+    depth = depth.reshape(rows * 64, size).to(torch.int32)
     counts = list(s.counts) + [0, 0, 0]
     if not with_normals:
         return depth, None, tuple(counts)
-    normals, counts[5] = _normals_pass(fd, mat, depth, size, imms)
+    normals, counts[5] = _normals_pass(fd, mat, depth, size, imms, r0)
     return depth, normals, tuple(counts)
 
 
-def _normals_pass(fd, mat, depth, size: int, imms):
+def _normals_pass(fd, mat, depth, size: int, imms, r0: int = 0):
     """Normals: forward-mode derivatives one voxel in front of the surface
     (eval_pixels_d, reference/src/context.cu:978-1132), on every pixel of
-    the 64px screen tiles with content.  Returns ((size, size, 3) f32,
-    count of those tiles)."""
+    the 64px screen tiles with content, of the depth slab at tile row
+    ``r0``.  Returns ((rows*64, size, 3) f32, count of those tiles)."""
     n = size // 64
+    rows = depth.shape[0] // TILE
     dev = depth.device
-    blocks = depth.reshape(n, TILE, n, TILE).permute(0, 2, 1, 3).reshape(
-        n * n, TILE * TILE)
+    blocks = depth.reshape(rows, TILE, n, TILE).permute(0, 2, 1, 3).reshape(
+        rows * n, TILE * TILE)
     idsN = _ids(blocks.amax(dim=1) > 0)
     pp = torch.arange(TILE * TILE, dtype=torch.int64, device=dev)
     gpx = ((idsN % n)[:, None] * TILE + (pp % TILE)[None, :]).reshape(-1)
     gpy = ((idsN // n)[:, None] * TILE + (pp // TILE)[None, :]).reshape(-1)
     d = blocks[idsN].reshape(-1)
     zi = torch.clamp_max(d, size - 1)
-    wx, wy, wz = camera.transform3(mat, _center(gpx, size), _center(gpy, size),
+    wx, wy, wz = camera.transform3(mat, _center(gpx, size),
+                                   _center(gpy + TILE * r0, size),
                                    _center(zi, size))
     _, dx, dy, dz = fd(wx, wy, wz, imms=imms)
     norm = tc.sqrt(dx * dx + dy * dy + dz * dz)
     inv = torch.where(d > 0, torch.div(1.0, torch.clamp_min(norm, 1e-12)),
                       0.0)
-    img = torch.zeros(size, size, 3, dtype=torch.float32, device=dev)
+    img = torch.zeros(rows * TILE, size, 3, dtype=torch.float32, device=dev)
     img[gpy, gpx] = torch.stack([dx * inv, dy * inv, dz * inv], dim=-1)
     return img, int(idsN.shape[0])
 
@@ -483,6 +566,71 @@ class UnrolledRenderer:
                                          size, with_normals, imms, skip4)
         return (depth.cpu().numpy(),
                 None if normals is None else normals.cpu().numpy())
+
+    # -- sharded over a process group (parallel/sharded.py) ----------------
+
+    def render2d_sharded(self, mat=None, z: float = 0.0, size: int = 256,
+                         mesh=None, imms=None, device=None) -> np.ndarray:
+        """:meth:`render2d` with each rank of ``mesh`` (default: the
+        default process group, or one process) rendering a slab of 64px
+        tile rows; every rank returns the whole image, equal to the
+        one-device render."""
+        from ..parallel.sharded import _all_gather, make_mesh
+        mesh = make_mesh() if mesh is None else mesh
+        n64 = size // 64
+        if n64 % mesh.size:
+            raise ValueError(f"size {size}: {mesh.size} ranks must divide "
+                             f"{n64} tile rows")
+        rows = n64 // mesh.size
+        dev = resolve_device(device)
+        mat = camera.identity2() if mat is None else np.asarray(
+            mat, np.float32)
+        self._ready(dev, [self.fi, self.f])
+        img, _ = _render2d_impl(
+            self.fi, self.f, torch.as_tensor(mat, device=dev),
+            torch.tensor(z, dtype=torch.float32, device=dev), size,
+            self._imms_arg(imms, dev), mesh.rank * rows, rows)
+        return torch.cat(_all_gather(mesh, img.to(torch.uint8)),
+                         0).bool().cpu().numpy()
+
+    def render3d_sharded(self, mat=None, size: int = 256, mesh=None,
+                         with_normals: bool = True, imms=None, device=None,
+                         skip4=None):
+        """:meth:`render3d` with each rank of ``mesh`` rendering a slab of
+        64px tile rows (whole z columns, so the occlusion culls stay
+        exact); every rank returns the whole (depth, normals or None).
+        The skip4 decision reads the most any rank counted."""
+        import torch.distributed as dist
+
+        from ..parallel.sharded import _all_gather, _all_reduce, make_mesh
+        mesh = make_mesh() if mesh is None else mesh
+        n = size // 64
+        if n % mesh.size:
+            raise ValueError(f"size {size}: {mesh.size} ranks must divide "
+                             f"{n} tile rows")
+        rows = n // mesh.size
+        dev = resolve_device(device)
+        mat = camera.identity3() if mat is None else np.asarray(
+            mat, np.float32)
+        key = ("3ds", size, mesh.size)
+        if skip4 is None:
+            skip4 = self._skip4_decide(key)
+        self._ready(dev, [self.fi, self.f] + ([self.fd] if with_normals
+                                              else []))
+        depth, normals, cnt = _render3d_impl(
+            self.fi, self.f, self.fd, torch.as_tensor(mat, device=dev),
+            size, with_normals, skip4, self._imms_arg(imms, dev),
+            mesh.rank * rows, rows)
+        cnt = _all_reduce(mesh, torch.tensor(cnt, device=dev),
+                          dist.ReduceOp.MAX).tolist()
+        if skip4:
+            prev = self._obs.get(key)
+            cnt[2] = prev[2] if prev is not None else 0
+        self._obs[key] = tuple(cnt)
+        depth = torch.cat(_all_gather(mesh, depth), 0).cpu().numpy()
+        if not with_normals:
+            return depth, None
+        return depth, torch.cat(_all_gather(mesh, normals), 0).cpu().numpy()
 
     def steady_frame3d(self, mat, size: int, with_normals: bool = True,
                        device=None):

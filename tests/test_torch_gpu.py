@@ -1045,15 +1045,180 @@ def test_unrolled_imm_change_builds_nothing(cuda):
 
 
 def test_unrolled_kernels_are_forward_only(cuda):
+    """Baked, interval and deriv kernels do not differentiate in imms on
+    the card; the imm-input float evaluator does, through kernel K1."""
     tape = mpr_tpu_torch.compile_tree(shapes.circle(0.5))
-    ev = ue.build_float(tape, take_imms=True)
     x = torch.linspace(-1, 1, 100, device=cuda)
     imms = torch.as_tensor(tape.imms, device=cuda).requires_grad_(True)
+    fi = ue.build_interval(tape, take_imms=True)
     with pytest.raises(RuntimeError, match="forward-only"):
-        ev(x, x, x, imms=imms)
-    # the plain version is the differentiable one
-    ev.plain(x, x, x, imms=imms).sum().backward()
-    assert imms.grad is not None
+        fi(x, x, x, x, x, x, imms=imms)
+    with pytest.raises(RuntimeError, match="no imms to differentiate"):
+        ue.build_float(tape).vjp
+    ev = ue.build_float(tape, take_imms=True)
+    before = ue.unrolled_float_vjp.launches
+    ev(x, x, x, imms=imms).sum().backward()
+    assert ue.unrolled_float_vjp.launches == before + 1
+    im = imms.detach().clone().requires_grad_(True)
+    ev.plain(x, x, x, imms=im).sum().backward()
+    assert torch.allclose(imms.grad, im.grad, rtol=0,
+                          atol=1e-5 * float(im.grad.abs().max()))
+
+
+# The backward kernels K1 (generated per tape) and K2 (the interpreter's
+# adjoint) against their plain versions, autograd through the plain walks,
+# on the chip cells' tapes.  Tolerance: the largest difference within 1e-4
+# of the largest component (float32 sums over the lanes in another order:
+# warp shuffles, shared atomics, blocks; measured 4e-7).
+BACKWARD_TAPES = {
+    "stress_2d(600)": lambda: shapes.stress_2d(600),
+    "gyroid": lambda: shapes.intersection(shapes.gyroid(0.4, 0.08),
+                                          shapes.sphere(0.85)),
+    "extruded_stress": lambda: shapes.extrude_z(shapes.stress_2d(300),
+                                                -0.4, 0.4),
+    "all_ops": None,
+}
+
+
+def _backward_case(name, cuda, n=70001):
+    tape = (Tape.from_arrays(**all_ops_clauses()) if name == "all_ops"
+            else mpr_tpu_torch.compile_tree(BACKWARD_TAPES[name]()))
+    rng = np.random.default_rng(5)
+    x, y, z, g = (torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32),
+                                  device=cuda) for _ in range(4))
+    return tape, x, y, z, g
+
+
+def _close(got, want):
+    scale = float(want.abs().max())
+    assert scale > 0 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("name", list(BACKWARD_TAPES))
+def test_k1_matches_autograd_of_the_plain_walk(cuda, name):
+    tape, x, y, z, g = _backward_case(name, cuda)
+    ev = ue.build_float(tape, take_imms=True)
+    imms = torch.as_tensor(tape.imms, device=cuda)
+    before = ue.unrolled_float_vjp.launches
+    got = ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms)
+    chunk = ue.VALS_BYTES // (8 * tape.length)      # lanes a launch
+    assert ue.unrolled_float_vjp.launches - before == -(-x.numel() // chunk)
+    im = imms.clone().requires_grad_(True)
+    want, = torch.autograd.grad(ev.plain(x, y, z, imms=im), im, g)
+    _close(got, want)
+
+
+def test_k1_in_chunks_equals_one_launch(cuda, monkeypatch):
+    tape, x, y, z, g = _backward_case("stress_2d(600)", cuda)
+    ev = ue.build_float(tape, take_imms=True)
+    imms = torch.as_tensor(tape.imms, device=cuda)
+    one = ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms)
+    monkeypatch.setattr(ue, "VALS_BYTES", 8 * tape.length * 9000)
+    before = ue.unrolled_float_vjp.launches
+    chunked = ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms)
+    assert ue.unrolled_float_vjp.launches - before == -(-x.numel() // 9000)
+    _close(chunked, one)
+
+
+@pytest.mark.parametrize("name", list(BACKWARD_TAPES))
+def test_k2_matches_autograd_of_the_plain_walk(cuda, name):
+    from mpr_tpu_torch.ops import eval_scan
+    tape, x, y, z, g = _backward_case(name, cuda)
+    td = TapeData.from_tape(tape, device=cuda)
+    v = eval_scan.scan_eval(td, x, y, z)
+    assert torch.equal(torch.nan_to_num(v, 7.0), torch.nan_to_num(
+        eval_scan.eval_f_plain(td, x, y, z), 7.0))
+    before = eval_scan.scan_adjoint.launches
+    got = eval_scan.scan_adjoint(td, x, y, z, g)
+    chunk = eval_scan.VALS_BYTES // (4 * tape.length)  # lanes a launch
+    assert eval_scan.scan_adjoint.launches - before == -(-x.numel() // chunk)
+    im = td.imms.clone().requires_grad_(True)
+    want, = torch.autograd.grad(
+        eval_scan.eval_f_plain(td.replace_imms(im), x, y, z), im, g)
+    _close(got, want)
+    # in chunks of lanes (several K2f/K2 launches) the same
+    old = eval_scan.VALS_BYTES
+    eval_scan.VALS_BYTES = 4 * tape.length * 20000
+    try:
+        _close(eval_scan.scan_adjoint(td, x, y, z, g), want)
+    finally:
+        eval_scan.VALS_BYTES = old
+
+
+@pytest.mark.parametrize("engine", ["scan", "unrolled", "culled", "3d",
+                                    "window"])
+def test_params_only_masks_on_the_card(cuda, engine):
+    from mpr_tpu_torch.parallel import sharded
+    mode = "3d" if engine in ("3d", "window") else "2d"
+    if mode == "2d":
+        tree = shapes.union(T.sqrt(T.square(T.x() - 0.1) + T.square(T.y()))
+                            - T.var("r", 0.45), shapes.circle(0.2, cx=-0.5))
+    else:
+        tree = shapes.union(T.sqrt(T.square(T.x()) + T.square(T.y())
+                                   + T.square(T.z())) - T.var("r", 0.5),
+                            shapes.sphere(0.2, cx=0.6))
+    tape = mpr_tpu_torch.compile_tree(tree)
+    mask = np.zeros(tape.length, np.float32)
+    mask[tape.params["r"]] = 1.0
+    size = {"3d": 16, "window": 64, "culled": 128}.get(engine, 64)
+    import dataclasses
+    from mpr_tpu_torch import cli
+    tt = dataclasses.replace(tape, imms=tape.imms_with({"r": 0.55}))
+    tgt = (cli._oracle_fill(tt, size).astype(np.float32) if mode == "2d"
+           else cli._oracle_depth(tt, size))
+    kw = dict(lr=1e-2, grad_mask=mask)
+    if engine == "scan":
+        step, st = sharded.make_fit_step(size, **kw), TapeData.from_tape(tape)
+    else:
+        make = {"unrolled": sharded.make_fit_step_unrolled,
+                "culled": sharded.make_fit_step_culled,
+                "3d": sharded.make_fit_step_3d,
+                "window": sharded.make_fit_step_3d_window}[engine]
+        step, st = make(tape, size, **kw), torch.as_tensor(tape.imms,
+                                                           device=cuda)
+    launches = (ue.unrolled_float_vjp.launches,
+                __import__("mpr_tpu_torch.ops.eval_scan",
+                           fromlist=["x"]).scan_adjoint.launches)
+    _, new = step(st, tgt)
+    new = (new.imms if hasattr(new, "imms") else new).cpu().numpy()
+    old = (st.imms if hasattr(st, "imms") else st).cpu().numpy()
+    moved = np.flatnonzero(new[:tape.length] != old[:tape.length])
+    assert len(moved) and set(moved) <= set(tape.params["r"])
+    from mpr_tpu_torch.ops import eval_scan
+    now = (ue.unrolled_float_vjp.launches, eval_scan.scan_adjoint.launches)
+    assert now[engine == "scan"] > launches[engine == "scan"]
+
+
+def test_hypot_padding_does_not_nan_poison_the_gradient(cuda):
+    """A tape singular at the origin (hypot), on a lane count that leaves
+    dead lanes in K1's and K2's last blocks and in the culled soft
+    render: the gradient stays finite and equal to the plain one."""
+    from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.parallel import sharded
+    tree = T.hypot(T.x(), T.y()) - 0.5 if hasattr(T, "hypot") else (
+        T.sqrt(T.square(T.x()) + T.square(T.y())) - 0.5)
+    tape = mpr_tpu_torch.compile_tree(tree)
+    n = 1000
+    rng = np.random.default_rng(9)
+    x, y, g = (torch.as_tensor(rng.uniform(0.05, 1, n).astype(np.float32),
+                               device=cuda) for _ in range(3))
+    z = torch.zeros_like(x)
+    ev = ue.build_float(tape, take_imms=True)
+    imms = torch.as_tensor(tape.imms, device=cuda)
+    got = ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms)
+    im = imms.clone().requires_grad_(True)
+    want, = torch.autograd.grad(ev.plain(x, y, z, imms=im), im, g)
+    _close(got, want)
+    td = TapeData.from_tape(tape, device=cuda)
+    got2 = eval_scan.scan_adjoint(td, x, y, z, g)
+    assert torch.isfinite(got2).all()
+    target = np.zeros((128, 128), np.float32)
+    target[40:90, 40:90] = 1.0
+    step = sharded.make_fit_step_culled(tape, 128, lr=2.0 ** 20)
+    loss, new = step(imms, target)
+    assert torch.isfinite(new).all() and bool(torch.isfinite(loss))
+    assert not torch.equal(new, imms)
 
 
 def test_a_failed_build_raises_with_no_fallback(cuda, monkeypatch,
