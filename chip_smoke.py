@@ -111,7 +111,7 @@ Phases (any failure exits non-zero before the final line):
      bounds; the sharded renders and a sharded step under an NCCL group
      of one, equal to the one-device results; ``cli fit`` (three engines,
      both modes, ``--params-only``) and ``cli mesh`` (both methods) as
-     subprocesses;
+     subprocesses, and ``cli render2d --sharded --check`` on both engines;
  12. print the kernel times of the previous designs of A, B, C, C2, V and
      D (recorded, labelled as such; not measured here), the card line, one
      JSON ``kernels`` line (the eight TPU kernels' rows, then the three
@@ -2512,6 +2512,9 @@ def run_fit(ctx, results, launches, pre):
                   "--params-only", "--out", "f_params.npz"]]
         runs += [["mesh", gpath, "--size", "96", "--method", m, "--out",
                   os.path.join(tmp, f"g_{m}.stl")] for m in ("mt", "dc")]
+        runs += [["render2d", "stress:40", "--size", "256", "--sharded",
+                  "--engine", eng, "--check", "--out", f"s_{eng}.png"]
+                 for eng in ("interp", "unrolled")]
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, "-m", "mpr_tpu_torch.cli",
                                    *argv, *CLI_EXTRA], cwd=tmp, env=env,
@@ -2528,7 +2531,7 @@ def run_fit(ctx, results, launches, pre):
         print(f"cli: {len(runs)} runs in parallel, {time.perf_counter() - t0:.1f}"
               f" s  [{card}]")
         for argv, p, (so, se) in zip(runs, procs, outs):
-            shown = (argv if argv[0] == "fit" else
+            shown = (argv if argv[0] != "mesh" else
                      [argv[0], os.path.basename(argv[1])] + argv[2:-2])
             print(f"cli {' '.join(shown)}: exit {p.returncode}")
             for line in so.strip().splitlines():
@@ -2538,6 +2541,9 @@ def run_fit(ctx, results, launches, pre):
                 ls = [float(ln.split()[-1]) for ln in so.splitlines()
                       if ln.startswith("step ")]
                 check(len(ls) == 3, f"cli fit printed {len(ls)} steps")
+            elif argv[0] == "render2d":
+                check("oracle cross-check: mismatch 0.00e+00" in so,
+                      "cli render2d --sharded printed no exact cross-check")
             else:
                 tris = mmesh.read_stl(argv[-1])
                 check(len(tris) > 0 and mmesh.mesh_volume(tris) > 0,

@@ -384,11 +384,20 @@ RENDERING = [["render2d", "stress:12", "--size", "64"],
              ["shorten-stats", "stress:12", "--size", "64"],
              ["circle-figure", "--size", "64"],
              ["heatmap2d", "stress:12", "--size", "64"],
-             ["heatmap3d", "stress:12", "--size", "64"]]
+             ["heatmap3d", "stress:12", "--size", "64"],
+             ["render2d", "stress:12", "--size", "64", "--sharded"],
+             ["render3d", "stress:12", "--size", "64", "--sharded"],
+             ["fit", "stress:12", "--target", "stress:13", "--size", "64",
+              "--steps", "1"],
+             ["fit", "stress:12", "--target", "stress:13", "--size", "16",
+              "--steps", "1", "--mode", "3d"],
+             ["mesh", "stress:12", "--size", "16"]]
 
 
 @pytest.mark.parametrize("argv", RENDERING, ids=[
-    a[0] + ("-unrolled" if "unrolled" in a else "") for a in RENDERING])
+    a[0] + ("-unrolled" if "unrolled" in a else "")
+    + ("-sharded" if "--sharded" in a else "")
+    + ("-3d" if "--mode" in a else "") for a in RENDERING])
 def test_without_a_card_the_default_device_raises(argv, tmp_path,
                                                   monkeypatch):
     """``--device`` defaults to cuda; with no card every rendering command

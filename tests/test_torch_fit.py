@@ -385,15 +385,6 @@ def test_cli_fit_writes_frep_and_png_and_runs_as_a_script(tmp_path):
     assert np.array_equal(checkpoint.load_tape(jout).imms, jt.imms * 1.5)
 
 
-def test_cli_fit_without_a_card_raises(tmp_path, monkeypatch):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default runs on it")
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["fit", "stress:5", "--target", "stress:6", "--steps", "1"])
-    assert not list(tmp_path.iterdir())
-
-
 def test_k1_is_generated_in_segments(monkeypatch):
     """K1's sources (the card builds them): a forward half storing the
     clause values later clauses read, and reverse segments covering the
