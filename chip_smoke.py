@@ -9,9 +9,10 @@ Phases (any failure exits non-zero before the final line):
      CUDA kernels from ``mpr_tpu_torch/ops/csrc`` (nvcc, first use): the
      main library (every kernel, B, V and D at the shapes the render path
      picks; its seconds are the render path's first-use build) and then
-     the extra one (B, V and D at the other shapes, for phase 8b), with
-     ptxas's registers, stack frame and spills for every instantiation of
-     A, B, C, C2, V and D (a spill fails the run at its end);
+     the extra one (B, V, D and K2 at the other shapes, for phase 8b and
+     phase 14's forced shapes), with ptxas's registers, stack frame and
+     spills for every instantiation of A, B, C, C2, V, D, K2f and K2 (a
+     spill fails the run at its end);
   2. the 2D path: with every launch count set to 0, render the
      ``stress_2d(600)`` model at 1024^2 and ``stress_2d(1500)`` at 2048^2
      through ``mpr_tpu_torch.render.render2d``, recording each kernel's
@@ -106,14 +107,20 @@ Phases (any failure exits non-zero before the final line):
      step's gradient through the kernels against the same step through
      the plain versions (1e-4 of the largest component), the loss over
      four steps (it must fall), each step timed, the launch counts (K1 or
-     K2 must launch, no plain evaluator may run); K1, K2 and K2f on their
-     recorded inputs against their plain versions, timed beside their
-     bounds; the sharded renders and a sharded step under an NCCL group
+     K2 must launch, no plain evaluator may run); K1's and K2's launch
+     shapes with their ptxas registers (a spill in any K1 or K2 kernel
+     fails the run at its end); K1, K2 and K2f on their recorded inputs
+     against their plain versions, timed beside their bounds (operations
+     counted from the tape's forward walk and its VJP rules,
+     ``vjp_plan.vjp_ops``) and K1's and K2's designs' own byte floors
+     (what the storage plan writes and reads), K2 also at forced launch
+     shapes; the sharded renders and a sharded step under an NCCL group
      of one, equal to the one-device results; ``cli fit`` (three engines,
      both modes, ``--params-only``) and ``cli mesh`` (both methods) as
      subprocesses, and ``cli render2d --sharded --check`` on both engines;
- 12. print the kernel times of the previous designs of A, B, C, C2, V and
-     D (recorded, labelled as such; not measured here), the card line, one
+ 12. print the kernel times of the previous designs of A, B, C, C2, V, D,
+     K1 and K2 (recorded, labelled as such; not measured here), the card
+     line, one
      JSON ``kernels`` line (the eight TPU kernels' rows, then the three
      generated kernels' and K1, K2 and K2f, marked ``port_kernel``), and
      last ``{"ok": true, "device": {...}}``.
@@ -231,7 +238,8 @@ COORD_OPS = 42
 # register-file redesign, at the two 3D cells; A before the level walk and
 # B before the register file of regfile.cuh, at the 1024^2 cell; C before
 # its warp-a-row and block-a-row redesign, device time summed over a
-# frame's launches at each cell; C2 the same, events at the 1024^2 cell):
+# frame's launches at each cell; C2 the same, events at the 1024^2 cell;
+# K1 and K2 at the fits of phase 14):
 # recorded by this script on NVIDIA H100 80GB HBM3, 700.00 W, and printed
 # on a line of their own as recorded values, apart from this run's
 # measurements.
@@ -246,7 +254,16 @@ PREVIOUS_DESIGN_MS = {"voxel_eval_3d": {"gyroid_sphere": 15.221,
                           "stress_2d(1500) 2048^2": 0.0790,
                           "gyroid_sphere": 0.2902,
                           "extruded_stress": 0.3162},
-                      "compact_bitshift": {"stress_2d(600) 1024^2": 0.0438}}
+                      "compact_bitshift": {"stress_2d(600) 1024^2": 0.0438},
+                      # K1 and K2 before their redesign (the clause values
+                      # all stored, adjoints handed over in a zero-filled
+                      # plane; K2's file in local memory, a lane a thread),
+                      # device time of a call at each fit of phase 14
+                      "unrolled_float_vjp": {"culled 1024^2": 96.825,
+                                             "3d window 512": 75.961,
+                                             "unrolled 256^2": 6.700,
+                                             "3d grid=32": 0.0121},
+                      "scan_adjoint": {"scan 256^2": 29.977}}
 # Kernel A's dependency bound: each level costs a shared-memory round trip
 # (about 30 cycles) and a barrier (about 20 cycles), at 1.98 GHz, twice (the
 # forward and the backward pass).  An estimate from the card's published
@@ -1368,10 +1385,11 @@ def bound(r):
 
 def ptxas_rows(log):
     """(kernel, K, bucket, registers, stack bytes, spill stores, spill
-    loads) for each instantiation of kernels B, V and D in nvcc's -Xptxas
-    -v output (bucket 0 is the shared home), of kernel A (K is 1 with
-    widening, 0 without; bucket 0) and of kernels C and C2 (K is 1 for a
-    warp a row, 0 for a block a row; bucket 0)."""
+    loads) for each instantiation of kernels B, V, D and K2 in nvcc's
+    -Xptxas -v output (bucket 0 is the shared home), of kernel A (K is 1
+    with widening, 0 without; bucket 0), of kernels C and C2 (K is 1 for a
+    warp a row, 0 for a block a row; bucket 0) and of K2f (K is 1 where it
+    stores the plan for K2, 0 for the plain walk; bucket 0)."""
     import re
     rows, cur = [], None
     for line in log.splitlines():
@@ -1381,8 +1399,14 @@ def ptxas_rows(log):
         if m:
             cur = [m.group(1), int(m.group(2)), int(m.group(3))]
             continue
+        m = re.search(r"Function properties for \S*?(scan_adjoint_kernel)"
+                      r"ILi(\d+)ELi(\d+)E", line)
+        if m:
+            cur = [m.group(1), int(m.group(2)), int(m.group(3))]
+            continue
         m = re.search(r"Function properties for \S*?(interval_shorten_kernel|"
-                      r"compact_kernel|compact_order_kernel)ILb(\d)E", line)
+                      r"compact_kernel|compact_order_kernel|scan_eval_kernel)"
+                      r"ILb(\d)E", line)
         if m:
             cur = [m.group(1), int(m.group(2)), 0]
             continue
@@ -1404,16 +1428,18 @@ def ptxas_rows(log):
 
 def print_ptxas(tk3, logs):
     """Registers, stack frame and spills of every instantiation of A, B,
-    V and D in the libraries' nvcc logs (``{library: log}``; bucket 0:
-    the files in shared memory; else local, or for D split by warps).
-    Every (kernel, K, bucket) of B, V and D must be built, those of
-    ``tk3.MAIN_K`` in the main library, and both of A's (with and without
-    widening), C's and C2's (a warp or a block a row) in the main library.
+    C, C2, V, D, K2f and K2 in the libraries' nvcc logs (``{library:
+    log}``; bucket 0: the files in shared memory; else local, or for D
+    split by warps).  Every (kernel, K, bucket) of B, V, D and K2 must be
+    built, those of ``tk3.MAIN_K`` in the main library, and both of A's
+    (with and without widening), C's and C2's (a warp or a block a row)
+    and K2f's (storing the plan or not) in the main library.
     Returns the instantiations that spill: the run fails on them once every
     phase has run."""
     names = {"pixel_eval_kernel": "pixel_eval_runs",
              "voxel_eval_kernel": "voxel_eval_3d",
-             "deriv_eval_kernel": "deriv_eval_3d"}
+             "deriv_eval_kernel": "deriv_eval_3d",
+             "scan_adjoint_kernel": "scan_adjoint"}
     spills, built = [], {}
     for lib_name, log in sorted(logs.items()):
         for kern, k, bucket, regs, stack, st, ld in sorted(ptxas_rows(log)):
@@ -1422,6 +1448,8 @@ def print_ptxas(tk3, logs):
                 shape = "widen" if k else "no widening"
             elif kern.startswith("compact"):
                 shape = "a warp a row" if k else "a block a row"
+            elif kern.startswith("scan_eval"):
+                shape = "storing the plan" if k else "plain walk"
             else:
                 shape = f"K={k} " + ("shared" if bucket == 0 else (
                     f"local/split {bucket} slots" if kern.startswith("deriv")
@@ -1431,8 +1459,9 @@ def print_ptxas(tk3, logs):
                   f"{ld} B spill loads")
             if st + ld:
                 spills.append(f"{kern} K={k} bucket {bucket}")
+    from mpr_tpu_torch.ops import launch as ln
     for kern, name in names.items():
-        for k in tk3.KS:
+        for k in (tk3.KS if name != "scan_adjoint" else ln.ADJ_KS):
             for bucket in (0,) + tk3.BUCKETS:
                 want = ("main" if k == tk3.MAIN_K[name][bucket != 0]
                         else "extra")
@@ -1446,6 +1475,9 @@ def print_ptxas(tk3, logs):
         for warp in (0, 1):
             check("main" in built.get((kern, warp, 0), ()),
                   f"{kern} (warp a row {warp}) is not in the main library")
+    for store in (0, 1):
+        check("main" in built.get(("scan_eval_kernel", store, 0), ()),
+              f"K2f (store {store}) is not in the main library")
     return spills
 
 
@@ -2012,7 +2044,10 @@ def run_unrolled(ctx, results, launches, pre):
                                for x in c),
             "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-            "library_ms": None, "at": at, "per_cell": per,
+            "library_ms": None, "at": at,
+            "floor_ms": (round(p["floor_ms"], 6) if "floor_ms" in p
+                         else None),
+            "launch_shape": p.get("launch_shape"), "per_cell": per,
             "build_s": {c: round(ue.BUILDS[e.key]["seconds"], 2)
                         for (c, *_), trio in zip(cells, zip(*[iter(evals)] * 3))
                         for e in trio if "unrolled_" + e.kind == kname}})
@@ -2058,11 +2093,24 @@ CLI_EXTRA = []
 FIT_GRAD_TOL = 1e-4
 # lanes a plain VJP takes at once (autograd keeps every clause's output)
 PLAIN_CHUNK = 1 << 16
-# Float operations of the interpreter's adjoint a clause, beside its
-# forward FLOAT_OPS: each partial a product or a quotient and each
-# accumulation an add, about twice the forward's (an estimate from
-# scan_adjoint.cu's rules, stated as such).
-ADJ_FACTOR = 2
+# Forced launch shapes of K2 timed at the scan fit (adjoint_launch's
+# keyword arguments)
+EDGE_K2 = ([dict(home="shared", k=kk) for kk in (2, 4)]
+           + [dict(home="local", k=kk, threads=t) for kk, t in
+              ((2, 64), (2, 128), (2, 256), (4, 64), (4, 128))])
+
+
+def vjp_ops(tape):
+    """Float operations a lane of d(sum g f)/d(imms) needs, whatever
+    computes it: the forward walk's (FLOAT_OPS, every clause) and each
+    reverse step's (``vjp_plan.vjp_ops``: the rule's operations and one
+    addition a share handed on, every clause whose output reaches the
+    result)."""
+    from mpr_tpu_torch.ops import vjp_plan as vp
+    plan = vp.plan_of_tape(tape)
+    ops = [int(o) for o in tape.ops]
+    return (sum(FLOAT_OPS.get(o, 0) for o in ops)
+            + sum(vp.vjp_ops(o) for o, h in zip(ops, plan.has) if h))
 
 
 def fit_cells():
@@ -2179,6 +2227,63 @@ def plain_vjp_scan(eval_scan, td, x, y, z, g):
     return out
 
 
+def half_ms(kname, a, ue, eval_scan):
+    """The forward half of K1 (its bare launch) or K2's K2f storing the
+    plan, alone, on a recorded call's inputs: {"forward_ms": events}."""
+    import torch
+    from mpr_tpu_torch.ops import vjp_plan as vp
+    if kname == "unrolled_float_vjp":
+        ev, x, y, z, g, imms = a
+        lanes = [t.reshape(-1).contiguous()
+                 for t in torch.broadcast_tensors(x, y, z)]
+        n, plan = lanes[0].numel(), ev.plan
+        if ue.vjp_chunk(plan, n) < n:
+            return {}
+        vals, ch = vp.workspace("K1", lanes[0].device, [
+            (vp.blocked_size(plan.n_vals, n), torch.float32),
+            (vp.blocked_size(plan.n_words, n), torch.int32)])
+        im = torch.as_tensor(imms, dtype=torch.float32,
+                             device=lanes[0].device).contiguous()
+        return {"forward_ms": cuda_ms(lambda: ue._launch(
+            ev.fwd, lanes, im, [vals, ch]), 5, 1)}
+    if kname == "scan_adjoint":
+        td, x, y, z, g = a
+        plan, n = td.vjp_plan()[0], x.numel()
+        vals, words = vp.workspace("K2", td.device, [
+            (vp.blocked_size(plan.n_vals, n), torch.float32),
+            (vp.blocked_size(plan.n_words, n), torch.int32)])
+        return {"forward_ms": cuda_ms(lambda: eval_scan.scan_eval(
+            td, x, y, z, store=(vals, words)), 5, 1)}
+    return {}
+
+
+def sweep_k2(eval_scan, ln, td, x, y, z, g, want, card):
+    """K2 (with its K2f) at each shape of ``EDGE_K2`` on a fit's recorded
+    inputs: each held to ``want`` (the plain gradient) within
+    FIT_GRAD_TOL, timed; a shape that does not fit is printed as
+    refused.  Returns {label: ms}."""
+    out = {}
+    s_cap = eval_scan.adjoint_s_cap(td)
+    scale = float(want.abs().max())
+    for kw in EDGE_K2:
+        try:
+            shape = ln.adjoint_launch(s_cap, td.length, **kw)
+        except ValueError:
+            print(f"    K2 shape {kw}: refused (does not fit)")
+            continue
+        label = f"{shape.home} {shape.threads}x{shape.k}"
+        got = eval_scan.scan_adjoint(td, x, y, z, g, launch=shape)
+        err = float((got - want).abs().max())
+        check(err <= FIT_GRAD_TOL * scale, f"K2 at {label} differs from "
+              f"its plain version by {err} (largest {scale})")
+        out[label] = cuda_ms(lambda: eval_scan.scan_adjoint(
+            td, x, y, z, g, launch=shape), 5, 1)
+        print(f"    K2 shape {label} (smem {shape.smem} B): "
+              f"{out[label]:.4f} ms with its K2f, max |err| {err:.3e} of "
+              f"{scale:.3e}  [{card}]")
+    return out
+
+
 def run_fit(ctx, results, launches, pre):
     """Phase 14: mesh export, the five fit steps on K1 and K2, the sharded
     render and step under a process group of one (NCCL), and ``cli fit``
@@ -2191,6 +2296,7 @@ def run_fit(ctx, results, launches, pre):
     import torch.distributed as dist
     from mpr_tpu_torch.io import mesh as mmesh
     from mpr_tpu_torch.ops import build, eval_scan
+    from mpr_tpu_torch.ops import launch as ln
     from mpr_tpu_torch.ops import unrolled_eval as ue
     from mpr_tpu_torch.ops.tape_data import TapeData
     from mpr_tpu_torch.parallel import sharded
@@ -2202,7 +2308,7 @@ def run_fit(ctx, results, launches, pre):
     cells = dict(pre["cells"])
     print(f"fit phase: {len(pre['evals'])} generated kernels built in "
           f"{pre['seconds']:.1f} s (beside phases 1 and 13)  [{card}]")
-    builds = {}
+    builds, k1_spills = {}, []
     for ev in pre["evals"]:
         b = ue.BUILDS[ev.key]
         regs, stack, spill = ptxas_of(b["log"])
@@ -2214,10 +2320,28 @@ def run_fit(ctx, results, launches, pre):
         print(f"  build {cell} {kind}: {ev.tape.length} clauses, "
               f"{b['seconds']:.1f} s of nvcc; {regs} registers, {stack} B "
               f"stack, spill stores/loads {spill} B")
-    for line in build.BuildStats.log["main"].split("== scan_adjoint.cu")[
-            1].split("==")[0].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  scan_adjoint.cu " + line.strip())
+        if ev.kind in ("vjp", "vjpf") and spill != "0/0":
+            k1_spills.append(f"{cell} {kind}: {spill} B")
+    results["k1_spills"] = k1_spills
+    for cell, tape in pre["cells"]:
+        vjp = ue.build_float(tape, take_imms=True).vjp
+        plan, sh = vjp.plan, vjp.shape
+        regs = [builds[cell][f"vjp{sg}"]["registers"] for sg in plan.segments]
+        print(f"K1 launch shape at {cell}: forward half a thread a lane "
+              f"({ue.ln.UNROLLED_THREADS} threads a block; "
+              f"{builds[cell]['vjpf']['registers']} registers), "
+              f"{len(plan.segments)} reverse segments of {sh['segment']} "
+              f"clauses ({sh['threads']} threads a block, launch bounds for "
+              f"{sh['min_blocks']} blocks an SM, at most {sh['live']} "
+              f"adjoints in registers; registers {regs}); plan: "
+              f"{plan.n_vals} values, {plan.n_words} choice words, "
+              f"{plan.n_handover} adjoints handed over ({plan.contributions} "
+              f"writes) a lane  [{card}]")
+    k2_regs = {}
+    for lib_name, log in sorted(build.BuildStats.log.items()):
+        for kern, k, bucket, regs, stack, st, ld in ptxas_rows(log):
+            if kern == "scan_adjoint_kernel":
+                k2_regs[(k, bucket)] = regs
 
     # ---- mesh export on the card ---------------------------------------------
     # The gyroid scene at n=128, both methods.  mpr_tpu's own meshes of it
@@ -2393,24 +2517,34 @@ def run_fit(ctx, results, launches, pre):
         for label, tape, a, kw, out in kcalls[kname]:
             if label in per:
                 continue            # the first launch of each fit
+            shape, floor = None, 0
             if kname == "unrolled_float_vjp":
                 ev, x, y, z, g, imms = a
                 run = (lambda: ue.unrolled_float_vjp(ev, x, y, z, g, imms))
                 plain = (lambda: plain_vjp_unrolled(ue, ev, x, y, z, g,
                                                     imms))
                 lanes = x.numel()
-                ops = lanes * sum(gen_ops(e.source()) for e in ev.segments)
+                ops = lanes * vjp_ops(tape)
+                floor = ev.plan.k1_floor_bytes(lanes)
+                shape = dict(ev.shape, chunks=-(-lanes // ue.vjp_chunk(
+                    ev.plan, lanes)))
             elif kname == "scan_adjoint":
                 td, x, y, z, g = a
                 run = (lambda: eval_scan.scan_adjoint(td, x, y, z, g))
                 plain = (lambda: plain_vjp_scan(eval_scan, td, x, y, z, g))
                 lanes = x.numel()
-                fops = sum(FLOAT_OPS.get(int(o), 0) for o in tape.ops)
-                ops = lanes * fops * (1 + ADJ_FACTOR)
+                ops = lanes * vjp_ops(tape)
+                floor = td.vjp_plan()[0].k2_floor_bytes(lanes)
+                s_cap = eval_scan.adjoint_s_cap(td)
+                pick = ln.adjoint_launch(s_cap, td.length)
+                shape = dict(home=pick.home, threads=pick.threads, k=pick.k,
+                             smem=pick.smem, bucket=pick.bucket, s_cap=s_cap,
+                             registers=k2_regs.get((pick.k, pick.bucket)))
+                print(f"K2 launch shape at {label}: {shape}  [{card}]")
             else:
                 td, x, y, z = a[:4]
-                if kw.get("vals") is not None or (len(a) > 4 and a[4]
-                                                  is not None):
+                if kw.get("store") is not None or (len(a) > 4 and a[4]
+                                                   is not None):
                     continue        # the adjoint's own forward launches
                 run = (lambda: eval_scan.scan_eval(td, x, y, z))
                 plain = (lambda: eval_scan.eval_f_plain(td, x, y, z))
@@ -2431,7 +2565,13 @@ def run_fit(ctx, results, launches, pre):
                   f"version by {err} (largest {scale})")
             rr = dict(lanes=lanes, clauses=tape.length, max_abs_err=err,
                       bytes=lanes * 16 + tape.length * 8, ops=ops)
+            if shape is not None:
+                rr["launch_shape"] = shape
+                # the design's own floor: what it stores and hands over,
+                # each written and read once, beside the function's bound
+                rr["floor_ms"] = (floor + rr["bytes"]) / PEAK_BYTES_PER_S * 1e3
             rr["ms"] = cuda_ms(run, 5, 1)
+            rr.update(half_ms(kname, a, ue, eval_scan))
             _, prow, _ = profile_frames(run, 3)
             rr["device_ms"] = (round(sum(v for _, v in prow), 6) if prow
                                else None)
@@ -2440,12 +2580,21 @@ def run_fit(ctx, results, launches, pre):
             rr["plain_ms"] = plain_s * 1e3
             rr["bound_ms"], rr["bound_by"] = bound(rr)
             per[label] = rr
+            floor_txt = (f", the design's own byte floor "
+                         f"{rr['floor_ms']:.5f} ms" if "floor_ms" in rr
+                         else "")
+            if "forward_ms" in rr:
+                floor_txt += ("; its forward half alone "
+                              f"{rr['forward_ms']:.4f} ms (events)")
             print(f"  {short} {kname} {label}: {lanes} lanes x "
                   f"{tape.length} clauses, {rr['ms']:.4f} ms (events; "
                   f"device, all kernels of the call, {rr['device_ms']}), "
                   f"plain {rr['plain_ms']:.1f} ms, bound "
-                  f"{rr['bound_ms']:.5f} ms ({rr['bound_by']}), max |err| "
-                  f"{err:.3e} of {scale:.3e}  [{card}]")
+                  f"{rr['bound_ms']:.5f} ms ({rr['bound_by']}){floor_txt}, "
+                  f"max |err| {err:.3e} of {scale:.3e}  [{card}]")
+            if kname == "scan_adjoint":
+                rr["sweep"] = sweep_k2(eval_scan, ln, td, x, y, z, g, want,
+                                       card)
             del got, want
         check(per, f"no launch of {kname} was recorded in the fit phase")
         rows[kname] = per
@@ -2570,6 +2719,9 @@ def run_fit(ctx, results, launches, pre):
             "ms": round(p["ms"], 6), "plain_ms": round(p["plain_ms"], 3),
             "bound_ms": round(p["bound_ms"], 6), "bound_by": p["bound_by"],
             "library_ms": None, "at": at,
+            "floor_ms": (round(p["floor_ms"], 6) if "floor_ms" in p
+                         else None),
+            "launch_shape": p.get("launch_shape"),
             "per_fit": {c: {k: (round(v, 6) if isinstance(v, float) else v)
                             for k, v in x.items()} for c, x in per.items()},
             "build_s": {c: {k: v["seconds"] for k, v in b.items()
@@ -2621,7 +2773,8 @@ def main() -> int:
         elif ("registers" in line or "spill" in line) and not any(
                 n in source for n in ("voxel_eval", "deriv_eval",
                                       "pixel_eval.cu", "interval_shorten",
-                                      "compact.cu", "compact_order.cu")):
+                                      "compact.cu", "compact_order.cu",
+                                      "scan_adjoint")):
             print("  " + line.strip())
     spills = print_ptxas(tk3, build.BuildStats.log)
 
@@ -2648,8 +2801,10 @@ def main() -> int:
     run_fit(ctx, results, launches, pre14)
     sys.stdout.flush()
 
-    check(not spills, f"kernel A, B, C, C2, V or D spills registers: "
-          f"{spills}")
+    check(not spills, f"kernel A, B, C, C2, V, D, K2f or K2 spills "
+          f"registers: {spills}")
+    check(not results["k1_spills"], f"kernel K1 spills registers: "
+          f"{results['k1_spills']}")
 
     # ---- 12. report -------------------------------------------------------------
     size = CASES[0][1]

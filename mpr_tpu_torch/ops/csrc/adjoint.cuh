@@ -38,6 +38,37 @@ __device__ __forceinline__ void acc_imm(float* acc, int t, float v) {
   if ((threadIdx.x & 31) == 0) atomicAdd(acc + t, v);
 }
 
+// Eight lanes' shares of eight immediates (the accumulator entries T0..T7)
+// at once, by a reduce-scatter over the warp: three exchange rounds halve
+// the values a lane holds (4, 2, 1 shuffles), two more finish the sums, and
+// eight lanes each add one sum into the accumulator: 9 shuffles and one
+// branch for eight immediates, where acc_imm takes 40 and eight.  Padding
+// entries pass 0 and any index.
+template <int T0, int T1, int T2, int T3, int T4, int T5, int T6, int T7>
+__device__ __forceinline__ void acc_imm8(float* acc, float v0, float v1,
+                                         float v2, float v3, float v4,
+                                         float v5, float v6, float v7) {
+  constexpr unsigned F = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+  const float w0 = (h4 ? v4 : v0) + __shfl_xor_sync(F, h4 ? v0 : v4, 16);
+  const float w1 = (h4 ? v5 : v1) + __shfl_xor_sync(F, h4 ? v1 : v5, 16);
+  const float w2 = (h4 ? v6 : v2) + __shfl_xor_sync(F, h4 ? v2 : v6, 16);
+  const float w3 = (h4 ? v7 : v3) + __shfl_xor_sync(F, h4 ? v3 : v7, 16);
+  const float u0 = (h3 ? w2 : w0) + __shfl_xor_sync(F, h3 ? w0 : w2, 8);
+  const float u1 = (h3 ? w3 : w1) + __shfl_xor_sync(F, h3 ? w1 : w3, 8);
+  float s = (h2 ? u1 : u0) + __shfl_xor_sync(F, h2 ? u0 : u1, 4);
+  s += __shfl_xor_sync(F, s, 2);
+  s += __shfl_xor_sync(F, s, 1);
+  if ((lane & 3) == 0) {
+    // lane bits 4, 3, 2 name the immediate whose sum the lane holds
+    const int j = (h4 ? 4 : 0) + (h3 ? 2 : 0) + (h2 ? 1 : 0);
+    const int t = j < 4 ? (j < 2 ? (j ? T1 : T0) : (j == 3 ? T3 : T2))
+                        : (j < 6 ? (j == 5 ? T5 : T4) : (j == 7 ? T7 : T6));
+    atomicAdd(acc + t, s);
+  }
+}
+
 // Zero the block's accumulator of T immediates.
 __device__ __forceinline__ void acc_zero(float* acc, int T) {
   for (int t = threadIdx.x; t < T; t += blockDim.x) acc[t] = 0.0f;

@@ -20,25 +20,33 @@
 // so each statement rounds as the plain torch version's operation does.
 //
 // Kernel K1, the VJP of an imm-input float evaluator, is generated per tape
-// too, in two halves (two libraries, built in parallel): the forward half
-// is a float evaluator (the frame above) that stores every clause value a
-// later clause reads, vals[t * n + lane] (out0); the reverse half
-// (MPR_UNROLLED_VJP_*: in0..in2 = x y z, in3 = the upstream gradient g),
-// in segments of at most 512 clauses, one kernel each (ops/unrolled_eval.py
-// VJP_SEGMENT), run last first, walks its clauses backwards in a
-// grid-stride loop over lanes: a clause whose value has an adjoint loads
-// its operands from vals, recomputes its statements and runs their reverse
-// sweep (jax.grad's rules, ops/unrolled_eval.py _CAdjoint.reverse); the
-// adjoints a segment hands to an earlier one go through adj (a float a
-// clause and lane); each immediate's share goes into the block's
-// accumulator in shared memory, written as the segment's columns of a row
-// of partials (blocks, T); the reduce entry then sums the rows into grad
-// (adjoint.cuh).  A single kernel that kept every forward value live into
-// its reverse sweep took 456 s of nvcc (sm_90a, on the H100's host) and
-// spilled 58 KB a thread on a 5,373-clause tape; one reverse kernel a
-// tape, 530 s.
-// Bound: the bytes of vals (written once, read about twice) for long
-// tapes, plus five shuffles an immediate a warp.
+// too, in two halves (libraries built in parallel), from the tape's storage
+// plan (ops/vjp_plan.py).  The forward half is a float evaluator (the frame
+// above) that stores only what the partials read: the values of the
+// non-linear rules' operands (and sqrt's, exp's and hypot's results) at
+// compact positions, row pos of vals (out0), and a 2-bit choice code for
+// each min/max clause, 16 to a word, row word of ch (out1), every array in
+// blocks of 128 lanes (entry (row, lane) at lane / 128 * rows * 128 + row *
+// 128 + lane % 128: a block's rows lie side by side); a lane past n
+// computes lane n - 1's values into its own entries.  The
+// reverse half (MPR_UNROLLED_VJP_*: in0..in2 = x y z, in3 = the upstream
+// gradient g), in segments of at most 512 clauses, one kernel each, run
+// last first, walks its clauses backwards in a grid-stride loop over
+// lanes: a clause whose output has an adjoint reads what its rule needs
+// (stored values, its choice code) and hands the rule's shares on, into
+// register adjoints, or into the handover array hand (row pos) for an
+// adjoint that an earlier segment reads (or that the plan parks to keep at
+// most 56 in registers), which the first contributor stores and the others
+// add to through L2 (__stcg / __ldcg: a handed-over value the compiler kept
+// in a register from its store to its read would undo the parking), and
+// nothing is zero-filled.  Each immediate's share goes into the
+// block's accumulator in shared memory, eight immediates reduced over the
+// warp at a time (mpr::acc_imm8), written as the segment's columns
+// of a row of partials (blocks, T); the reduce entry then sums the rows
+// into grad (adjoint.cuh).  A segment's launch bounds (MPR_VJP_THREADS,
+// MPR_VJP_MIN_BLOCKS) cap it at 128 registers, 16 warps an SM.
+// Bound: the bytes of vals, ch and hand (each written once and read about
+// once) for long tapes, plus five shuffles an immediate a warp.
 #pragma once
 
 #include <cstdint>
@@ -54,15 +62,25 @@ using mpr::c_asin;
 using mpr::c_acos;
 using mpr::c_atan;
 
-// jax.grad's share of a min/max's gradient for operand p (q the other
-// operand, r the result): 1 where p equals the result, 0.5 each at a tie,
-// 0 where the result is NaN.
-__device__ __forceinline__ float mpr_bal(float p, float q, float r) {
-  return p == r ? (q == r ? 0.5f : 1.0f) : 0.0f;
+// jax.grad's share of a min/max's gradient for its lhs (a) and its other
+// operand (b), from the clause's choice code c (bit 0: the lhs equals the
+// result, bit 1: the other operand does): 1 to the one equal to the result,
+// 0.5 each at a tie, 0 to both where the result is NaN.
+__device__ __forceinline__ float mpr_bal_a(uint32_t c) {
+  return (c & 1u) ? ((c & 2u) ? 0.5f : 1.0f) : 0.0f;
+}
+__device__ __forceinline__ float mpr_bal_b(uint32_t c) {
+  return (c & 2u) ? ((c & 1u) ? 0.5f : 1.0f) : 0.0f;
 }
 
 #ifndef MPR_UNROLLED_THREADS
 #define MPR_UNROLLED_THREADS 128
+#endif
+#ifndef MPR_VJP_THREADS
+#define MPR_VJP_THREADS 128
+#endif
+#ifndef MPR_VJP_MIN_BLOCKS
+#define MPR_VJP_MIN_BLOCKS 4
 #endif
 
 #define MPR_UNROLLED_PARAMS                                                  \
@@ -100,25 +118,26 @@ __device__ __forceinline__ float mpr_bal(float p, float q, float r) {
   }
 
 #define MPR_UNROLLED_VJP_KERNEL                                              \
-  __global__ void __launch_bounds__(MPR_UNROLLED_THREADS)                    \
+  __global__ void __launch_bounds__(MPR_VJP_THREADS, MPR_VJP_MIN_BLOCKS)     \
       mpr_unrolled_vjp_kernel(                                               \
           const float* __restrict__ in0, const float* __restrict__ in1,      \
           const float* __restrict__ in2, const float* __restrict__ in3,      \
           const float* __restrict__ imms, const float* __restrict__ vals,    \
-          float* __restrict__ adj, float* __restrict__ partials, int n,      \
-          int T)
+          const uint32_t* __restrict__ ch, float* __restrict__ hand,         \
+          float* __restrict__ partials, int n, int T)
 
 // K1's reverse half's C entry points: one segment's kernel on `blocks`
-// blocks over n lanes (its columns [T0, T1) of the partials, blocks x T
-// floats; the segment's clauses in shared memory), and the sum of the
-// partials' rows into grad (T floats; added to it with `accumulate`); each
-// returns the first CUDA error (0 when the launch was taken).
+// blocks of MPR_VJP_THREADS over n lanes (its columns [T0, T1) of the
+// partials, blocks x T floats; the segment's accumulator in shared
+// memory), and the sum of the partials' rows into grad (T floats; added to
+// it with `accumulate`); each returns the first CUDA error (0 when the
+// launch was taken).
 #define MPR_UNROLLED_VJP_ENTRY                                               \
   extern "C" int mpr_unrolled_vjp(                                           \
       const void* x, const void* y, const void* z, const void* g,            \
-      const void* imms, const void* vals, void* adj, void* partials, int n,  \
-      int T, int blocks, int threads, void* stream) {                        \
-    if (threads != MPR_UNROLLED_THREADS || n < 1 || T < T1 || blocks < 1)    \
+      const void* imms, const void* vals, const void* ch, void* hand,        \
+      void* partials, int n, int T, int blocks, int threads, void* stream) { \
+    if (threads != MPR_VJP_THREADS || n < 1 || T < T1 || blocks < 1)         \
       return (int)cudaErrorInvalidValue;                                     \
     const int smem = (T1 - T0 > 0 ? T1 - T0 : 1) * (int)sizeof(float);      \
     int err = mpr::allow_smem((const void*)mpr_unrolled_vjp_kernel, smem);   \
@@ -128,7 +147,8 @@ __device__ __forceinline__ float mpr_bal(float p, float q, float r) {
         static_cast<const float*>(x), static_cast<const float*>(y),          \
         static_cast<const float*>(z), static_cast<const float*>(g),          \
         static_cast<const float*>(imms), static_cast<const float*>(vals),    \
-        static_cast<float*>(adj), static_cast<float*>(partials), n, T);      \
+        static_cast<const uint32_t*>(ch), static_cast<float*>(hand),         \
+        static_cast<float*>(partials), n, T);                                \
     return (int)cudaGetLastError();                                          \
   }                                                                          \
   extern "C" int mpr_unrolled_vjp_reduce(void* partials, void* grad, int T,  \

@@ -11,9 +11,10 @@ coordinates and in ``td.imms`` (with ``jax.grad``'s rules,
 :func:`eval_f` is also the float path of the ``--engine scan`` fit on the
 card: on CUDA it runs kernel K2f (``csrc/scan_adjoint.cu``: a thread a
 lane walks the tape over a register file) and, under autograd in
-``td.imms``, its backward is kernel K2 (the adjoint walk, with K2f
-keeping every clause's value, in chunks of lanes of at most
-``VALS_BYTES``).  Their plain versions are :func:`eval_f_plain` and
+``td.imms``, its backward is kernel K2 (the adjoint walk over an on-chip
+adjoint file, K lanes a thread, after K2f has stored what the tape's
+storage plan lists: ``ops/vjp_plan.py``, ``TapeData.vjp_plan``), in
+chunks of lanes of at most ``ADJ_BYTES`` of stored values.  Their plain versions are :func:`eval_f_plain` and
 autograd through it.
 """
 
@@ -23,14 +24,14 @@ import torch
 
 from ..tape.opcodes import CHOICE_OP_HI, CHOICE_OP_LO, Op
 from . import build, kernels
+from . import launch as ln
+from . import vjp_plan as vp
 from .tape_data import TapeData
 
-# the bytes of forward values (clauses x lanes floats) one K2 launch reads:
-# the backward pass runs K2f and K2 in chunks of lanes within this
-VALS_BYTES = 1 << 30
-# blocks of a K2 launch at most (its grid-stride loop takes the rest), and
-# so the rows of its partial sums
-ADJ_BLOCKS = 1024
+# the bytes of what K2f stores for K2 (the plan's values and choice words,
+# VjpPlan.k2_lane_bytes a lane) one launch pair uses: the backward pass
+# runs K2f and K2 in chunks of lanes within this
+ADJ_BYTES = 8 << 30
 
 
 def _lanes(td, vals):
@@ -111,11 +112,14 @@ def _flat(t):
     return t.detach().reshape(-1).contiguous()
 
 
-def scan_eval(td: TapeData, x, y, z, vals=None):
+def scan_eval(td: TapeData, x, y, z, store=None):
     """Kernel K2f on CUDA tapes (counted in ``scan_eval.launches``): the
-    tape on flat f32 lanes x, y, z; with ``vals`` (a (length, n) f32
-    tensor) also every clause's output.  On the CPU its plain version,
-    :func:`eval_f_plain` (which fills no ``vals``)."""
+    tape on flat f32 lanes x, y, z; with ``store = (vals, words)`` also
+    what the tape's storage plan lists (``TapeData.vjp_plan``): the values
+    K2's partials read and the choice words, f32 and int32 tensors in the
+    plan's blocked layout (``vjp_plan.blocked_size(n_vals, n)`` and
+    ``blocked_size(n_words, n)`` entries at least).  On the CPU its plain
+    version, :func:`eval_f_plain` (which fills no ``store``)."""
     if td.device.type != "cuda":
         return _walk_f(td, x, y, z)
     x, y, z = _flat(x), _flat(y), _flat(z)
@@ -124,12 +128,23 @@ def scan_eval(td: TapeData, x, y, z, vals=None):
     if n == 0:
         return v
     imms = td.imms.detach().contiguous()
+    vals = words = spos = None
+    nv = nw = 1
+    if store is not None:
+        vals, words = store
+        plan, spos, _, _ = td.vjp_plan()
+        nv, nw = max(plan.n_vals, 1), max(plan.n_words, 1)
+        if (vals.numel() < vp.blocked_size(nv, n)
+                or words.numel() < vp.blocked_size(nw, n)):
+            raise ValueError("K2f's store is smaller than the plan's layout")
     with torch.cuda.device(td.device):
         err = build.lib().mpr_scan_adjoint_eval(
-            td.packed.data_ptr(), imms.data_ptr(), x.data_ptr(),
+            td.packed.data_ptr(), imms.data_ptr(),
+            None if spos is None else spos.data_ptr(), x.data_ptr(),
             y.data_ptr(), z.data_ptr(), v.data_ptr(),
-            None if vals is None else vals.data_ptr(), n, td.length,
-            max(td.num_slots, 1), td.result_slot, *td.axis_slots,
+            None if vals is None else vals.data_ptr(),
+            None if words is None else words.data_ptr(), n, nv, nw,
+            td.length, max(td.num_slots, 1), td.result_slot, *td.axis_slots,
             kernels._stream())
     if err:
         raise RuntimeError(f"kernel K2f failed: CUDA error {err}")
@@ -137,12 +152,28 @@ def scan_eval(td: TapeData, x, y, z, vals=None):
     return v
 
 
-def scan_adjoint(td: TapeData, x, y, z, g):
-    """Kernel K2 on CUDA tapes (counted in ``scan_adjoint.launches``):
-    d(sum(g * eval_f(td, x, y, z)))/d(td.imms), the capacity's length
-    (zero past the tape), over flat f32 lanes, in chunks of lanes whose
-    forward values (K2f, ``vals``) fit ``VALS_BYTES``.  On the CPU its
-    plain version, autograd through :func:`eval_f_plain`."""
+def adjoint_s_cap(td: TapeData) -> int:
+    """The slots of K2's adjoint file for ``td``: its slot count rounded
+    up to 8 (as the 3D kernels size their register files)."""
+    return max(8, -(-td.num_slots // 8) * 8)
+
+
+def adj_chunk(plan, n: int) -> int:
+    """Lanes of one K2f/K2 launch pair over ``n`` lanes."""
+    return max(1, min(n, ADJ_BYTES // max(plan.k2_lane_bytes, 4)))
+
+
+def scan_adjoint(td: TapeData, x, y, z, g, launch=None, s_cap=None):
+    """Kernel K2 on CUDA tapes (counted in ``scan_adjoint.launches``, one
+    a chunk of lanes): d(sum(g * eval_f(td, x, y, z)))/d(td.imms), the
+    capacity's length (zero past the tape), over flat f32 lanes.  Each
+    chunk runs K2f storing the tape's plan (:func:`scan_eval` with
+    ``store``), then K2 at ``launch`` (default
+    ``launch.adjoint_launch(s_cap, length)``; a caller's shape is
+    checked) with an adjoint file of ``s_cap`` slots (default
+    :func:`adjoint_s_cap`; a tape with more slots traps), then the sum of
+    its blocks' rows.  On the CPU its plain version, autograd through
+    :func:`eval_f_plain` (``launch`` and ``s_cap`` are not read)."""
     if td.device.type != "cuda":
         imms = td.imms.detach().clone().requires_grad_(True)
         with torch.enable_grad():
@@ -156,25 +187,35 @@ def scan_adjoint(td: TapeData, x, y, z, g):
     grad = torch.zeros(td.capacity, dtype=torch.float32, device=td.device)
     if n == 0 or L == 0:
         return grad
-    src = td.sources()
+    s_cap = adjoint_s_cap(td) if s_cap is None else int(s_cap)
+    launch = (ln.adjoint_launch(s_cap, L) if launch is None
+              else ln.check_adjoint_launch(launch, s_cap, L))
+    plan, _, ab, rc = td.vjp_plan()
     imms = td.imms.detach().contiguous()
-    chunk = max(1, min(n, VALS_BYTES // (4 * L)))
-    lib = build.lib()
+    entries = torch.stack([td.packed[:L], imms[:L].view(torch.int32), ab, rc],
+                          1).contiguous()
+    lib = build.lib(ln.library("scan_adjoint", launch))
+    chunk = adj_chunk(plan, n)
     for c0 in range(0, n, chunk):
         c1 = min(n, c0 + chunk)
         m = c1 - c0
-        vals = torch.empty(L, m, dtype=torch.float32, device=td.device)
-        scan_eval(td, x[c0:c1], y[c0:c1], z[c0:c1], vals=vals)
-        blocks = min(ADJ_BLOCKS, -(-m // 128))
+        ld = -(-m // launch.lanes) * launch.lanes
+        nv, nw = max(plan.n_vals, 1), max(plan.n_words, 1)
+        vals, words = vp.workspace("K2", td.device, [
+            (vp.blocked_size(nv, ld), torch.float32),
+            (vp.blocked_size(nw, ld), torch.int32)])
+        scan_eval(td, x[c0:c1], y[c0:c1], z[c0:c1], store=(vals, words))
+        blocks = min(ln.ADJ_BLOCKS, ld // launch.lanes)
         partials = torch.empty(blocks, L, dtype=torch.float32,
                                device=td.device)
         with torch.cuda.device(td.device):
             err = lib.mpr_scan_adjoint(
-                td.packed.data_ptr(), imms.data_ptr(), src.data_ptr(),
+                entries.data_ptr(), vals.data_ptr(), words.data_ptr(),
                 x[c0:].data_ptr(), y[c0:].data_ptr(), z[c0:].data_ptr(),
-                vals.data_ptr(), g[c0:].data_ptr(), partials.data_ptr(),
-                grad.data_ptr(), m, L, max(td.num_slots, 1), td.result_slot,
-                int(c0 > 0), blocks, kernels._stream())
+                g[c0:].data_ptr(), partials.data_ptr(), grad.data_ptr(), m,
+                ld, nv, nw, L, max(td.num_slots, 1), s_cap, td.result_slot,
+                int(c0 > 0), blocks, launch.bucket, launch.threads,
+                launch.k, launch.smem, kernels._stream())
         if err:
             raise RuntimeError(f"kernel K2 failed: CUDA error {err}")
         _scan_adjoint.launches += 1

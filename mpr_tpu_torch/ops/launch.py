@@ -12,10 +12,14 @@ an :class:`IntervalLaunch`.  Kernels C and C2 (``csrc/compact.cu``,
 a block, threads a row and dynamic shared memory make a
 :class:`CompactLaunch`.
 
+Kernel K2 (``csrc/scan_adjoint.cu``, the interpreter's adjoint) keeps an
+adjoint file a lane in one of the two homes: home, threads, lanes a thread
+(K) and dynamic shared memory make an :class:`AdjointLaunch`.
+
 Every function here is pure host code; the pickers are
-:func:`interval_launch`, :func:`pixel_launch` and :func:`compact_launch`
-(kernels A, B, and C and C2) and ``kernels3d.voxel_launch`` /
-``deriv_launch`` (V and D).  A caller may force another shape (``launch=``
+:func:`interval_launch`, :func:`pixel_launch`, :func:`compact_launch` and
+:func:`adjoint_launch` (kernels A, B, C and C2, and K2) and
+``kernels3d.voxel_launch`` / ``deriv_launch`` (V and D).  A caller may force another shape (``launch=``
 of a wrapper), which the wrapper checks.
 """
 
@@ -37,6 +41,8 @@ PARTS = (1, 2, 4, 8, 16, 32, 64)
 BUCKETS = (16, 32, 64, 128, 256)
 B_SHARED = (256, 4)      # B, files in shared memory: threads, K
 B_LOCAL = (256, 2)       # B, files in local memory: threads, K
+ADJ_SHARED = (128, 2)    # K2, adjoint files in shared memory: threads, K
+ADJ_LOCAL = (128, 2)     # K2, adjoint files in local memory: threads, K
 # B and D stage an overflowed row's full tape in shared memory where it
 # takes at most this
 STAGE_MAX = 65_536
@@ -46,10 +52,12 @@ B_WAVES = 4
 # K of the instantiations in the main library, by kernel, for the shared
 # home (bucket 0) and for local files (a bucket): the shapes the launch
 # functions pick.  The extra library holds the other K (ops/build.py;
-# csrc/pixel_eval.cu, voxel_eval.cu, deriv_eval.cu: kernel<K, N>()).
+# csrc/pixel_eval.cu, voxel_eval.cu, deriv_eval.cu, scan_adjoint.cu:
+# kernel<K, N>()).
 MAIN_K = {"pixel_eval_runs": (B_SHARED[1], B_LOCAL[1]),
           "voxel_eval_3d": (4, 2),
-          "deriv_eval_3d": (1, 1)}
+          "deriv_eval_3d": (1, 1),
+          "scan_adjoint": (ADJ_SHARED[1], ADJ_LOCAL[1])}
 
 
 @dataclass(frozen=True)
@@ -499,3 +507,107 @@ def unrolled_launch(n: int):
     """(blocks, threads) of a generated evaluator over ``n`` lanes: a
     thread a lane, ``UNROLLED_THREADS`` a block."""
     return -(-int(n) // UNROLLED_THREADS), UNROLLED_THREADS
+
+
+# ---------------------------------------------------------------------------
+# Kernel K2, the interpreter's adjoint (csrc/scan_adjoint.cu)
+# ---------------------------------------------------------------------------
+
+ADJ_TILE = 256           # tape entries of a staged tile (two buffers)
+ADJ_ENTRY_BYTES = 16     # word, immediate, operand codes, result/choice
+ADJ_THREADS = (64, 128, 256)
+# K (lanes a thread) K2 is built at (at K = 1 ptxas spilled a few bytes)
+ADJ_KS = (2, 4)
+# blocks of a K2 launch at most (its grid-stride loop takes the rest), and
+# so the rows of its partial sums
+ADJ_BLOCKS = 1024
+
+
+@dataclass(frozen=True)
+class AdjointLaunch:
+    """One launch shape of kernel K2: ``home`` of the adjoint files
+    (``"shared"`` or ``"local"``), ``threads`` a block, ``k`` lanes a
+    thread, ``smem`` dynamic shared bytes (the immediates' accumulator,
+    two staged tiles of the tape and, in the shared home, the files),
+    ``bucket`` the local files' slots (0 in the shared home)."""
+    home: str
+    threads: int
+    k: int
+    smem: int
+    bucket: int = 0
+
+    @property
+    def lanes(self) -> int:
+        """Lanes a block takes at once."""
+        return self.threads * self.k
+
+
+def adj_fixed(length: int) -> int:
+    """Shared bytes of K2 besides the files: an accumulator float a clause
+    (padded to 16 bytes) and two tiles of ``ADJ_TILE`` entries."""
+    return 16 * -(-4 * max(length, 1) // 16) + 2 * ADJ_TILE * ADJ_ENTRY_BYTES
+
+
+def _adj_shape(home, threads, k, s_cap, length) -> AdjointLaunch:
+    files = 4 * s_cap * k * threads if home == "shared" else 0
+    return AdjointLaunch(home, threads, k, adj_fixed(length) + files,
+                         0 if home == "shared" else local_bucket(s_cap))
+
+
+def _check_adj(launch: AdjointLaunch, s_cap: int, length: int,
+               smem_limit: int) -> AdjointLaunch:
+    if (launch.home not in ("shared", "local") or launch.k not in ADJ_KS
+            or launch.threads not in ADJ_THREADS
+            or launch != _adj_shape(launch.home, launch.threads, launch.k,
+                                    s_cap, length)
+            or launch.smem > smem_limit):
+        raise ValueError(f"kernel K2 launch shape {launch} does not fit "
+                         f"s_cap {s_cap} and a {length}-clause tape "
+                         f"({smem_limit} shared bytes)")
+    return launch
+
+
+def adjoint_launch(s_cap: int, length: int, smem_limit: int = SMEM_LIMIT,
+                   *, home: str = None, threads: int = None,
+                   k: int = None) -> AdjointLaunch:
+    """Kernel K2's launch shape for slot bucket ``s_cap`` (the adjoint
+    file's slots) and a tape of ``length`` clauses.
+
+    Where the files of ``ADJ_SHARED`` (threads, K) fit in shared memory
+    beside the accumulator and the staged tiles and leave an SM two
+    blocks, they live there (a short tape); otherwise in local memory,
+    ``ADJ_LOCAL`` (threads, K), a bucket of 16 to 256 slots, where all the
+    lanes of a fit stay resident at once and each clause's three adjoint
+    reads are in flight together (at the scan fit's 176 slots the local
+    home is the faster one: ``chip_smoke.py`` phase 14's K2 sweep,
+    PERF.md).  ``home``, ``threads`` and ``k`` force a
+    shape, the missing parts chosen as above; a forced shape that does
+    not fit raises, and so does a tape whose accumulator alone does
+    not."""
+    if adj_fixed(length) > smem_limit:
+        raise ValueError(f"a {length}-clause tape needs {adj_fixed(length)} "
+                         f"shared bytes in kernel K2, over {smem_limit}")
+    if home is None and threads is None and k is None:
+        sh = _adj_shape("shared", *ADJ_SHARED, s_cap, length)
+        if sh.smem <= min(smem_limit, SM_SHARED // 2 - 1024):
+            return sh
+        return _check_adj(_adj_shape("local", *ADJ_LOCAL, s_cap, length),
+                          s_cap, length, smem_limit)
+    home = home or "shared"
+    k = k or (ADJ_SHARED if home == "shared" else ADJ_LOCAL)[1]
+    if threads is None:
+        threads = (ADJ_SHARED if home == "shared" else ADJ_LOCAL)[0]
+        if home == "shared":
+            fits = [t for t in reversed(ADJ_THREADS) if _adj_shape(
+                home, t, k, s_cap, length).smem <= smem_limit]
+            threads = fits[0] if fits else ADJ_THREADS[0]
+    return _check_adj(_adj_shape(home, threads, k, s_cap, length), s_cap,
+                      length, smem_limit)
+
+
+def check_adjoint_launch(launch: AdjointLaunch, s_cap: int,
+                         length: int) -> AdjointLaunch:
+    """A caller's ``launch`` of kernel K2, checked: a home, threads and K
+    the kernel takes, whose shared bytes and bucket are the ones they give
+    for ``s_cap`` and ``length``, within the limit."""
+    return _check_adj(launch, s_cap, length, SMEM_LIMIT)

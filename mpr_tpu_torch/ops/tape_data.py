@@ -82,6 +82,9 @@ class TapeData:
         self.ops_present = tuple(int(o) for o in ops_present)
         self._levels = None
         self._sources = None
+        # the backward storage plan, shared with every replace_imms copy
+        # (a fit step differentiates a copy), built at the first use
+        self._plan = {}
 
     @classmethod
     def from_tape(cls, tape: Tape, device=None) -> "TapeData":
@@ -156,9 +159,9 @@ class TapeData:
         """The same tape with another constant plane (a fit step, a
         slider): ``imms`` (the capacity's length, on the tape's device;
         it may require grad).  The new TapeData keeps this one's
-        dependency schedule and the interval adjoint's operand table,
-        neither of which holds an immediate (kernel A reads ``imms``
-        through the schedule's ``t`` plane)."""
+        dependency schedule, the interval adjoint's operand table and the
+        backward storage plan, none of which holds an immediate (kernel A
+        reads ``imms`` through the schedule's ``t`` plane)."""
         imms = torch.as_tensor(imms, dtype=torch.float32, device=self.device)
         if imms.shape != self.imms.shape:
             raise ValueError(f"imms: shape {tuple(imms.shape)}, want "
@@ -168,6 +171,7 @@ class TapeData:
                       self.num_choices, self.ops_present, self.num_runs)
         td._levels = self._levels
         td._sources = self._sources
+        td._plan = self._plan
         return td
 
     def sources(self):
@@ -182,6 +186,25 @@ class TapeData:
             self._sources = torch.from_numpy(src.astype(np.int32)).to(
                 self.device)
         return self._sources
+
+    def vjp_plan(self):
+        """The tape's backward storage plan (``ops/vjp_plan.py``) and its
+        device planes for kernels K2f and K2: ``(plan, spos, ab, rc)``,
+        ``spos`` each clause's stored position (-1: none), ``ab`` / ``rc``
+        the operand codes of K2's entries (int32 on the tape's device);
+        built at the first call on this TapeData or any copy of it
+        (``replace_imms``) and kept."""
+        if "plan" not in self._plan:
+            from .vjp_plan import vjp_plan
+            w = self.packed[:self.length].cpu().numpy().astype(
+                np.int64) & 0xFFFFFFFF
+            plan = vjp_plan(w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF,
+                            w >> 24, self.axis_slots, self.result_slot)
+            ab, rc = plan.entry_codes()
+            self._plan["plan"] = (plan,) + tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (plan.vpos.astype(np.int32), ab, rc))
+        return self._plan["plan"]
 
     @property
     def capacity(self) -> int:

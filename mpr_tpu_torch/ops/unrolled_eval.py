@@ -37,13 +37,15 @@ the same float32 operations in the same order.
 The float evaluator with ``take_imms`` is differentiable in ``imms`` on
 the card too: it is a ``torch.autograd.Function`` whose forward is the
 float kernel and whose backward is kernel K1, generated per tape too
-(:func:`generate_vjp_fwd`, :func:`generate_vjp`, :class:`_CAdjoint`): a
-forward half stores the clause values later clauses read, and reverse
-segments of ``VJP_SEGMENT`` clauses walk them backwards from the
-upstream gradient with ``jax.grad``'s rules, handing adjoints to earlier
-segments in memory and summing each immediate's share over the lanes
-(``csrc/adjoint.cuh``).  Its plain version is autograd through the plain
-walk.  The baked kernels, the interval and the deriv kernels are
+(:func:`generate_vjp_fwd`, :func:`generate_vjp`) from the tape's storage
+plan (``ops/vjp_plan.py``): a forward half stores only the values the
+partials read and a choice code a min/max clause, and reverse segments of
+``VJP_SEGMENT`` clauses walk the tape backwards from the upstream gradient
+with ``jax.grad``'s rules (``vjp_plan.partials``), keeping adjoints in
+registers, handing the few that cross a segment (or are parked to bound
+the registers) over in memory, and summing each immediate's share over
+the lanes (``csrc/adjoint.cuh``).  Its plain version is autograd through
+the plain walk.  The baked kernels, the interval and the deriv kernels are
 forward-only: CUDA inputs with ``imms.requires_grad`` raise there.
 
 Numerics follow ``mpr_tpu``'s unrolled semantics, which differ from the
@@ -87,7 +89,7 @@ from ..tape.tape import Tape
 from . import build
 from . import launch as ln
 from . import transcendental as tc
-from .tape_data import operand_sources
+from . import vjp_plan as vp
 
 # inputs and outputs of each semantics' kernel, SoA float32 planes of n lanes
 N_IN = {"float": 3, "interval": 6, "deriv": 3}
@@ -414,145 +416,48 @@ class _CEmitter(_Folding):
         return v
 
 
-class _CAdjoint(_CEmitter):
-    """A :class:`_CEmitter` that also records each differentiable
-    operation ``(name, out, args)`` as it emits it, and each immediate it
-    reads (``("imm", var, (t,))``), for :meth:`reverse`."""
+class _CRules:
+    """The backend of :func:`vjp_plan.partials` on a :class:`_CEmitter`:
+    each operation a fresh ``const`` local, written as it stands (no
+    folding of constants); a choice code's shares read ``mpr_bal_a`` /
+    ``mpr_bal_b`` (csrc/unrolled.cuh)."""
 
-    def __init__(self, fast: bool, t0: int = 0):
-        super().__init__(fast)
-        self.rec = []
-        self.t0 = t0          # the accumulator's first immediate
+    def __init__(self, K: _CEmitter):
+        self.K = K
 
-    def _op(self, name, out, *args):
-        self.rec.append((name, out, args))
-        return out
+    def _b(self, a, op, b):
+        return self.K._bin(a, op, b)
 
-    def _add(self, a, b):
-        return self._op("add", super()._add(a, b), a, b)
-
-    def _sub(self, a, b):
-        return self._op("sub", super()._sub(a, b), a, b)
-
-    def _mul(self, a, b):
-        return self._op("mul", super()._mul(a, b), a, b)
+    def mul(self, a, b):
+        return self._b(a, "*", b)
 
     def div(self, a, b):
-        return self._op("div", super().div(a, b), a, b)
+        return self._b(a, "/", b)
+
+    def add(self, a, b):
+        return self._b(a, "+", b)
+
+    def sub(self, a, b):
+        return self._b(a, "-", b)
 
     def neg(self, a):
-        return self._op("neg", super().neg(a), a)
-
-    def minimum(self, a, b):
-        return self._op("minmax", super().minimum(a, b), a, b)
-
-    def maximum(self, a, b):
-        return self._op("minmax", super().maximum(a, b), a, b)
-
-    def abs(self, a):
-        return self._op("abs", super().abs(a), a)
+        return self.K._new(f"-{self.K._e(a)}")
 
     def sqrt(self, a):
-        return self._op("sqrt", super().sqrt(a), a)
+        return self.K._call("sqrtf", a)
 
     def sin(self, a):
-        return self._op("sin", super().sin(a), a)
+        return self.K._call("sinf", a)
 
     def cos(self, a):
-        return self._op("cos", super().cos(a), a)
+        return self.K._call("cosf", a)
 
-    def exp(self, a):
-        return self._op("exp", super().exp(a), a)
+    def sel_ge0(self, a, p, q):
+        e = self.K._e
+        return self.K._new(f"{e(a)} >= 0.0f ? {e(p)} : {e(q)}")
 
-    def log(self, a):
-        return self._op("log", super().log(a), a)
-
-    def asin(self, a):
-        return self._op("asin", super().asin(a), a)
-
-    def acos(self, a):
-        return self._op("acos", super().acos(a), a)
-
-    def atan(self, a):
-        return self._op("atan", super().atan(a), a)
-
-    def imm(self, t: int):
-        return self._op("imm", self._new(f"__ldg(imms + {t})"), t)
-
-    def reverse(self, result, seed: str, leaves=()) -> dict:
-        """Emit the reverse sweep of the recorded operations from
-        ``result`` (adjoint ``seed``): in reverse order, each operation
-        whose output has an adjoint adds its partials into its operands'
-        adjoints with ``jax.grad``'s rules, as torch's autograd spells
-        them (the module doc of ``csrc/scan_adjoint.cu``); an immediate's
-        adjoint, complete once the sweep passes its load, is summed over
-        the lanes.  Returns the adjoints of ``leaves`` (values made before
-        the recording, e.g. operands loaded from memory) that got one."""
-        leaves = {v for v in leaves if not isinstance(v, float)}
-        live = {out for _, out, _ in self.rec} | leaves
-        adj = {}
-        e = self._e
-
-        def add(v, expr):
-            if isinstance(v, float) or v not in live:
-                return
-            c = self._new(expr)
-            adj[v] = c if v not in adj else self._new(f"{adj[v]} + {c}")
-
-        if isinstance(result, float) or result not in live:
-            return {}
-        adj[result] = seed
-        for name, out, args in reversed(self.rec):
-            g = adj.get(out)
-            if g is None:
-                continue
-            if name == "imm":
-                self.lines.append(f"mpr::acc_imm(acc, {args[0] - self.t0}, "
-                                  f"live ? {g} : 0.0f);")
-                continue
-            a = args[0]
-            A = e(a)
-            if len(args) == 2:
-                b = args[1]
-                B = e(b)
-            if name == "add":
-                add(a, g)
-                add(b, g)
-            elif name == "sub":
-                add(a, g)
-                add(b, f"-{g}")
-            elif name == "mul":
-                add(a, f"{g} * {B}")
-                add(b, f"{g} * {A}")
-            elif name == "div":
-                add(a, f"{g} / {B}")
-                add(b, f"-{g} * {A} / ({B} * {B})")
-            elif name == "neg":
-                add(a, f"-{g}")
-            elif name == "minmax":
-                add(a, f"{g} * mpr_bal({A}, {B}, {out})")
-                add(b, f"{g} * mpr_bal({B}, {A}, {out})")
-            elif name == "abs":
-                add(a, f"{A} >= 0.0f ? {g} : -{g}")
-            elif name == "sqrt":
-                add(a, f"{g} / (2.0f * {out})")
-            elif name == "sin":
-                add(a, f"{g} * cosf({A})")
-            elif name == "cos":
-                add(a, f"{g} * -sinf({A})")
-            elif name == "exp":
-                add(a, f"{g} * {out}")
-            elif name == "log":
-                add(a, f"{g} / {A}")
-            elif name == "asin":
-                add(a, f"{g} / sqrtf(1.0f - {A} * {A})")
-            elif name == "acos":
-                add(a, f"-{g} / sqrtf(1.0f - {A} * {A})")
-            elif name == "atan":
-                add(a, f"{g} / (1.0f + {A} * {A})")
-            else:
-                raise AssertionError(name)
-        return {v: adj[v] for v in leaves if v in adj}
+    def bal(self, code, side):
+        return self.K._call("mpr_bal_b" if side else "mpr_bal_a", code)
 
 
 # ---------------------------------------------------------------------------
@@ -962,7 +867,7 @@ def _nvcc_flags():
 
 def _generator_hash() -> str:
     h = hashlib.sha256(" ".join(_nvcc_flags()).encode())
-    for p in (Path(__file__), build.CSRC / "unrolled.cuh",
+    for p in (Path(__file__), Path(vp.__file__), build.CSRC / "unrolled.cuh",
               build.CSRC / "clause.cuh", build.CSRC / "adjoint.cuh"):
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -1029,135 +934,188 @@ def generate(tape: Tape, kind: str, take_imms: bool, flags: dict) -> str:
             f"MPR_UNROLLED_ENTRY\n")
 
 
-def tape_sources(tape: Tape) -> np.ndarray:
-    """``tape_data.operand_sources`` of the tape's clauses."""
-    return operand_sources(tape.outs, tape.lhss, tape.rhss, tape.axis_slots)
+def _blocked_bases(plan: vp.VjpPlan) -> str:
+    """C statements giving ``lane``'s row 0 in each of K1's arrays
+    (``ops/vjp_plan.py``'s layout, in blocks of ``LANE_BLOCK`` lanes: vals
+    ``vb``, choice words ``cb``, hand ``hb``)."""
+    B = vp.LANE_BLOCK
+    return " ".join(f"const size_t {nm} = (size_t)(lane / {B}) * "
+                    f"{max(rows, 1) * B} + lane % {B};"
+                    for nm, rows in (("vb", plan.n_vals),
+                                     ("cb", plan.n_words),
+                                     ("hb", plan.n_handover)))
 
 
-def _result_source(tape: Tape, src) -> int:
-    last = {s: -1 - k for k, s in enumerate(tape.axis_slots) if s}
-    for t, o in enumerate(tape.outs.tolist()):
-        last[o] = t
-    return last.get(tape.result_slot, -4)
-
-
-def generate_vjp_fwd(tape: Tape, flags: dict) -> str:
-    """The CUDA source of K1's forward half (``mpr_unrolled`` frame, the
-    float evaluator's statements): each clause whose output a later clause
-    reads stores it, ``out0[t * n + lane]`` (``vals``, the values the
-    reverse half reads)."""
+def generate_vjp_fwd(tape: Tape, flags: dict, plan: vp.VjpPlan) -> str:
+    """The CUDA source of K1's forward half (the float evaluator's
+    statements in the ``mpr_unrolled`` frame) storing what ``plan`` lists
+    (``ops/vjp_plan.py``'s layout): each value the partials read in row
+    ``vpos`` of ``vals`` (out0), and each min/max clause's choice code, 16
+    to a word, in row ``cidx / 16`` of ``ch`` (out1).  A lane past n
+    computes lane n - 1's values into its own entries (the layout pads to
+    whole blocks), so that the reverse half needs no guard.  It takes up
+    to 255 registers, half the warps of the reverse half: the codes'
+    comparisons raise its pressure past 128 registers, and at 168 or 128
+    it spilled (``chip_smoke.py`` fails on a spill)."""
     K = _CEmitter(flags["fast_transcendentals"])
     sem = _FloatSem(K)
     x, y, z = (K._new(f"in{k}[i]") for k in range(3))
-
-    class _Imms:
-        def __getitem__(self, t):
-            return K._new(f"__ldg(imms + {t})")
-    stored = set(tape_sources(tape).ravel().tolist())
-    step = iter(range(tape.length))
-
-    def store(v):
-        t = next(step)
-        if t in stored:
-            K.lines.append(f"out0[(size_t){t} * n + i] = {K._e(v)};")
-        return v
-    sem.post = store
-    _walk(tape, sem, x, y, z, _Imms())
+    e = K._e
+    zero = sem.zero_like(x)
+    slots = {0: zero}
+    for s_, v in zip(tape.axis_slots, (x, y, z)):
+        if s_:
+            slots[s_] = v
+    ops, outs = tape.ops.tolist(), tape.outs.tolist()
+    lhss, rhss = tape.lhss.tolist(), tape.rhss.tolist()
+    B = vp.LANE_BLOCK
+    K.lines.append("uint32_t cw = 0u;")
+    for t in range(tape.length):
+        op, o = ops[t], outs[t]
+        if op not in sem.table:
+            raise ValueError(f"clause {t}: opcode {op} has no unrolled form")
+        a, b = slots.get(lhss[t], zero), slots.get(rhss[t], zero)
+        imm = K._new(f"__ldg(imms + {t})")
+        v = slots[o] = sem.table[op](a, b, imm)
+        if plan.vpos[t] >= 0:
+            K.lines.append(f"vals[vb + {B * plan.vpos[t]}] = {e(v)};")
+        c = int(plan.cidx[t])
+        if c >= 0:
+            q = imm if op in (Op.MIN_LHS_IMM, Op.MAX_LHS_IMM) else b
+            K.lines.append(f"cw |= ((uint32_t)({e(a)} == {e(v)}) | "
+                           f"((uint32_t)({e(q)} == {e(v)}) << 1)) << "
+                           f"{2 * (c % 16)};")
+            if c % 16 == 15 or c == plan.n_choices - 1:
+                K.lines.append(f"ch[cb + {B * (c // 16)}] = cw; cw = 0u;")
     body = "\n    ".join(K.lines)
     head = (f"// K1 forward half: the float evaluator of a {tape.length}-"
-            f"clause tape storing its clause values (flags {flags}), "
-            f"written by mpr_tpu_torch/ops/unrolled_eval.py")
+            f"clause tape storing {plan.n_vals} values and {plan.n_words} "
+            f"choice words a lane (flags {flags}), written by "
+            f"mpr_tpu_torch/ops/unrolled_eval.py")
     return (f"{head}\n#define MPR_UNROLLED_THREADS {ln.UNROLLED_THREADS}\n"
             f"#include \"unrolled.cuh\"\n\nMPR_UNROLLED_KERNEL {{\n"
-            f"    const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-            f"    if (i >= n) return;\n    {body}\n}}\n\n"
-            f"MPR_UNROLLED_ENTRY\n")
+            f"    const int lane = blockIdx.x * blockDim.x + threadIdx.x;\n"
+            f"    const int i = lane < n ? lane : n - 1;\n"
+            f"    float* const vals = out0;\n"
+            f"    uint32_t* const ch = reinterpret_cast<uint32_t*>(out1);\n"
+            f"    {_blocked_bases(plan)}\n"
+            f"    {body}\n}}\n\nMPR_UNROLLED_ENTRY\n")
 
 
-def vjp_segments(tape: Tape):
-    """K1's reverse half in segments of at most ``VJP_SEGMENT`` clauses:
-    [(t0, t1), ...] in forward order (they run last first)."""
-    L = tape.length
-    return [(t0, min(L, t0 + VJP_SEGMENT))
-            for t0 in range(0, L, VJP_SEGMENT)] or [(0, 0)]
-
-
-def generate_vjp(tape: Tape, flags: dict, seg) -> str:
+def generate_vjp(tape: Tape, flags: dict, plan: vp.VjpPlan, seg,
+                 shape: dict = None) -> str:
     """The CUDA source of one segment ``seg = (t0, t1)`` of K1's reverse
     half, the VJP of the imm-input float evaluator:
     ``mpr_unrolled_vjp_kernel`` (a thread a lane in a grid-stride loop
-    walks the segment's clauses backwards: for each clause whose output
-    has an adjoint, it loads the operands' values that the forward half
-    stored, recomputes the clause's statements, and runs their reverse
-    sweep (:meth:`_CAdjoint.reverse`), adding into the adjoints of the
-    clauses that made the operands and summing the immediate's share into
-    the block's accumulator) and its entry points (csrc/unrolled.cuh).
+    walks the segment's clauses backwards; for each clause whose output has
+    an adjoint it reads what its rule needs, the stored values and choice
+    code of the forward half, and hands the rule's shares
+    (:func:`vjp_plan.partials`) on: into a register adjoint, into the
+    handover array ``hand``, or, for the immediate, into the block's
+    accumulator, eight immediates at a time (``mpr::acc_imm8``)) and its
+    entry points (csrc/unrolled.cuh).
 
-    A clause output's adjoint lives in a register within a segment; one
-    that a later segment contributed to is read from ``adj`` (a float a
-    clause and lane), and what this segment adds to an earlier segment's
-    clause is added into ``adj`` at its end.  The last clause writing the
-    result slot starts from the upstream gradient ``g``.  Segments keep
-    each kernel a few thousand statements: nvcc's time and the registers
-    grow faster than the code (one kernel for a 5,373-clause tape took
-    530 s of nvcc for sm_90a and spilled)."""
+    ``plan`` says where each adjoint lives: a register within the segment,
+    or row ``hpos`` of ``hand`` (an adjoint read by an earlier segment, or
+    parked to keep at most ``VJP_LIVE`` in registers), which its first
+    contributor stores and the others add to.  The clause writing the
+    result starts from the upstream gradient ``g`` (in3).  A lane past n
+    reads lane n - 1's inputs and its own entries (the forward half filled
+    them), so it needs no guard; its immediate shares count 0.  Segments
+    keep each kernel a few thousand statements (nvcc's time grows faster
+    than the code).  ``shape`` (``_VjpEval.shape``) gives the launch
+    bounds."""
     t0, t1 = seg
-    K = _CAdjoint(flags["fast_transcendentals"], t0)
-    sem = _FloatSem(K)
-    src = tape_sources(tape)
-    ins = {}
+    shape = shape or _vjp_shape()
+    B = vp.LANE_BLOCK
+    K = _CEmitter(flags["fast_transcendentals"])
+    R = _CRules(K)
+    e = K._e
+    ins, reg, pending, words = {}, {}, [], {}
 
-    def load(s_):
+    def value(s_):
         if s_ >= 0:
-            return K._new(f"vals[(size_t){s_} * n + i]")
+            return K._new(f"vals[vb + {B * plan.vpos[s_]}]")
         if s_ == -4:
             return 0.0
         if s_ not in ins:
             ins[s_] = K._new(f"in{-1 - s_}[i]")
         return ins[s_]
+
+    def reduce(flush=False):
+        # the pending immediates' shares, eight at a time (padded with 0)
+        while pending and (len(pending) >= 8 or flush):
+            batch, pending[:] = pending[:8], pending[8:]
+            batch += [(batch[0][0], "0.0f")] * (8 - len(batch))
+            K.lines.append(
+                f"mpr::acc_imm8<{', '.join(str(k) for k, _ in batch)}>("
+                "acc, " + ", ".join(v for _, v in batch) + ");")
     names = {int(o): o.name for o in Op}
     ops, outs = tape.ops.tolist(), tape.outs.tolist()
     lhss, rhss = tape.lhss.tolist(), tape.rhss.tolist()
-    # clauses of this segment read by a later segment: their adjoints
-    # start from adj
-    later = set(int(v) for v in src[:, t1:].ravel() if t0 <= v < t1)
-    adj = {}
-    rw = _result_source(tape, src)
-    if t0 <= rw < t1:
-        adj[rw] = K._new("in3[i]")
+    src = plan.src
     reduced = 0
     for t in range(t1 - 1, t0 - 1, -1):
-        if t in later:
-            c = K._new(f"adj[(size_t){t} * n + i]")
-            adj[t] = c if t not in adj else K._new(f"{adj[t]} + {c}")
-        g = adj.pop(t, None)
-        if g is None:
+        if not plan.has[t]:
             continue
         op = ops[t]
-        if op not in sem.table:
+        if op < Op.SQUARE_LHS:
             raise ValueError(f"clause {t}: opcode {op} has no unrolled form")
         K.lines.append(f"// {t}: s{outs[t]} = {names.get(op, op)} "
                        f"s{lhss[t]} s{rhss[t]}")
-        a, b = load(src[0, t]), load(src[1, t])
-        K.rec = []
-        imm = K.imm(t)
-        out = sem.table[op](a, b, imm)
-        n_acc = len(K.lines)
-        got = K.reverse(out, g, leaves=(a, b))
-        reduced += sum("acc_imm" in ln for ln in K.lines[n_acc:])
-        for v, s_ in ((a, src[0, t]), (b, src[1, t])):
-            if s_ >= 0 and not isinstance(v, float) and v in got:
-                c = got.pop(v)
-                adj[s_] = c if s_ not in adj else K._new(f"{adj[s_]} + {c}")
-    for s_, c in sorted(adj.items()):        # earlier segments' clauses
-        # (a lane past n stands in at lane n - 1 and writes nothing)
-        K.lines.append(f"if (live) adj[(size_t){s_} * n + i] += {c};")
+        if t == plan.result:
+            g = K._new("in3[i]")
+        elif plan.hpos[t] >= 0:
+            g = K._new(f"__ldcg(hand + hb + {B * plan.hpos[t]})")
+        else:
+            g = reg.pop(t)
+        a = value(int(src[0, t])) if vp.NEEDS_A[op] else None
+        b = value(int(src[1, t])) if vp.NEEDS_B[op] else None
+        r = (K._new(f"vals[vb + {B * plan.vpos[t]}]")
+             if vp.NEEDS_R[op] else None)
+        imm = K._new(f"__ldg(imms + {t})") if vp.READS_IMM[op] else None
+        code = None
+        if vp.CHOICE[op]:
+            c = int(plan.cidx[t])
+            if c // 16 not in words:
+                words[c // 16] = K._new(f"ch[cb + {B * (c // 16)}]",
+                                        "uint32_t")
+            code = K._new(f"({words[c // 16]} >> {2 * (c % 16)}) & 3u",
+                          "uint32_t")
+        da, db, di = vp.partials(op, R, g, a, b, r, imm, code)
+        if di is not None:
+            pending.append((t - t0, K._new(f"live ? {e(di)} : 0.0f")))
+            reduced += 1
+            reduce()
+        got = {}
+        for d, s_ in ((da, int(src[0, t])), (db, int(src[1, t]))):
+            if d is None or s_ < 0:
+                continue
+            got[s_] = d if s_ not in got else K._new(f"{got[s_]} + {e(d)}")
+        for s_, d in got.items():
+            h = int(plan.hpos[s_])
+            if h < 0:
+                reg[s_] = d if s_ not in reg else K._new(f"{reg[s_]} + {e(d)}")
+            else:
+                # through L2, out of the compiler's sight: a value kept in
+                # a register from its store to its read would undo the
+                # plan's parking
+                p = f"hand + hb + {B * h}"
+                if plan.first[s_] != t:
+                    d = K._new(f"__ldcg({p}) + {e(d)}")
+                K.lines.append(f"__stcg({p}, {e(d)});")
+    reduce(flush=True)
+    if reg:
+        raise AssertionError(f"segment {seg}: adjoints of {sorted(reg)} left "
+                             "in registers")
     body = "\n        ".join(K.lines)
     head = (f"// K1 reverse half, clauses [{t0}, {t1}) of {tape.length}: VJP "
             f"(d/d imms) of the float evaluator ({reduced} immediates "
             f"reduced; flags {flags}), written by "
             f"mpr_tpu_torch/ops/unrolled_eval.py")
     return (f"{head}\n#define MPR_UNROLLED_THREADS {ln.UNROLLED_THREADS}\n"
+            f"#define MPR_VJP_THREADS {shape['threads']}\n"
+            f"#define MPR_VJP_MIN_BLOCKS {shape['min_blocks']}\n"
             f"#include \"unrolled.cuh\"\n\nconstexpr int T0 = {t0}, "
             f"T1 = {t1};\n\nMPR_UNROLLED_VJP_KERNEL {{\n"
             f"    extern __shared__ float acc[];\n"
@@ -1168,6 +1126,7 @@ def generate_vjp(tape: Tape, flags: dict, seg) -> str:
             f"        const int lane = base + threadIdx.x;\n"
             f"        const bool live = lane < n;\n"
             f"        const int i = live ? lane : n - 1;\n"
+            f"        {_blocked_bases(plan)}\n"
             f"        {body}\n    }}\n"
             f"    mpr::acc_store(acc, partials + T0, T1 - T0, T);\n}}\n\n"
             f"MPR_UNROLLED_VJP_ENTRY\n")
@@ -1185,21 +1144,45 @@ _libs = {}
 _SIGNATURE = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
               + [ctypes.c_void_p])
 # kinds with other entry points: K1's reverse half (a segment: x, y, z, g,
-# imms, vals, adj, partials; n, T, blocks, threads; stream) and its sum of
-# the blocks' rows (partials, grad; T, blocks, accumulate; stream)
-_ENTRIES = {"vjp": [("mpr_unrolled_vjp", [ctypes.c_void_p] * 8
+# imms, vals, ch, hand, partials; n, T, blocks, threads; stream) and its
+# sum of the blocks' rows (partials, grad; T, blocks, accumulate; stream)
+_ENTRIES = {"vjp": [("mpr_unrolled_vjp", [ctypes.c_void_p] * 9
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
                     ("mpr_unrolled_vjp_reduce", [ctypes.c_void_p] * 2
                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])]}
-# clauses of a segment of K1's reverse half at most
+# K1's reverse half: clauses a segment at most (a kernel each), adjoints
+# kept in registers at once at most (ops/vjp_plan.py parks the rest in the
+# handover array), threads a block and blocks an SM that its launch bounds
+# ask for (__launch_bounds__(128, 4): at most 128 registers a thread, 16
+# warps an SM).  Chosen by ptxas's report (chip_smoke.py phase 14 prints
+# it and fails on a spill): at 56 adjoints no segment of the chip cells'
+# tapes spills at 128 registers.
 VJP_SEGMENT = 512
-# blocks of a K1 launch at most (its grid-stride loop takes the rest), and
-# so the rows of its partial sums
-VJP_BLOCKS = 1024
-# the bytes of stored clause values and adjoints (twice clauses x lanes
-# floats) one K1 launch uses: a VJP over more lanes runs in chunks within
-# this
-VALS_BYTES = 1 << 31
+VJP_LIVE = 56
+VJP_THREADS = 128
+VJP_MIN_BLOCKS = 4
+# waves of resident blocks a K1 launch takes at most (its grid-stride loop
+# takes the rest): its blocks, and so the rows of its partial sums
+VJP_WAVES = 2
+
+
+def _vjp_shape() -> dict:
+    """K1's generation and launch parameters as the module sets them."""
+    return dict(segment=VJP_SEGMENT, live=VJP_LIVE, threads=VJP_THREADS,
+                min_blocks=VJP_MIN_BLOCKS)
+
+
+# the bytes of K1's memory (stored values, choice words, the handover
+# array: VjpPlan.k1_lane_bytes a lane) one launch uses: a VJP over more
+# lanes runs in chunks within this
+VJP_BYTES = 16 << 30
+
+
+def vjp_chunk(plan: vp.VjpPlan, n: int) -> int:
+    """Lanes of one K1 launch over ``n`` lanes (a whole number of the
+    layout's lane blocks unless it is all of them)."""
+    c = VJP_BYTES // max(plan.k1_lane_bytes, 4)
+    return max(vp.LANE_BLOCK, min(n, c - c % vp.LANE_BLOCK))
 
 
 def _lib_path(key: str) -> Path:
@@ -1306,9 +1289,10 @@ class UnrolledEval:
 
     def source(self) -> str:
         if self.kind == "vjp":
-            return generate_vjp(self.tape, self.flags, self.seg)
+            return generate_vjp(self.tape, self.flags, self.plan, self.seg,
+                                self.shape)
         if self.kind == "vjpf":
-            return generate_vjp_fwd(self.tape, self.flags)
+            return generate_vjp_fwd(self.tape, self.flags, self.plan)
         return generate(self.tape, self.kind, self.take_imms, self.flags)
 
     def _imms_list(self, imms):
@@ -1363,21 +1347,27 @@ class _FloatEval(UnrolledEval):
 
 
 class _VjpEval:
-    """Kernel K1 of one float evaluator: its forward half ``fwd`` (kind
-    ``vjpf``) and the segments of its reverse half ``segments`` (kind
-    ``vjp``, one generated kernel each, built in parallel)."""
+    """Kernel K1 of one float evaluator: its storage plan ``plan``
+    (``ops/vjp_plan.py``), its forward half ``fwd`` (kind ``vjpf``) and
+    the segments of its reverse half ``segments`` (kind ``vjp``, one
+    generated kernel each, built in parallel)."""
 
     def __init__(self, f: "_FloatEval"):
         self.tape, self.flags, self.take_imms = f.tape, f.flags, True
+        # the module's parameters, latched as the config flags are
+        self.shape = sh = _vjp_shape()
+        self.plan = vp.plan_of_tape(self.tape, sh["segment"], sh["live"])
         base = f.key[len("float-"):]
 
         def half(kind, key, seg=None):
             ev = UnrolledEval(self.tape, kind, True)
-            ev.flags, ev.key, ev.seg = self.flags, key, seg
+            ev.flags, ev.key, ev.seg, ev.plan = self.flags, key, seg, self.plan
+            ev.shape = sh
             return ev
+        tag = "".join(f"{k[0]}{v}" for k, v in sh.items())
         self.fwd = half("vjpf", f"vjpf-{base}")
-        self.segments = [half("vjp", f"vjp{VJP_SEGMENT}-{k}-{base}", seg)
-                         for k, seg in enumerate(vjp_segments(self.tape))]
+        self.segments = [half("vjp", f"vjp{tag}-{k}-{base}", seg)
+                         for k, seg in enumerate(self.plan.segments)]
         self.evals = [self.fwd] + self.segments
 
     def plain(self, *args, imms=None):
@@ -1505,11 +1495,11 @@ class _FloatFn(torch.autograd.Function):
 
 def unrolled_float_vjp(ev, x, y, z, g, imms):
     """Kernel K1 on CUDA inputs (counted in ``unrolled_float_vjp.launches``,
-    one a chunk of lanes: the forward half storing the clause values, the
-    reverse half's segments last first, the sum over blocks):
-    d(sum(g * f(x, y, z)))/d(imms[t]) for t < the tape's length, ``ev`` a
-    float evaluator's ``.vjp``; on CPU inputs its plain version, autograd
-    through the plain walk."""
+    one a chunk of lanes: the forward half storing the plan's values and
+    choice words, the reverse half's segments last first, the sum over
+    blocks): d(sum(g * f(x, y, z)))/d(imms[t]) for t < the tape's length,
+    ``ev`` a float evaluator's ``.vjp``; on CPU inputs its plain version,
+    autograd through the plain walk."""
     T = ev.tape.length
     if not _on_cuda((x, y, z, g, imms)):
         im = torch.as_tensor(imms, dtype=torch.float32).detach()
@@ -1532,23 +1522,26 @@ def unrolled_float_vjp(ev, x, y, z, g, imms):
     if n == 0 or T == 0:
         return grad
     build_all(ev.evals)
-    chunk = max(1, min(n, VALS_BYTES // (8 * T)))
-    vals = torch.empty(T * chunk, dtype=torch.float32, device=dev)
-    adj = torch.empty(T * chunk, dtype=torch.float32, device=dev)
+    plan, sh = ev.plan, ev.shape
+    chunk = vjp_chunk(plan, n)
+    vals, ch, hand = vp.workspace("K1", dev, [
+        (vp.blocked_size(plan.n_vals, chunk), torch.float32),
+        (vp.blocked_size(plan.n_words, chunk), torch.int32),
+        (vp.blocked_size(plan.n_handover, chunk), torch.float32)])
     for c0 in range(0, n, chunk):
         m = min(n, c0 + chunk) - c0
         part = [t[c0:c0 + m] for t in lanes]
-        _launch(ev.fwd, part[:3], imms, [vals])
-        adj[:T * m].zero_()
-        blocks = min(VJP_BLOCKS, -(-m // ln.UNROLLED_THREADS))
+        _launch(ev.fwd, part[:3], imms, [vals, ch])
+        blocks = min(VJP_WAVES * ln.SM_COUNT * sh["min_blocks"],
+                     -(-m // sh["threads"]))
         partials = torch.empty(blocks, T, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         with torch.cuda.device(dev):
             for seg in reversed(ev.segments):
                 err = _libs[seg.key].mpr_unrolled_vjp(
                     *(t.data_ptr() for t in part), imms.data_ptr(),
-                    vals.data_ptr(), adj.data_ptr(), partials.data_ptr(), m,
-                    T, blocks, ln.UNROLLED_THREADS, stream)
+                    vals.data_ptr(), ch.data_ptr(), hand.data_ptr(),
+                    partials.data_ptr(), m, T, blocks, sh["threads"], stream)
                 if err:
                     break
             else:

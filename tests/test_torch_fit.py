@@ -26,6 +26,7 @@ to float32 precision.
 """
 
 import dataclasses
+import re
 import subprocess
 import sys
 
@@ -54,12 +55,15 @@ from mpr_tpu_torch import cli
 from mpr_tpu_torch.frontend import shapes
 from mpr_tpu_torch.frontend import tree as T
 from mpr_tpu_torch.io import checkpoint
-from mpr_tpu_torch.ops import eval_scan, unrolled_eval as ue
+from mpr_tpu_torch.ops import eval_scan, kernels, unrolled_eval as ue
+from mpr_tpu_torch.ops import vjp_plan as vp
 from mpr_tpu_torch.ops.tape_data import TapeData
 from mpr_tpu_torch.parallel import sharded
+from mpr_tpu_torch.tape.opcodes import Op
 from mpr_tpu_torch.tape.tape import Tape
 
-from torch_port_cases import one_torch_thread  # noqa: F401
+from torch_port_cases import (all_ops_clauses, one_torch_thread,  # noqa: F401
+                              random_trees)
 
 SIZE, SIZE_CULLED, GRID, WSIZE = 64, 128, 16, 64
 PROBE_LR = 2.0 ** 20
@@ -386,12 +390,17 @@ def test_cli_fit_writes_frep_and_png_and_runs_as_a_script(tmp_path):
 
 
 def test_k1_is_generated_in_segments(monkeypatch):
-    """K1's sources (the card builds them): a forward half storing the
-    clause values later clauses read, and reverse segments covering the
-    tape, each with its clause range, the last one seeded by g."""
+    """K1's sources (the card builds them): a forward half storing only
+    the plan's values and choice words, and reverse segments covering the
+    tape, each with its clause range, the last one seeded by g, adjoints
+    handed over through ``hand`` (stored by the first contributor, added
+    to by the rest), the immediates' shares reduced eight at a time (the
+    lanes past n counting 0), nothing zero-filled."""
     monkeypatch.setattr(ue, "VJP_SEGMENT", 16)
+    monkeypatch.setattr(ue, "VJP_LIVE", 6)
     tape = mpr_tpu_torch.compile_tree(shapes.stress_2d(4))
     vjp = ue.build_float(tape, take_imms=True).vjp
+    plan = vjp.plan
     assert [e.kind for e in vjp.evals] == ["vjpf"] + ["vjp"] * len(
         vjp.segments)
     assert len({e.key for e in vjp.evals}) == len(vjp.evals)
@@ -400,14 +409,224 @@ def test_k1_is_generated_in_segments(monkeypatch):
     assert all(a.seg[1] == b.seg[0]
                for a, b in zip(vjp.segments, vjp.segments[1:]))
     fwd = vjp.fwd.source()
-    assert "MPR_UNROLLED_ENTRY" in fwd and "out0[(size_t)" in fwd
+    assert "MPR_UNROLLED_ENTRY" in fwd
+    assert fwd.count("vals[vb + ") == plan.n_vals < tape.length - 1
+    assert fwd.count("ch[cb + ") == plan.n_words > 0
+    assert fwd.count("cw |= ") == plan.n_choices
     srcs = [e.source() for e in vjp.segments]
     assert all("MPR_UNROLLED_VJP_ENTRY" in s_ for s_ in srcs)
     assert "in3[i]" in srcs[-1]
-    assert sum(s_.count("mpr::acc_imm(") for s_ in srcs) > 0
-    # adjoints handed to an earlier segment, never by the first one, and
-    # written by live lanes only
-    assert any("if (live) adj[" in s_ for s_ in srcs[1:])
-    assert "if (live) adj[" not in srcs[0]
-    assert all(" adj[" not in ln or "if (live)" in ln or "const float" in ln
-               for s_ in srcs for ln in s_.splitlines())
+    lines = [ln for s_ in srcs for ln in s_.splitlines()]
+    assert not any("adj[" in ln or "zero_" in ln for ln in lines)
+    # every immediate share, masked for the lanes past n, reduced once
+    n_got = 0
+    for s_ in srcs:
+        shares = [ln.split()[2] for ln in s_.splitlines()
+                  if re.match(r"\s*const float v\d+ = live \? ", ln)]
+        batches = [re.search(r"acc_imm8<([\d, ]+)>\(acc, (.*)\);", ln)
+                   for ln in s_.splitlines() if "acc_imm8<" in ln]
+        assert all(batches)
+        got = [v for b in batches for v in b.group(2).split(", ")
+               if v != "0.0f"]
+        assert sorted(got) == sorted(shares)
+        n_got += len(got)
+    assert n_got == int(vp.USES_I[tape.ops][plan.has].sum()) > 0
+    # each handed-over adjoint: stored first by its first contributor,
+    # before any addition or read, in the segments' run order
+    stored, order = set(), []
+    for s_ in reversed(srcs):
+        for ln in s_.splitlines():
+            for m in re.finditer(r"__(ldcg|stcg)\(hand \+ hb \+ (\d+)", ln):
+                order.append((int(m.group(2)) // vp.LANE_BLOCK, m.group(1)))
+    for h, how in order:
+        if how == "stcg":
+            stored.add(h)
+        else:
+            assert h in stored
+    assert stored == set(range(plan.n_handover))
+    assert sum(how == "stcg" for _, how in order) == plan.contributions
+
+
+# Tapes for the storage plan and the kernels' algorithms replayed in plain
+# PyTorch: the chip cells' kinds (a long min/max union, its extrusion), the
+# tape that runs every opcode, and random trees with every operand form
+# (tests/test_random_trees.py's generator, on the port's tree module).
+_RANDOM = random_trees(T, mpr_tpu_torch.compile_tree, 6, seed=20261017)
+PLAN_TAPES = {"stress_2d(40)": lambda: mpr_tpu_torch.compile_tree(
+                  shapes.stress_2d(40)),
+              "extruded": lambda: mpr_tpu_torch.compile_tree(
+                  shapes.extrude_z(shapes.stress_2d(30), -0.4, 0.4)),
+              "all_ops": lambda: Tape.from_arrays(**all_ops_clauses())}
+PLAN_TAPES.update({f"random{k}": (lambda k=k: mpr_tpu_torch.compile_tree(
+    _RANDOM[k])) for k in range(6)})
+
+
+@pytest.mark.parametrize("name", list(PLAN_TAPES))
+@pytest.mark.parametrize("segment,live", [(512, 64), (16, 4)])
+def test_vjp_plan_sets(name, segment, live):
+    """The plan stores exactly the values the partials of clauses with an
+    adjoint read (no linear clause's operands), codes every min/max clause
+    in order, hands over every adjoint whose readers lie in another
+    segment, and keeps at most ``live`` in registers."""
+    tape = PLAN_TAPES[name]()
+    plan = vp.plan_of_tape(tape, segment, live)
+    L, src, ops = tape.length, plan.src, tape.ops
+    want = set()
+    for t in np.flatnonzero(plan.has):
+        op = int(ops[t])
+        if vp.NEEDS_A[op] and src[0, t] >= 0:
+            want.add(int(src[0, t]))
+        if vp.NEEDS_B[op] and src[1, t] >= 0:
+            want.add(int(src[1, t]))
+        if vp.NEEDS_R[op]:
+            want.add(int(t))
+    assert set(np.flatnonzero(plan.vpos >= 0).tolist()) == want
+    assert sorted(plan.vpos[plan.vpos >= 0]) == list(range(plan.n_vals))
+    linear = {int(o) for o in (Op.ADD_LHS_IMM, Op.ADD_LHS_RHS, Op.SUB_LHS_IMM,
+                               Op.SUB_IMM_RHS, Op.SUB_LHS_RHS, Op.NEG_LHS,
+                               Op.COPY_IMM, Op.COPY_LHS, Op.COPY_RHS)}
+    for t in range(L):
+        if int(ops[t]) in linear:    # a linear clause's rule reads nothing
+            assert not (vp.NEEDS_A[ops[t]] or vp.NEEDS_B[ops[t]]
+                        or vp.NEEDS_R[ops[t]])
+    ch = np.flatnonzero(vp.CHOICE[ops])
+    assert plan.cidx[ch].tolist() == list(range(len(ch)))
+    assert (plan.cidx[np.setdiff1d(np.arange(L), ch)] == -1).all()
+    assert plan.n_words == -(-len(ch) // 16)
+    # who reads each adjoint
+    readers = {}
+    for t in np.flatnonzero(plan.has):
+        for k, uses in ((0, vp.USES_A), (1, vp.USES_B)):
+            s_ = int(src[k, t])
+            if uses[int(ops[t])] and s_ >= 0:
+                readers.setdefault(s_, set()).add(int(t))
+    assert set(np.flatnonzero(plan.has).tolist()) == set(readers) | (
+        {plan.result} if plan.result >= 0 else set())
+    for s_, rs in readers.items():
+        if any(t // segment != s_ // segment for t in rs):
+            assert plan.hpos[s_] >= 0
+        if plan.hpos[s_] >= 0:
+            assert plan.first[s_] == max(rs)
+    assert sorted(plan.hpos[plan.hpos >= 0]) == list(range(plan.n_handover))
+    assert plan.contributions == sum(len(readers[s_]) for s_ in readers
+                                     if plan.hpos[s_] >= 0)
+    assert vp.register_live(plan) <= live
+    assert plan.k1_lane_bytes == 4 * (plan.n_vals + plan.n_words
+                                      + plan.n_handover)
+
+
+def test_partials_tables_agree_with_the_rules():
+    """NEEDS_* / USES_* say what :func:`vjp_plan.partials` reads and gives
+    a share to, opcode by opcode."""
+    class Rec:
+        def __init__(self):
+            self.read = set()
+
+        def _op(self, *args):
+            self.read.update(a for a in args if isinstance(a, str))
+            return "t"
+        mul = div = add = sub = _op
+
+        def neg(self, a):
+            return self._op(a)
+        sqrt = sin = cos = neg
+
+        def sel_ge0(self, a, p, q):
+            return self._op(a, p, q)
+
+        def bal(self, code, side):
+            return self._op(code)
+    for op in range(32):
+        K = Rec()
+        da, db, di = vp.partials(op, K, "g", "a", "b", "r", "i", "c")
+        assert ("a" in K.read) == bool(vp.NEEDS_A[op]), op
+        assert ("b" in K.read) == bool(vp.NEEDS_B[op]), op
+        assert ("r" in K.read) == bool(vp.NEEDS_R[op]), op
+        assert ("c" in K.read) == bool(vp.CHOICE[op]), op
+        assert ("i" in K.read) == bool(vp.READS_IMM[op]), op
+        assert (da is not None, db is not None, di is not None) == (
+            bool(vp.USES_A[op]), bool(vp.USES_B[op]), bool(vp.USES_I[op]))
+        assert vp.vjp_ops(op) >= 1
+
+
+def _unrolled_values(tape, x, y, z):
+    """Every clause's value under the unrolled float semantics."""
+    K = ue._TorchOps(False)
+    sem = ue._FloatSem(K)
+    vals = []
+
+    def keep(v):
+        vals.append(torch.as_tensor(v, dtype=torch.float32).expand_as(x))
+        return v
+    sem.post = keep
+    ue._walk(tape, sem, x, y, z, [float(v) for v in tape.imms])
+    return torch.stack(vals)
+
+
+def _interp_values(td, x, y, z):
+    """Every clause's value under the interpreter's float walk."""
+    regs = [torch.zeros_like(x)] * max(td.num_slots, 1)
+    for s_, v in zip(td.axis_slots, (x, y, z)):
+        if s_:
+            regs[s_] = v
+    ops, outs, lhss, rhss = kernels._decode(td.packed[:td.length])
+    out = []
+    for t in range(td.length):
+        a, b = regs[lhss[t]], regs[rhss[t]]
+        r = (a * 0.0 if ops[t] <= Op.JUMP
+             else kernels.float_clause(ops[t], a, b, td.imms[t]))
+        regs[outs[t]] = r
+        out.append(r.expand_as(x))
+    return torch.stack(out)
+
+
+def _jtape(pt):
+    return JTape(ops=pt.ops, outs=pt.outs, lhss=pt.lhss, rhss=pt.rhss,
+                 imms=pt.imms, axis_slots=pt.axis_slots,
+                 result_slot=pt.result_slot, num_slots=pt.num_slots,
+                 num_choices=pt.num_choices)
+
+
+@pytest.mark.parametrize("name", [n for n in PLAN_TAPES if n != "all_ops"]
+                         + ["all_ops"])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_replay_matches_autograd_and_jax(name, kernel):
+    """K1's and K2's algorithms replayed in plain PyTorch from what the
+    forward half stores (the plan's values and choice words) and the
+    handed-over adjoints alone (small segments and register budget, so
+    that many are handed over) equal autograd of the plain walk and
+    ``jax.grad`` through mpr_tpu's unrolled float evaluator (K1) or
+    ``eval_f`` (K2), within GRAD_TOL of the largest component."""
+    pt = PLAN_TAPES[name]()
+    jt = _jtape(pt)
+    rng = np.random.default_rng(11)
+    n = 257
+    xs, ys, zs = (rng.uniform(-1, 1, n).astype(np.float32) for _ in range(3))
+    gs = rng.normal(size=n).astype(np.float32)
+    x, y, z, g = (torch.from_numpy(a) for a in (xs, ys, zs, gs))
+    if kernel == "K1":
+        plan = vp.plan_of_tape(pt, 16, 4)
+        vals, words = vp.forward_store(plan, pt.imms,
+                                       _unrolled_values(pt, x, y, z), x, y, z)
+        got = vp.replay_k1(plan, pt.imms, vals, words, x, y, z, g).numpy()
+        f = ue.build_float(pt, take_imms=True)
+        plain = ue.unrolled_float_vjp(f.vjp, x, y, z, g, pt.imms).numpy()
+        fj = jue.build_float(jt, take_imms=True)
+        want = np.asarray(jax.grad(lambda im: jnp.sum(
+            fj(xs, ys, zs, im) * gs))(jnp.asarray(jt.imms)))
+    else:
+        td = TapeData.from_tape(pt, device="cpu")
+        plan = td.vjp_plan()[0]
+        vals, words = vp.forward_store(plan, td.imms.numpy(),
+                                       _interp_values(td, x, y, z), x, y, z)
+        got = vp.replay_k2(plan, td.packed.numpy(), td.imms.numpy(), vals,
+                           words, x, y, z, g, td.num_slots,
+                           td.result_slot).numpy()
+        plain = eval_scan.scan_adjoint(td, x, y, z, g).numpy()[:pt.length]
+        jd = jtd.TapeData.from_tape(jt)
+        want = np.asarray(jax.grad(lambda im: jnp.sum(jes.eval_f(
+            jd.replace_imms(im), xs, ys, zs) * gs))(jd.imms))[:pt.length]
+    scale = np.abs(want).max()
+    assert scale > 0 and np.isfinite(got).all()
+    assert np.abs(got - plain).max() <= GRAD_TOL * scale
+    assert np.abs(got - want).max() <= GRAD_TOL * scale

@@ -1102,7 +1102,7 @@ def test_k1_matches_autograd_of_the_plain_walk(cuda, name):
     imms = torch.as_tensor(tape.imms, device=cuda)
     before = ue.unrolled_float_vjp.launches
     got = ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms)
-    chunk = ue.VALS_BYTES // (8 * tape.length)      # lanes a launch
+    chunk = ue.vjp_chunk(ev.vjp.plan, x.numel())     # lanes a launch
     assert ue.unrolled_float_vjp.launches - before == -(-x.numel() // chunk)
     im = imms.clone().requires_grad_(True)
     want, = torch.autograd.grad(ev.plain(x, y, z, imms=im), im, g)
@@ -1114,10 +1114,11 @@ def test_k1_in_chunks_equals_one_launch(cuda, monkeypatch):
     ev = ue.build_float(tape, take_imms=True)
     imms = torch.as_tensor(tape.imms, device=cuda)
     one = ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms)
-    monkeypatch.setattr(ue, "VALS_BYTES", 8 * tape.length * 9000)
+    monkeypatch.setattr(ue, "VJP_BYTES", ev.vjp.plan.k1_lane_bytes * 9000)
     before = ue.unrolled_float_vjp.launches
     chunked = ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms)
-    assert ue.unrolled_float_vjp.launches - before == -(-x.numel() // 9000)
+    chunk = 9000 - 9000 % 128           # whole blocks of the layout
+    assert ue.unrolled_float_vjp.launches - before == -(-x.numel() // chunk)
     _close(chunked, one)
 
 
@@ -1131,19 +1132,131 @@ def test_k2_matches_autograd_of_the_plain_walk(cuda, name):
         eval_scan.eval_f_plain(td, x, y, z), 7.0))
     before = eval_scan.scan_adjoint.launches
     got = eval_scan.scan_adjoint(td, x, y, z, g)
-    chunk = eval_scan.VALS_BYTES // (4 * tape.length)  # lanes a launch
+    plan = td.vjp_plan()[0]
+    chunk = eval_scan.adj_chunk(plan, x.numel())     # lanes a launch
     assert eval_scan.scan_adjoint.launches - before == -(-x.numel() // chunk)
     im = td.imms.clone().requires_grad_(True)
     want, = torch.autograd.grad(
         eval_scan.eval_f_plain(td.replace_imms(im), x, y, z), im, g)
     _close(got, want)
     # in chunks of lanes (several K2f/K2 launches) the same
-    old = eval_scan.VALS_BYTES
-    eval_scan.VALS_BYTES = 4 * tape.length * 20000
+    old = eval_scan.ADJ_BYTES
+    eval_scan.ADJ_BYTES = plan.k2_lane_bytes * 20000
     try:
+        before = eval_scan.scan_adjoint.launches
         _close(eval_scan.scan_adjoint(td, x, y, z, g), want)
+        assert eval_scan.scan_adjoint.launches - before == -(
+            -x.numel() // 20000)
     finally:
-        eval_scan.VALS_BYTES = old
+        eval_scan.ADJ_BYTES = old
+
+
+@pytest.mark.parametrize("name", [f"random{i}" for i in range(8)])
+def test_k1_and_k2_on_random_trees(cuda, name):
+    """K1 and K2 against autograd of their plain walks on random trees
+    (every operand form), on a lane count that leaves dead lanes."""
+    from mpr_tpu_torch.ops import eval_scan
+    tape = _tape(name)
+    rng = np.random.default_rng(6)
+    n = 33333
+    x, y, z, g = (torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32),
+                                  device=cuda) for _ in range(4))
+    ev = ue.build_float(tape, take_imms=True)
+    imms = torch.as_tensor(tape.imms, device=cuda)
+    im = imms.clone().requires_grad_(True)
+    want, = torch.autograd.grad(ev.plain(x, y, z, imms=im), im, g)
+    _close(ue.unrolled_float_vjp(ev.vjp, x, y, z, g, imms), want)
+    td = TapeData.from_tape(tape, device=cuda)
+    im = td.imms.clone().requires_grad_(True)
+    want, = torch.autograd.grad(
+        eval_scan.eval_f_plain(td.replace_imms(im), x, y, z), im, g)
+    _close(eval_scan.scan_adjoint(td, x, y, z, g), want)
+
+
+def _k2_shapes():
+    """(home, K, threads, s_cap) of every shape K2 is built at: each home
+    and K, every local bucket."""
+    out = [("shared", k, t, s_cap) for k in (2, 4)
+           for t, s_cap in ((None, 176), (64, 16))]
+    out += [("local", k, None, s_cap) for k in (2, 4)
+            for s_cap in (16, 32, 64, 128, 256)]
+    out += [("local", 2, 64, 176), ("local", 2, 256, 176),
+            ("local", 4, 128, 176)]
+    return out
+
+
+@pytest.mark.parametrize("home,k,threads,s_cap", _k2_shapes())
+def test_k2_at_every_launch_shape(cuda, home, k, threads, s_cap):
+    """K2 at each home, K and bucket adjoint_launch can pick or a caller
+    can force (a file of ``s_cap`` slots, at least the tape's), against
+    autograd of the plain walk, on the tape that runs every opcode (8
+    slots) and on stress_2d(40) where the file holds its slots."""
+    from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.ops import launch as ln
+    for name in ("all_ops", "stress40"):
+        tape = _tape(name)
+        td = TapeData.from_tape(tape, device=cuda)
+        if td.num_slots > s_cap:
+            continue
+        shape = ln.adjoint_launch(s_cap, tape.length, home=home, k=k,
+                                  threads=threads)
+        rng = np.random.default_rng(8)
+        n = 20001
+        x, y, z, g = (torch.as_tensor(rng.uniform(-1, 1, n).astype(
+            np.float32), device=cuda) for _ in range(4))
+        im = td.imms.clone().requires_grad_(True)
+        want, = torch.autograd.grad(
+            eval_scan.eval_f_plain(td.replace_imms(im), x, y, z), im, g)
+        got = eval_scan.scan_adjoint(td, x, y, z, g, launch=shape,
+                                     s_cap=s_cap)
+        _close(got, want)
+
+
+def test_k2_refuses_a_shape_of_another_tape(cuda):
+    from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.ops import launch as ln
+    td = TapeData.from_tape(_tape("stress40"), device=cuda)
+    x = torch.zeros(100, device=cuda)
+    other = ln.adjoint_launch(eval_scan.adjoint_s_cap(td), 5373)
+    with pytest.raises(ValueError, match="does not fit"):
+        eval_scan.scan_adjoint(td, x, x, x, x, launch=other)
+
+
+_TRAP_K2 = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+import mpr_tpu_torch
+from mpr_tpu_torch.frontend import shapes
+from mpr_tpu_torch.ops import eval_scan
+from mpr_tpu_torch.ops.tape_data import TapeData
+td = TapeData.from_tape(mpr_tpu_torch.compile_tree(shapes.stress_2d(40)),
+                        device="cuda")
+x = torch.linspace(-1, 1, 4096, device="cuda")
+assert td.num_slots > 8
+try:
+    eval_scan.scan_adjoint(td, x, x, x, x, s_cap=8)   # a file of 8 slots
+    torch.cuda.synchronize()
+except RuntimeError:
+    print("raised by the kernel's fault")
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+def test_k2_with_more_slots_than_its_file_traps(cuda):
+    """A tape with more slots than K2's adjoint file: the kernel traps
+    rather than index past the file, and the fault raises (at the next
+    launch of the call or at torch.cuda.synchronize(); in a subprocess: a
+    trap leaves the context unusable)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _TRAP_K2.format(root=root)],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 3, (r.stdout, r.stderr[-2000:])
+    assert "raised by the kernel's fault" in r.stdout
 
 
 @pytest.mark.parametrize("engine", ["scan", "unrolled", "culled", "3d",
