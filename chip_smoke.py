@@ -76,24 +76,40 @@ Phases (any failure exits non-zero before the final line):
  13. the unrolled engine (run after phase 11, before the report): the
      kernels ``ops/unrolled_eval.py`` generates for the tapes of the
      ``stress_2d(600)`` 1024^2, gyroid 1024^3 and extruded 512^3 cells
-     (float, interval, deriv; their nvcc processes start with phase 1's,
-     and each one's nvcc seconds and ptxas registers, stack and spills are
-     printed; a spill here is printed, not fatal), then with the counts set
-     to 0 before each frame ``render.unrolled.render2d`` / ``render3d`` on
-     each cell, twice on a 3D cell (the first frame takes the full ladder,
-     the second the renderer's own choice, skip4 at gyroid): a 2D frame
-     must launch the interval kernel twice and the float kernel once, a
-     3D frame the interval kernel three times (twice under skip4), the
-     float kernel once for each chunk of at most 2^26 voxel lanes and the
+     (float and interval in the forms the launch picker takes, split P = 8
+     and lanes K = 1, K = 2 for a float tape bound by bytes, and the serial
+     form of their first design; deriv;
+     the sweep's forced forms, ``UNROLLED_SWEEP``; every form of a min/max
+     probe; their nvcc processes start with phase 1's, the builds' seconds
+     printed against ``UNROLLED_BUILD_S``), each one's nvcc seconds, ptxas
+     registers, stack and spills (a spill in a float or interval kernel
+     fails the run at its end; the deriv kernel's is printed), its SASS
+     instructions a lane (``cuobjdump -sass``), its resident blocks an SM
+     and, by form, the schedule's peak of live values (against tape
+     order's) or the split's warps, top, longest warp and statements
+     computed twice; the probe's min.NaN / max.NaN and nmin / nmax against
+     torch.minimum / maximum on every pair of +-0, +-inf, NaN, subnormal
+     and ordinary values; then with the counts set to 0 before each frame
+     ``render.unrolled.render2d`` / ``render3d`` on each cell, twice on a
+     3D cell (the first frame takes the full ladder, the second the
+     renderer's own choice, skip4 at gyroid): a 2D frame must launch the
+     interval kernel twice (both split) and the float kernel once, a 3D
+     frame the interval kernel three times (twice under skip4; a full
+     ladder's first launch split), the float kernel once for each chunk of
+     at most 2^26 voxel lanes (lanes form at the extruded cell) and the
      deriv kernel once, and no frame may run a plain evaluator; every
-     recorded launch bit for bit against its plain version, the images
-     against ``render*_brute`` and the interpreter engine (0 pixels
-     differ; normals within 1e-4), each frame timed on the branch it
-     checked and its launches timed (lane-clauses per second printed
-     beside kernel B's and V's),
-     and, as subprocesses, ``cli render2d stress:600 --size 1024 --engine
-     unrolled --check`` and ``cli table3d`` on the gyroid model at the
-     table's sizes;
+     recorded launch bit for bit against its plain version, at its own
+     form, at the first design's and, on a cell's first frame, at the
+     sweep's; the images against ``render*_brute`` and the interpreter
+     engine (0 pixels differ; normals within 1e-4), each frame timed on
+     the branch it checked and its launches timed by form (events, device
+     time, lane-clauses per second beside kernel B's and V's, the
+     operations bound and the issue floor: SASS instructions a lane x
+     lanes / (132 x 4 x 32 x the card's SM clock)), each cell's device
+     time against the first design's in the same run (held within 10% or
+     missed) and its recorded first-design time, and, as subprocesses, ``cli
+     render2d stress:600 --size 1024 --engine unrolled --check`` and ``cli
+     table3d`` on the gyroid model at the table's sizes;
  14. mesh export and fitting (after phase 13): the generated kernels of
      the fits (imm-input interval and float evaluators and both halves of
      K1, the unrolled float evaluator's VJP, for the three cells' tapes)
@@ -119,7 +135,9 @@ Phases (any failure exits non-zero before the final line):
      both modes, ``--params-only``) and ``cli mesh`` (both methods) as
      subprocesses, and ``cli render2d --sharded --check`` on both engines;
  12. print the kernel times of the previous designs of A, B, C, C2, V, D,
-     K1 and K2 (recorded, labelled as such; not measured here), the card
+     K1, K2 and the generated float and interval kernels (recorded,
+     labelled as such; not measured here), the unrolled sweep and the
+     comparison with the first design (measured in phase 13), the card
      line, one
      JSON ``kernels`` line (the eight TPU kernels' rows, then the three
      generated kernels' and K1, K2 and K2f, marked ``port_kernel``), and
@@ -263,7 +281,35 @@ PREVIOUS_DESIGN_MS = {"voxel_eval_3d": {"gyroid_sphere": 15.221,
                                              "3d window 512": 75.961,
                                              "unrolled 256^2": 6.700,
                                              "3d grid=32": 0.0121},
-                      "scan_adjoint": {"scan 256^2": 29.977}}
+                      "scan_adjoint": {"scan 256^2": 29.977},
+                      # the generated float and interval kernels' first
+                      # design (tape order, a thread a lane), device
+                      # time of a frame's launches at each cell of phase 13
+                      "unrolled_float": {
+                          "stress_2d(600)": 0.2768, "gyroid_sphere": 3.0215,
+                          "gyroid_sphere steady": 3.3506,
+                          "extruded_stress": 4.8284,
+                          "extruded_stress steady": 4.8284},
+                      "unrolled_interval": {
+                          "stress_2d(600)": 0.2751, "gyroid_sphere": 0.0749,
+                          "gyroid_sphere steady": 0.0034,
+                          "extruded_stress": 1.6119,
+                          "extruded_stress steady": 1.6119}}
+# Phase 13's sweep of forced forms of the generated float and interval
+# kernels (ops/launch.py UnrolledLaunch), by cell: each recorded launch of
+# the cell's first frame also runs at these, held bit for bit against its
+# plain version and timed (the serial form of the first design runs at
+# every frame).  The picker's own forms (split P = 8, lanes K = 1) need no
+# entry.
+UNROLLED_SWEEP = {
+    "stress_2d(600)": {"interval": (("split", 4), ("split", 32))},
+    "gyroid_sphere": {"float": (("lanes", 1), ("lanes", 4))},
+    "extruded_stress": {"float": (("lanes", 2), ("lanes", 4), ("split", 32)),
+                        "interval": (("lanes", 2), ("split", 4),
+                                     ("split", 32))}}
+# seconds phase 13's builds should take at most (their nvcc processes run
+# beside phase 1's and 14's): printed as held or missed
+UNROLLED_BUILD_S = 120.0
 # Kernel A's dependency bound: each level costs a shared-memory round trip
 # (about 30 cycles) and a barrier (about 20 cycles), at 1.98 GHz, twice (the
 # forward and the backward pass).  An estimate from the card's published
@@ -1707,21 +1753,60 @@ def unrolled_cells():
     return cells
 
 
+def forced_forms(cell, kind, first):
+    """The forms phase 13 also runs a recorded launch of ``kind`` at:
+    the serial form of the first design at every frame, and on a cell's
+    first frame the sweep (``UNROLLED_SWEEP``)."""
+    from mpr_tpu_torch.ops import launch as ln
+    out = [ln.UnrolledLaunch("serial")]
+    if first:
+        out += [ln.UnrolledLaunch(f, k=v) if f == "lanes"
+                else ln.UnrolledLaunch(f, parts=v)
+                for f, v in UNROLLED_SWEEP.get(cell, {}).get(kind, ())]
+    return out
+
+
+def minmax_evals():
+    """Float and interval evaluators of one min and one max clause (the
+    probe of min.NaN / max.NaN against torch.minimum / maximum)."""
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.tape.tape import Tape
+    out = []
+    for op in (18, 20):            # MIN_LHS_RHS, MAX_LHS_RHS
+        tape = Tape.from_arrays(ops=[op], outs=[4], lhss=[1], rhss=[2],
+                                imms=[0.0], axis_slots=(1, 2, 3),
+                                result_slot=4, num_slots=5, num_choices=1)
+        out += [(op, ue.build_float(tape)), (op, ue.build_interval(tape))]
+    return out
+
+
 def start_unrolled_builds():
-    """Start building phase 13's kernels (three cells x three semantics)
-    in a thread, so that their nvcc processes run beside phase 1's."""
+    """Start building phase 13's kernels in a thread, so that their nvcc
+    processes run beside phase 1's: each evaluator's own forms (three
+    cells x three semantics), the first design's serial form and the
+    sweep's forms of the float and interval evaluators, and every form of
+    the min/max probe."""
     import threading
+    from mpr_tpu_torch.ops import launch as ln
     from mpr_tpu_torch.ops import unrolled_eval as ue
     from mpr_tpu_torch.render import unrolled
     cells = unrolled_cells()
     evals = [e for _, tape, _, _ in cells
              for r in [unrolled.get_renderer(tape)] for e in (r.fi, r.f, r.fd)]
-    box = {"cells": cells, "evals": evals}
+    kernels = [k for e in evals for k in e.kernels()]
+    for (cell, *_), trio in zip(cells, zip(*[iter(evals)] * 3)):
+        kernels += [e.kernel(f) for e in trio[:2]
+                    for f in forced_forms(cell, e.kind, True)]
+    probe = minmax_evals()
+    kernels += [k for _, ev in probe for k in ev.kernels()
+                + [ev.kernel(ln.UnrolledLaunch("serial"))]]
+    box = {"cells": cells, "evals": evals, "kernels": kernels,
+           "probe": probe}
 
     def work():
         t0 = time.perf_counter()
         try:
-            ue.build_all(evals)
+            ue.build_all(kernels)
         except BaseException as e:       # re-raised by phase 13
             box["error"] = e
         box["seconds"] = time.perf_counter() - t0
@@ -1731,7 +1816,8 @@ def start_unrolled_builds():
 
 
 def gen_ops(src):
-    """Float operations a lane of a generated kernel does (GEN_CALL_OPS)."""
+    """Float operations a lane of a generated kernel does (GEN_CALL_OPS),
+    from its serial source."""
     import re
     n = 0
     for line in src.splitlines():
@@ -1747,12 +1833,13 @@ def gen_ops(src):
     return n
 
 
-def bare_launch(ue, ev, args, imms):
-    """``ev``'s kernel alone (``unrolled_eval._launch``, the launch the
-    wrapper makes): the inputs flattened and the outputs allocated once,
-    so that timing the returned closure times the launch and the kernel,
-    not the wrapper's work around them (which ``wrapper_ms`` times).
-    Returns (closure, the tensors it reads and writes, to keep alive)."""
+def bare_launch(ue, ev, args, imms, form=None):
+    """``ev``'s kernel of ``form`` (default: the picker's) alone
+    (``unrolled_eval._launch``, the launch the wrapper makes): the inputs
+    flattened and the outputs allocated once, so that timing the returned
+    closure times the launch and the kernel, not the wrapper's work
+    around them (which ``wrapper_ms`` times).  Returns (closure, (lanes,
+    outputs, imms): the tensors it reads and writes, to keep alive)."""
     import torch
     lanes = [t.reshape(-1).contiguous() for t in torch.broadcast_tensors(
         *args)]
@@ -1761,7 +1848,7 @@ def bare_launch(ue, ev, args, imms):
             for _ in range(ue.N_OUT[ev.kind])]
 
     def run():
-        ue._launch(ev, lanes, imms, outs)
+        ue._launch(ev, lanes, imms, outs, form)
     return run, (lanes, outs, imms)
 
 
@@ -1775,30 +1862,140 @@ def ptxas_of(log):
             "/".join(spill[-1]) if spill else "?")
 
 
+def sass_count(path):
+    """Instructions (NOPs aside) of the kernels in a built library, from
+    the toolkit's ``cuobjdump -sass``; None where it has none."""
+    import re
+    from mpr_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=600).stdout
+    n = 0
+    for line in out.splitlines():
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+([A-Z][^;]*);", line)
+        if m and not m.group(1).startswith("NOP"):
+            n += 1
+    return n
+
+
+def sm_clock_hz():
+    """The SM clock the card reports as its maximum (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def bits_differ(outs, pouts):
+    """Values of ``outs`` whose bits differ from ``pouts``' (NaNs equal
+    by NaN-ness)."""
+    import torch
+    n = 0
+    for o, p in zip(outs, pouts):
+        n += int(((o.view(torch.int32) != p.view(torch.int32))
+                  & ~(torch.isnan(o) & torch.isnan(p))).sum())
+    return n
+
+
+def run_minmax_probe(probe, dev, forms_of):
+    """min.NaN / max.NaN (lanes and split forms) and nmin / nmax (serial)
+    against torch.minimum / maximum on every pair of +-0, +-inf, NaN, a
+    subnormal and ordinary values: bit for bit, NaNs by NaN-ness."""
+    import numpy as np
+    import torch
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 1e-40,
+                     -3.5, 2.5e38], np.float32)
+    a, b = (torch.from_numpy(v.ravel().copy()).to(dev)
+            for v in np.meshgrid(vals, vals))
+    z = torch.zeros_like(a)
+    for op, ev in probe:
+        want = (torch.minimum if op == 18 else torch.maximum)(a, b)
+        for form in forms_of(ev):
+            got = (ev(a, b, z, launch=form) if ev.kind == "float"
+                   else ev(a, a, b, b, z, z, launch=form))
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            bad = bits_differ(got, [want] * len(got))
+            print(f"  min/max probe {'min' if op == 18 else 'max'} "
+                  f"{ev.kind} {form.tag}: {a.numel()} pairs of +-0, +-inf, "
+                  f"NaN, subnormal, ordinary; {bad} differ from torch's")
+            check(bad == 0, f"{ev.kind} {form.tag} min/max differs from "
+                  f"torch.minimum / maximum on special values")
+
+
 def run_unrolled(ctx, results, launches, pre):
     """Phase 13: the unrolled engine (render/unrolled.py on the evaluators
     generated by ops/unrolled_eval.py)."""
     import numpy as np
     import torch
+    from mpr_tpu_torch.ops import launch as ln
     from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.ops import unrolled_plan as up
     from mpr_tpu_torch.render import unrolled
     card, dev = ctx["card"], ctx["dev"]
     pre["thread"].join()
     if "error" in pre:
         raise pre["error"]
     cells, evals = pre["cells"], pre["evals"]
-    print(f"unrolled engine: {len(evals)} evaluators built in "
+    clock = sm_clock_hz()
+    print(f"unrolled engine: {len(pre['kernels'])} kernels built in "
           f"{pre['seconds']:.1f} s (their nvcc processes ran beside phase "
-          f"1's)  [{card}]")
-    for (cell, tape, _, _), trio in zip(cells, zip(*[iter(evals)] * 3)):
-        for e in trio:
-            b = ue.BUILDS[e.key]
-            regs, stack, spill = ptxas_of(b["log"])
-            print(f"  build {cell} {e.kind}: {tape.length} clauses, "
-                  f"{b['seconds']:.1f} s of nvcc"
-                  f"{'' if b['compiled'] else ' (earlier build, loaded)'}; "
-                  f"{regs} registers, {stack} B stack, spill stores/loads "
-                  f"{spill} B")
+          f"1's and 14's; "
+          f"{'held' if pre['seconds'] <= UNROLLED_BUILD_S else 'MISSED'}: at "
+          f"most {UNROLLED_BUILD_S:.0f} s); the card's SM clock "
+          f"{clock / 1e6:.0f} MHz  [{card}]")
+    results["unrolled_build_s"] = round(pre["seconds"], 2)
+    cell_of = {id(t): c for c, t, *_ in cells}
+    facts, spills = {}, []
+    for k in pre["kernels"]:
+        b = ue.BUILDS[k.key]
+        regs, stack, spill = ptxas_of(b["log"])
+        form = getattr(k, "form", ln.UnrolledLaunch("serial"))
+        cell = cell_of.get(id(k.tape), "min/max probe")
+        f = dict(cell=cell, kind=k.kind, form=form.tag,
+                 seconds=round(b["seconds"], 2), registers=regs, stack=stack,
+                 spills=spill)
+        sass = sass_count(ue._lib_path(k.key))
+        f["sass_per_lane"] = None if sass is None else sass / form.k
+        line = (f"  build {cell} {k.kind} {form.tag}: {k.tape.length} "
+                f"clauses, {b['seconds']:.1f} s of nvcc"
+                f"{'' if b['compiled'] else ' (earlier build, loaded)'}; "
+                f"{regs} registers, {stack} B stack, spill stores/loads "
+                f"{spill} B; SASS {f['sass_per_lane']} instructions a lane")
+        if form.form != "serial":
+            info = ue.kernel_info(k)
+            f.update(blocks_per_sm=info["blocks_per_sm"],
+                     block_threads=info["threads"])
+            prog = k.ev.program()
+            if form.form == "lanes":
+                f["live_peak"] = up.live_peak(up.schedule(
+                    prog.stmts, prog.outs), prog.outs)
+                f["live_peak_tape_order"] = up.live_peak(prog.stmts,
+                                                         prog.outs)
+                line += (f"; {info['blocks_per_sm']} blocks of "
+                         f"{info['threads']} an SM; schedule: "
+                         f"{f['live_peak']} values live at most (tape "
+                         f"order {f['live_peak_tape_order']})")
+            else:
+                sp = up.split(prog, form.parts)
+                f.update(warps=sp.warps, top_clauses=len(sp.top_clauses),
+                         longest=sp.longest(), duplicated=sp.duplicated(),
+                         statements=len(prog.stmts))
+                line += (f"; {info['blocks_per_sm']} blocks of "
+                         f"{info['threads']} an SM; split: {sp.warps} warps,"
+                         f" {len(sp.top_clauses)} top clauses, longest warp "
+                         f"{sp.longest()} of {len(prog.stmts)} statements, "
+                         f"{sp.duplicated()} computed twice")
+        print(line)
+        facts[k.key] = f
+        if k.kind in ("float", "interval") and spill != "0/0":
+            spills.append(f"{cell} {k.kind} {form.tag}: {spill} B")
+    results["unrolled_spills"] = spills
+    run_minmax_probe(pre["probe"], dev, lambda ev: [
+        k.form for k in ev.kernels()] + [ln.UnrolledLaunch("serial")])
 
     # ---- the main path: each frame with every count at 0 ----------------------
     # A 3D cell renders twice, as a user's first two frames: the first takes
@@ -1848,13 +2045,32 @@ def run_unrolled(ctx, results, launches, pre):
             branch = "" if mat is None else (
                 " (skip4: 64^3 -> 16^3 -> voxels)" if skip4
                 else " (full ladder: 64^3 -> 16^3 -> 4^3 -> voxels)")
+            forms = {k: [a[0].launch((out[0] if isinstance(
+                out, tuple) else out).numel()).tag
+                for a, _, out in recs[label].get(k, [])]
+                for k, *_ in UNROLLED_ROWS}
             print(f"unrolled {label} @{size}{branch}: "
                   f"{time.perf_counter() - t0:.3f} s (host clock); launches "
-                  f"{per_frame[label]}, expected {need}")
+                  f"{per_frame[label]}, expected {need}; forms {forms}")
             for kname, n in need.items():
                 check(per_frame[label][kname] == n, f"{kname} launched "
                       f"{per_frame[label][kname]} times in the unrolled "
                       f"{label} frame, {n} expected")
+            # the forms the picker must take on the chip cells: both 2D
+            # interval launches and the first of a full-ladder 3D frame
+            # split, the extruded model's float launch in lanes
+            fi_forms = forms["unrolled_interval"]
+            if mat is None:
+                check(all(f.startswith("split") for f in fi_forms),
+                      f"the 2D interval launches took {fi_forms}")
+            elif label == cell:
+                check(fi_forms[0].startswith("split"), f"the first "
+                      f"interval launch of {label} took {fi_forms[0]}")
+            if label == CASES_3D[1][0]:
+                check(all(f.startswith("lanes")
+                          for f in forms["unrolled_float"]),
+                      f"the {label} float launch took "
+                      f"{forms['unrolled_float']}")
     finally:
         recorder.remove()
         ue.UnrolledEval.plain = real_plain
@@ -1867,9 +2083,10 @@ def run_unrolled(ctx, results, launches, pre):
     print(f"unrolled path launches over {len(frames_of)} frames: "
           f"{launches['unrolled']}")
 
-    # ---- every launch against its plain version; images; timing ------------
+    # ---- every launch against its plain version, at its own form, the
+    # first design's and the sweep's; images; timing -----------------------
     rows = {k: {} for k, *_ in UNROLLED_ROWS}
-    frame_ms = {}
+    frame_ms, sweep = {}, {}
     for label, cell, tape, mat, size, skip4 in frames_of:
         for kname, *_ in UNROLLED_ROWS:
             for j, (a, k, out) in enumerate(recs[label].get(kname, [])):
@@ -1877,23 +2094,42 @@ def run_unrolled(ctx, results, launches, pre):
                 pout = ev.plain(*args, imms=k.get("imms"))
                 outs = out if isinstance(out, tuple) else (out,)
                 pouts = pout if isinstance(pout, tuple) else (pout,)
-                n_bad, err = 0, 0.0
-                for o, p in zip(outs, pouts):
-                    bad_bits = (o.view(torch.int32) != p.view(torch.int32)) \
-                        & ~(torch.isnan(o) & torch.isnan(p))
-                    n_bad += int(bad_bits.sum())
-                    err = max(err, same(o, p)[1])
+                n_bad = bits_differ(outs, pouts)
+                err = max(same(o, p)[1] for o, p in zip(outs, pouts))
                 lanes = outs[0].numel()
-                rows[kname].setdefault(label, []).append(dict(
-                    lanes=lanes, clauses=tape.length, mismatches=n_bad,
-                    max_abs_err=err,
-                    bytes=lanes * 4 * (ue.N_IN[ev.kind] + ue.N_OUT[ev.kind]),
-                    ops=lanes * gen_ops(ev.source())))
+                form = ev.launch(lanes)
+                rr = dict(lanes=lanes, clauses=tape.length,
+                          mismatches=n_bad, max_abs_err=err,
+                          form=form.tag, forced={},
+                          bytes=lanes * 4 * (ue.N_IN[ev.kind]
+                                             + ue.N_OUT[ev.kind]),
+                          ops=lanes * gen_ops(ev.source(
+                              ln.UnrolledLaunch("serial"))))
+                fk = facts.get(ev.kernel(form).key, {})
+                if fk.get("sass_per_lane"):
+                    rr["sass_per_lane"] = fk["sass_per_lane"]
+                    rr["issue_floor_ms"] = (fk["sass_per_lane"] * lanes
+                                            / (ln.SM_COUNT * 4 * 32 * clock)
+                                            * 1e3)
+                rr["registers"] = fk.get("registers")
+                rows[kname].setdefault(label, []).append(rr)
                 print(f"  {kname} {label} launch {j}: {lanes} lanes x "
-                      f"{tape.length} clauses, {n_bad} bits differ from the "
-                      f"plain version, max |err| {err:.3g}")
+                      f"{tape.length} clauses, {form.tag}, {n_bad} bits "
+                      f"differ from the plain version, max |err| {err:.3g}")
                 check(n_bad == 0, f"{kname} differs from its plain version "
                       f"in {label} (launch {j}): {n_bad} values")
+                if ev.kind in ("float", "interval"):
+                    for f in forced_forms(cell, ev.kind, label == cell):
+                        run, keep = bare_launch(ue, ev, args, k.get("imms"),
+                                                f)
+                        run()
+                        torch.cuda.synchronize()
+                        bad = bits_differ(keep[1], pouts)
+                        rr["forced"][f.tag] = {"mismatches": bad}
+                        check(bad == 0, f"{kname} at the forced form "
+                              f"{f.tag} differs from its plain version in "
+                              f"{label} (launch {j}): {bad} values")
+                        del keep
                 del pout, pouts
         if mat is None:
             img = frames[label]
@@ -1917,9 +2153,9 @@ def run_unrolled(ctx, results, launches, pre):
                       f"{what}")
             m = depth > 0
             nerr = float(np.abs(normals - inormals).max())
-            ln = np.linalg.norm(normals[m], axis=-1)
+            lnorm = np.linalg.norm(normals[m], axis=-1)
             print(f"  unrolled normals {label}: max |n - interpreter's| "
-                  f"{nerr:.2e}, | |n| - 1 | <= {np.abs(ln - 1).max():.2e}")
+                  f"{nerr:.2e}, | |n| - 1 | <= {np.abs(lnorm - 1).max():.2e}")
             check(nerr <= 1e-4 and not normals[~m].any(),
                   f"the unrolled {label} normals differ from the "
                   "interpreter's")
@@ -1938,8 +2174,21 @@ def run_unrolled(ctx, results, launches, pre):
             reps = 10
             branch = " skip4" if skip4 else " full ladder"
         frame_ms[label] = cuda_ms(frame, reps, 2)
+        # the same frame with the float and interval kernels at their first
+        # design's form, in turns with the new one
+        serial = ln.UnrolledLaunch("serial")
+        for ev in (r.f, r.fi):
+            ev.launch = lambda n: serial
+        try:
+            first_ms = cuda_ms(frame, reps, 2)
+        finally:
+            del r.f.launch, r.fi.launch
+        again = cuda_ms(frame, reps, 2)
+        frame_ms[f"{label} first design"] = first_ms
         print(f"unrolled frame {label} @{size}{branch}: "
-              f"{frame_ms[label]:.3f} ms (events, median of {reps})  [{card}]")
+              f"{frame_ms[label]:.3f} ms, then {first_ms:.3f} with the float "
+              f"and interval kernels at the first design's form, then "
+              f"{again:.3f} (events, median of {reps} each)  [{card}]")
         for kname, *_ in UNROLLED_ROWS:
             fn = recorder.originals[kname]
             for (a, k, _), rr in zip(recs[label].get(kname, []),
@@ -1947,29 +2196,73 @@ def run_unrolled(ctx, results, launches, pre):
                 run, keep = bare_launch(ue, a[0], a[1:], k.get("imms"))
                 rr["ms"] = cuda_ms(run, 10, 2)
                 rr["wrapper_ms"] = cuda_ms(lambda: fn(*a, **k), 10, 2)
-                rr["device_ms"] = device_ms(run, 5, "mpr_unrolled_kernel", 3)
+                rr["device_ms"] = device_ms(run, 5, "mpr_unrolled_kernel", 5)
                 del keep
                 rr["plain_ms"] = plain_ms(lambda: a[0].plain(
                     *a[1:], imms=k.get("imms")))
                 rr["rate"] = rr["lanes"] * rr["clauses"] / rr["ms"] / 1e9
                 rr["bound_ms"], rr["bound_by"] = bound(rr)
-                print(f"  {kname} {label}: {rr['lanes']} lanes, "
-                      f"{rr['ms']:.4f} ms (events around the bare launch; "
+                for tag, fr in rr["forced"].items():
+                    f = next(x for x in forced_forms(cell, a[0].kind, True)
+                             if x.tag == tag)
+                    run, keep = bare_launch(ue, a[0], a[1:], k.get("imms"),
+                                            f)
+                    fr["ms"] = cuda_ms(run, 10, 2)
+                    fr["device_ms"] = device_ms(run, 5, "mpr_unrolled_kernel",
+                                                5)
+                    del keep
+                floor = rr.get("issue_floor_ms")
+                print(f"  {kname} {label}: {rr['lanes']} lanes, {rr['form']}"
+                      f", {rr['ms']:.4f} ms (events around the bare launch; "
                       f"device {rr['device_ms']}; through the wrapper "
                       f"{rr['wrapper_ms']:.4f}), plain {rr['plain_ms']:.1f} "
-                      f"ms, bound {rr['bound_ms']:.5f} ms ({rr['bound_by']}); "
-                      f"{rr['rate']:.3f} T lane-clauses/s  [{card}]")
+                      f"ms, bound {rr['bound_ms']:.5f} ms ({rr['bound_by']})"
+                      f", issue floor "
+                      f"{'not measured' if floor is None else f'{floor:.5f}'}"
+                      f" ms; {rr['rate']:.3f} T lane-clauses/s; forced "
+                      + ", ".join(f"{t} {x['ms']:.4f} (device "
+                                  f"{x['device_ms']})"
+                                  for t, x in rr["forced"].items())
+                      + f"  [{card}]")
+                if label == cell and len(rr["forced"]) > 1:
+                    # device ms by form
+                    sweep.setdefault(cell, {}).setdefault(kname, []).append(
+                        {"lanes": rr["lanes"], rr["form"]: rr["device_ms"],
+                         **{t: x["device_ms"]
+                            for t, x in rr["forced"].items()}})
         print_profile(f"unrolled {label} @{size}{branch}", frame, card, 3)
         del recs[label]
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    b = results[CASES[0][1]]["pixel_eval_runs"]
-    v = results[CASES_3D[0][0]]["voxel_eval_3d"]
+    b = results.get(CASES[0][1], {}).get("pixel_eval_runs", {})
+    v = results.get(CASES_3D[0][0], {}).get("voxel_eval_3d", {})
     for label, rr in (("B (interpreter, stress 1024^2)", b),
                       ("V (interpreter, gyroid 1024^3)", v)):
         if rr.get("device_ms"):
             print(f"  beside: {label} {rr['clauses'] / rr['device_ms'] / 1e9:.3f}"
                   " T pixel-clauses/s")
+    # ---- against the first design, in this run ------------------------------
+    verdicts = {}
+    for kname in ("unrolled_float", "unrolled_interval"):
+        for label, rr in rows[kname].items():
+            new = [x["device_ms"] for x in rr]
+            old = [x["forced"]["serial"].get("device_ms") for x in rr]
+            if None in new or None in old:
+                verdicts[f"{kname} {label}"] = "not measured"
+                print(f"  {kname} {label}: a device time against the first "
+                      f"design not measured (the profiler traced no such "
+                      f"kernel)  [{card}]")
+                continue
+            ratio = sum(new) / sum(old)
+            verdicts[f"{kname} {label}"] = round(ratio, 4)
+            print(f"  {kname} {label}: device {sum(new):.4f} ms "
+                  f"({' + '.join(x['form'] for x in rr)}) against the first "
+                  f"design's {sum(old):.4f} ms in this run: x{ratio:.3f}, "
+                  f"{'held' if ratio <= 1.1 else 'MISSED'} (at most 1.1); "
+                  f"recorded first design: "
+                  f"{PREVIOUS_DESIGN_MS.get(kname, {}).get(label)}  [{card}]")
+    results["unrolled_sweep"] = sweep
+    results["unrolled_vs_first_design"] = verdicts
 
     # ---- the command line ----------------------------------------------------
     import tempfile
@@ -2008,7 +2301,7 @@ def run_unrolled(ctx, results, launches, pre):
         for line in (p.stdout + p.stderr).strip().splitlines():
             print("    " + line)
         check(p.returncode == 0, f"cli table3d failed:\n{p.stderr}")
-        rows3 = [ln.split() for ln in p.stdout.splitlines()[1:]]
+        rows3 = [ln_.split() for ln_ in p.stdout.splitlines()[1:]]
         check(rows3 and rows3[0][0] == "256" and all(
             float(ms) > 0 for _, ms in rows3), "cli table3d printed no row")
 
@@ -2020,20 +2313,35 @@ def run_unrolled(ctx, results, launches, pre):
             rr = rows[kname].get(label)
             if not rr:
                 continue
+
+            def total(key, rr=rr):
+                v = [x.get(key) for x in rr]
+                return None if None in v else round(sum(v), 6)
             per[label] = {
                 "branch": None if mat is None
                 else "skip4" if skip4 else "full ladder",
                 "launches": len(rr),
                 "lanes": [x["lanes"] for x in rr],
+                "forms": [x["form"] for x in rr],
+                "registers": [x["registers"] for x in rr],
+                "ms_each": [round(x["ms"], 6) for x in rr],
                 "ms": round(sum(x["ms"] for x in rr), 6),
                 "wrapper_ms": round(sum(x["wrapper_ms"] for x in rr), 6),
-                "device_ms": None if any(x["device_ms"] is None for x in rr)
-                else round(sum(x["device_ms"] for x in rr), 6),
+                "device_ms": total("device_ms"),
+                "device_ms_each": [x["device_ms"] for x in rr],
+                "first_design_device_ms": (
+                    None if kname == "unrolled_deriv" else round(sum(
+                        x["forced"]["serial"].get("device_ms") or 0.0
+                        for x in rr), 6)),
                 "plain_ms": round(sum(x["plain_ms"] for x in rr), 3),
                 "bound_ms": round(sum(x["bound_ms"] for x in rr), 6),
                 "bound_by": rr[-1]["bound_by"],
+                "issue_floor_ms": total("issue_floor_ms"),
+                "sass_per_lane": [x.get("sass_per_lane") for x in rr],
                 "T_lane_clauses_per_s": [round(x["rate"], 4) for x in rr],
-                "frame_ms": round(frame_ms[label], 4)}
+                "frame_ms": round(frame_ms[label], 4),
+                "frame_ms_first_design": round(
+                    frame_ms[f"{label} first design"], 4)}
         at = max(per, key=lambda c: per[c]["ms"])
         p = per[at]
         out.append({
@@ -2045,12 +2353,10 @@ def run_unrolled(ctx, results, launches, pre):
             "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": None, "at": at,
-            "floor_ms": (round(p["floor_ms"], 6) if "floor_ms" in p
-                         else None),
-            "launch_shape": p.get("launch_shape"), "per_cell": per,
-            "build_s": {c: round(ue.BUILDS[e.key]["seconds"], 2)
-                        for (c, *_), trio in zip(cells, zip(*[iter(evals)] * 3))
-                        for e in trio if "unrolled_" + e.kind == kname}})
+            "issue_floor_ms": p["issue_floor_ms"], "per_cell": per,
+            "build_s": {f"{x['cell']} {x['form']}": x["seconds"]
+                        for x in facts.values()
+                        if "unrolled_" + x["kind"] == kname}})
     results["unrolled"] = out
 
 
@@ -2309,11 +2615,13 @@ def run_fit(ctx, results, launches, pre):
     print(f"fit phase: {len(pre['evals'])} generated kernels built in "
           f"{pre['seconds']:.1f} s (beside phases 1 and 13)  [{card}]")
     builds, k1_spills = {}, []
-    for ev in pre["evals"]:
+    for ev in [k for e in pre["evals"] for k in e.kernels()]:
         b = ue.BUILDS[ev.key]
         regs, stack, spill = ptxas_of(b["log"])
         cell = next(c for c, t in pre["cells"] if t is ev.tape)
         kind = ev.kind if ev.kind != "vjp" else f"vjp{ev.seg}"
+        if ev.kind in ("float", "interval"):
+            kind = f"{ev.kind} {ev.form.tag}"
         builds.setdefault(cell, {})[kind] = dict(
             seconds=round(b["seconds"], 2), registers=regs, stack=stack,
             spills=spill)
@@ -2322,6 +2630,9 @@ def run_fit(ctx, results, launches, pre):
               f"stack, spill stores/loads {spill} B")
         if ev.kind in ("vjp", "vjpf") and spill != "0/0":
             k1_spills.append(f"{cell} {kind}: {spill} B")
+        if ev.kind in ("float", "interval") and spill != "0/0":
+            results["unrolled_spills"].append(f"{cell} {kind} (imms from a "
+                                              f"pointer): {spill} B")
     results["k1_spills"] = k1_spills
     for cell, tape in pre["cells"]:
         vjp = ue.build_float(tape, take_imms=True).vjp
@@ -2805,6 +3116,8 @@ def main() -> int:
           f"registers: {spills}")
     check(not results["k1_spills"], f"kernel K1 spills registers: "
           f"{results['k1_spills']}")
+    check(not results["unrolled_spills"], f"a generated float or interval "
+          f"kernel spills registers: {results['unrolled_spills']}")
 
     # ---- 12. report -------------------------------------------------------------
     size = CASES[0][1]
@@ -2898,6 +3211,9 @@ def main() -> int:
               for nb, sz in CASES}
     sweeps.update({c: results[c]["sweep"] for c, *_ in CASES_3D})
     print(json.dumps({"launch_sweep": sweeps}))
+    print(json.dumps({"unrolled_sweep": results["unrolled_sweep"],
+                      "unrolled_against_first_design":
+                          results["unrolled_vs_first_design"]}))
     print(json.dumps({"previous_design_ms": PREVIOUS_DESIGN_MS,
                       "measured_in_this_run": False,
                       "recorded_on": "NVIDIA H100 80GB HBM3, 700.00 W"}))

@@ -11,10 +11,21 @@
 // TPU this engine is XLA code (mpr_tpu/ops/unrolled_eval.py build_float
 // :397, build_interval :411, build_deriv :421).
 //
-// Layout: a thread takes a lane; inputs and outputs are SoA float32 planes
-// of n lanes (float: x y z -> v; interval: xl xh yl yh zl zh -> lo hi;
-// deriv: x y z -> v dx dy dz).  Bound: operations (each clause-operation
-// once a lane) for long tapes, the lanes' bytes for short ones.
+// Layout: inputs and outputs are SoA float32 planes of n lanes (float:
+// x y z -> v; interval: xl xh yl yh zl zh -> lo hi; deriv: x y z -> v dx
+// dy dz).  Three forms (ops/launch.py UnrolledLaunch): serial, a thread a
+// lane with the statements in tape order (the deriv kernel, K1's forward
+// half); lanes, the statements in a register-pressure order
+// (ops/unrolled_plan.py schedule: depth first, at most a dozen values live
+// where tape order keeps up to 170), K lanes a thread, resident blocks
+// walking the lanes; split, the tape's result DAG cut among the warps of
+// a block that takes 32 lanes (a launch of under 8 warps an SM, where one
+// thread walking the whole tape would leave the card nearly empty), each
+// warp's subtrees left in shared memory for warp 0's top clauses.  Bound:
+// operations (each clause-operation once a lane) for long tapes, the
+// lanes' bytes for short ones; in the lanes and split forms min and max
+// issue one instruction each (mpr_min_nan) where clause.cuh's nmin takes
+// two NaN tests, fminf and two selects.
 //
 // Numerics: built with ops/build.py's flags (--fmad=false, no fast math),
 // so each statement rounds as the plain torch version's operation does.
@@ -116,6 +127,105 @@ __device__ __forceinline__ float mpr_bal_b(uint32_t c) {
         static_cast<float*>(out3), n);                                       \
     return (int)cudaGetLastError();                                          \
   }
+
+// ---- the lanes and split forms (ops/unrolled_eval.py generate) -------------
+//
+// MPR_BLOCK_THREADS threads a block take MPR_BLOCK_LANES lanes a step.
+// Lanes form (MPR_RESIDENT 1): the grid is the card's resident blocks at
+// the kernel's registers (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// once a device), fewer where n needs fewer; the blocks walk the lanes in
+// a grid-stride loop, K lanes a thread, so an SM's warps run the same
+// statements at once.  Split form (MPR_RESIDENT 0): a block of up to 32
+// warps takes 32 lanes, a block every 32 lanes.
+#ifdef MPR_BLOCK_THREADS
+#define MPR_GRID_KERNEL                                                      \
+  __global__ void __launch_bounds__(MPR_BLOCK_THREADS)                       \
+      mpr_unrolled_kernel(MPR_UNROLLED_PARAMS)
+
+// PTX min.NaN / max.NaN (sm_80 on): one instruction, the canonical NaN
+// when an operand is NaN, else min / max as fminf / fmaxf give them (so
+// equal to nmin / nmax but for a NaN's payload).
+__device__ __forceinline__ float mpr_min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float mpr_max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+MPR_GRID_KERNEL;
+
+// Resident blocks an SM and SMs of the current device, asked once a device.
+static int mpr_occupancy(int* per_sm, int* sms) {
+  static int cache[64][2];
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (cache[dev][1] == 0) {
+    int p = 0, m = 0;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &p, mpr_unrolled_kernel, MPR_BLOCK_THREADS, 0);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount,
+                                        dev);
+    if (err) return err;
+    cache[dev][0] = p;
+    cache[dev][1] = m;
+  }
+  *per_sm = cache[dev][0];
+  *sms = cache[dev][1];
+  return 0;
+}
+
+// The C entry points: mpr_unrolled takes blocks = threads = 0 (the form
+// sizes its own launch) and returns the launch's CUDA error;
+// mpr_unrolled_info writes (resident blocks an SM, SMs, threads a block,
+// lanes a block a step, registers, local bytes, static shared bytes).
+#define MPR_GRID_ENTRY                                                       \
+  extern "C" int mpr_unrolled(                                               \
+      const void* in0, const void* in1, const void* in2, const void* in3,    \
+      const void* in4, const void* in5, const void* imms, void* out0,        \
+      void* out1, void* out2, void* out3, int n, int blocks, int threads,    \
+      void* stream) {                                                        \
+    if (n < 0 || blocks != 0 || threads != 0)                                \
+      return (int)cudaErrorInvalidValue;                                     \
+    if (n == 0) return 0;                                                    \
+    long long grid = ((long long)n + MPR_BLOCK_LANES - 1) / MPR_BLOCK_LANES; \
+    if (MPR_RESIDENT) {                                                      \
+      int per_sm = 0, sms = 0;                                               \
+      int err = mpr_occupancy(&per_sm, &sms);                                \
+      if (err) return err;                                                   \
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;             \
+      if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;    \
+    }                                                                        \
+    mpr_unrolled_kernel<<<(int)grid, MPR_BLOCK_THREADS, 0,                   \
+                          static_cast<cudaStream_t>(stream)>>>(              \
+        static_cast<const float*>(in0), static_cast<const float*>(in1),      \
+        static_cast<const float*>(in2), static_cast<const float*>(in3),      \
+        static_cast<const float*>(in4), static_cast<const float*>(in5),      \
+        static_cast<const float*>(imms), static_cast<float*>(out0),          \
+        static_cast<float*>(out1), static_cast<float*>(out2),                \
+        static_cast<float*>(out3), n);                                       \
+    return (int)cudaGetLastError();                                          \
+  }                                                                          \
+  extern "C" int mpr_unrolled_info(int* out) {                               \
+    cudaFuncAttributes fa;                                                   \
+    int err = (int)cudaFuncGetAttributes(&fa, mpr_unrolled_kernel);          \
+    if (err) return err;                                                     \
+    err = mpr_occupancy(&out[0], &out[1]);                                   \
+    if (err) return err;                                                     \
+    out[2] = MPR_BLOCK_THREADS;                                              \
+    out[3] = MPR_BLOCK_LANES;                                                \
+    out[4] = fa.numRegs;                                                     \
+    out[5] = (int)fa.localSizeBytes;                                         \
+    out[6] = (int)fa.sharedSizeBytes;                                        \
+    return 0;                                                                \
+  }
+#endif
 
 #define MPR_UNROLLED_VJP_KERNEL                                              \
   __global__ void __launch_bounds__(MPR_VJP_THREADS, MPR_VJP_MIN_BLOCKS)     \

@@ -14,11 +14,14 @@ a block, threads a row and dynamic shared memory make a
 
 Kernel K2 (``csrc/scan_adjoint.cu``, the interpreter's adjoint) keeps an
 adjoint file a lane in one of the two homes: home, threads, lanes a thread
-(K) and dynamic shared memory make an :class:`AdjointLaunch`.
+(K) and dynamic shared memory make an :class:`AdjointLaunch`.  The
+generated unrolled evaluators (``ops/unrolled_eval.py``) run in one of
+three forms, an :class:`UnrolledLaunch`.
 
 Every function here is pure host code; the pickers are
 :func:`interval_launch`, :func:`pixel_launch`, :func:`compact_launch` and
-:func:`adjoint_launch` (kernels A, B, C and C2, and K2) and
+:func:`adjoint_launch` (kernels A, B, C and C2, and K2),
+:func:`unrolled_launch` (the generated evaluators) and
 ``kernels3d.voxel_launch`` / ``deriv_launch`` (V and D).  A caller may force another shape (``launch=``
 of a wrapper), which the wrapper checks.
 """
@@ -498,15 +501,105 @@ def check_compact_launch(launch: CompactLaunch, tcap: int,
 # The generated unrolled evaluators (ops/unrolled_eval.py, csrc/unrolled.cuh)
 # ---------------------------------------------------------------------------
 
-# A thread a lane: a long tape keeps up to 255 registers a thread, which a
-# block of 128 can hold on an SM four times over.
+# Threads a block of the lanes and serial forms.
 UNROLLED_THREADS = 128
+# Lanes a thread (K) the lanes form is built at, by semantics, and the K
+# the picker takes for a tape bound by operations and for one bound by its
+# lanes' bytes (``short``: at most ``OPS_PER_BYTE`` float operations a
+# byte a lane moves); warps a block (P) the split form is built at, and
+# the P the picker takes; the warps an SM a lanes launch must give for the
+# picker to take it (a "wave" below).  Chosen by the sweep of forced forms
+# on an H100 (chip_smoke.py phase 13, device time; PERF.md): K = 1 was the
+# fastest lanes form on the extruded tape's 9.3 M float lanes (2.31 ms
+# against 2.55 at K = 2 and 2.87 at K = 4) and its 0.66 M interval lanes,
+# K = 2 on the 22-clause gyroid's 2^26 float lanes (0.50 against 0.56 at
+# K = 1).  A small lanes launch takes about as long as each scheduler
+# fetching the whole tape's code (K = 2: 0.082 ms on 512 interval lanes,
+# 0.086 on 20,928), which the split form shares among an SM's four
+# schedulers (P = 8: 0.013 and 0.021); P = 8 beat P = 4 and 32 at the 2D
+# cell's 256 and 15,552 lanes (0.022 and 0.040 ms against 0.036 / 0.024
+# and 0.043 / 0.105).  8 warps an SM (33,792 lanes) lies between the
+# cells' largest split launch (20,928) and their smallest lanes launch
+# (148,352).
+UNROLLED_KS = {"float": (1, 2, 4), "interval": (1, 2)}
+UNROLLED_K = {"float": 1, "interval": 1}
+UNROLLED_K_SHORT = {"float": 2, "interval": 1}
+OPS_PER_BYTE = 10.0      # 33.5e12 float32 operations a second / 3.35e12 B
+UNROLLED_PARTS = (1, 2, 4, 8, 16, 32)
+UNROLLED_P = 8
+UNROLLED_WAVE_WARPS = 8
+UNROLLED_WAVE = SM_COUNT * UNROLLED_WAVE_WARPS * 32
 
 
-def unrolled_launch(n: int):
-    """(blocks, threads) of a generated evaluator over ``n`` lanes: a
-    thread a lane, ``UNROLLED_THREADS`` a block."""
-    return -(-int(n) // UNROLLED_THREADS), UNROLLED_THREADS
+@dataclass(frozen=True)
+class UnrolledLaunch:
+    """One form of a generated evaluator: ``"lanes"`` (the scheduled
+    statements, ``k`` lanes a thread, resident blocks of
+    ``UNROLLED_THREADS`` walking the lanes), ``"split"`` (the tape cut
+    among up to ``parts`` warps of a block, 32 lanes a block) or
+    ``"serial"`` (the statements in tape order, a thread a lane: the
+    deriv kernel, K1's forward half, and the float and interval kernels'
+    first design)."""
+    form: str
+    k: int = 1
+    parts: int = 1
+
+    @property
+    def tag(self) -> str:
+        """The form's part of a library's key."""
+        return {"lanes": f"lanes-k{self.k}", "split": f"split-p{self.parts}",
+                "serial": "serial"}[self.form]
+
+
+def unrolled_defaults(kind: str, short: bool = False):
+    """The forms :func:`unrolled_launch` may pick for a ``kind`` evaluator
+    (of a ``short`` tape): what the evaluator builds."""
+    if kind not in UNROLLED_KS:
+        return [UnrolledLaunch("serial")]
+    k = (UNROLLED_K_SHORT if short else UNROLLED_K)[kind]
+    return [UnrolledLaunch("split", parts=UNROLLED_P),
+            UnrolledLaunch("lanes", k=k)]
+
+
+def check_unrolled_launch(launch: UnrolledLaunch, kind: str):
+    """A caller's form of a ``kind`` evaluator, checked: the deriv kernel
+    and K1's forward half are serial only; the lanes form at a K its kind
+    is built at, the split form at P in ``UNROLLED_PARTS``."""
+    ok = {"serial": launch.k == 1 and launch.parts == 1,
+          "lanes": (kind in UNROLLED_KS and launch.parts == 1
+                    and launch.k in UNROLLED_KS[kind]),
+          "split": (kind in UNROLLED_KS and launch.k == 1
+                    and launch.parts in UNROLLED_PARTS)}
+    if not ok.get(launch.form, False):
+        raise ValueError(f"unrolled launch {launch} does not fit a {kind} "
+                         "evaluator")
+    return launch
+
+
+def unrolled_launch(n: int, kind: str, short: bool = False, *,
+                    form: str = None, k: int = None,
+                    parts: int = None) -> UnrolledLaunch:
+    """The form of a ``kind`` evaluator's launch over ``n`` lanes (of a
+    ``short`` tape: one bound by its lanes' bytes).
+
+    Float and interval: under ``UNROLLED_WAVE`` lanes the split form at
+    ``UNROLLED_P`` warps (a thread walking the whole tape would leave the
+    card nearly empty, each scheduler fetching all of its code), else the
+    lanes form at ``UNROLLED_K[kind]`` (``UNROLLED_K_SHORT`` for a short
+    tape).  Other kinds: serial.  ``form``, ``k`` and ``parts`` force a
+    form (tests and chip_smoke.py); one that does not fit raises."""
+    if form is None and k is None and parts is None:
+        forms = unrolled_defaults(kind, short)
+        return forms[0] if len(forms) > 1 and n < UNROLLED_WAVE else forms[-1]
+    if form is None:
+        form = "split" if parts is not None else (
+            "lanes" if kind in UNROLLED_KS else "serial")
+    if form == "lanes" and k is None:
+        k = (UNROLLED_K_SHORT if short else UNROLLED_K).get(kind, 1)
+    if form == "split" and parts is None:
+        parts = UNROLLED_P
+    return check_unrolled_launch(UnrolledLaunch(form, k or 1, parts or 1),
+                                 kind)
 
 
 # ---------------------------------------------------------------------------

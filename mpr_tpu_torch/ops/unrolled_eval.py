@@ -89,6 +89,7 @@ from ..tape.tape import Tape
 from . import build
 from . import launch as ln
 from . import transcendental as tc
+from . import unrolled_plan as up
 from . import vjp_plan as vp
 
 # inputs and outputs of each semantics' kernel, SoA float32 planes of n lanes
@@ -286,6 +287,11 @@ class _TorchOps(_Folding):
         return self._t(v, like)
 
 
+# the recorded operation of each C operator
+_BIN_OP = {"+": "add", "-": "sub", "*": "mul", "/": "div", "<": "lt",
+           "<=": "le", ">": "gt", ">=": "ge", "&&": "and", "||": "or"}
+
+
 def lit(v) -> str:
     """A float32 value as a bit-exact C literal: a hex float, or
     ``__int_as_float`` of its bits for infinities and NaNs."""
@@ -297,11 +303,16 @@ def lit(v) -> str:
 
 class _CEmitter(_Folding):
     """C statements: each operation one ``const`` local of the kernel, in
-    SSA form.  Values are variable names or Python floats (constants)."""
+    SSA form, written in walk order (``lines``, the serial form) and
+    recorded as a :class:`unrolled_plan.Stmt` (``stmts``, made by clause
+    ``clause``), from which the scheduled forms are written.  Values are
+    variable names or Python floats (constants)."""
 
     def __init__(self, fast: bool):
         self.fast = fast
         self.lines = []
+        self.stmts = []
+        self.clause = -1
         self.n = 0
         self.tags = {}
 
@@ -312,21 +323,32 @@ class _CEmitter(_Folding):
         self.tags[v] = tag
         return v
 
-    def _new(self, expr: str, ty: str = "float") -> str:
+    def _new(self, expr: str, ty: str = "float", op: str = None,
+             args=()) -> str:
         name = f"v{self.n}"
         self.n += 1
         self.lines.append(f"const {ty} {name} = {expr};")
+        if op is not None:
+            self.stmts.append(up.Stmt(name, ty, op, tuple(args),
+                                      self.clause))
         return name
+
+    def load(self, op: str, k: int) -> str:
+        """An input lane (``in``), an immediate (``imm``)."""
+        return self._new(f"in{k}[i]" if op == "in"
+                         else f"__ldg(imms + {k})", "float", op, (k,))
 
     @staticmethod
     def _e(v) -> str:
         return lit(v) if isinstance(v, float) else v
 
     def _bin(self, a, op, b, ty="float"):
-        return self._new(f"{self._e(a)} {op} {self._e(b)}", ty)
+        return self._new(f"{self._e(a)} {op} {self._e(b)}", ty, _BIN_OP[op],
+                         (a, b))
 
     def _call(self, fn, *args, ty="float"):
-        return self._new(f"{fn}({', '.join(self._e(a) for a in args)})", ty)
+        return self._new(f"{fn}({', '.join(self._e(a) for a in args)})", ty,
+                         fn, args)
 
     def _add(self, a, b):
         return self._bin(a, "+", b)
@@ -341,7 +363,7 @@ class _CEmitter(_Folding):
         return self._bin(a, "/", b)
 
     def neg(self, a):
-        return self._new(f"-{self._e(a)}")
+        return self._new(f"-{self._e(a)}", "float", "neg", (a,))
 
     def minimum(self, a, b):
         return self._call("nmin", a, b)
@@ -350,7 +372,8 @@ class _CEmitter(_Folding):
         return self._call("nmax", a, b)
 
     def where(self, c, a, b):
-        return self._new(f"{c} ? {self._e(a)} : {self._e(b)}")
+        return self._new(f"{c} ? {self._e(a)} : {self._e(b)}", "float",
+                         "sel", (c, a, b))
 
     def lt(self, a, b):
         return self._bin(a, "<", b, "bool")
@@ -897,36 +920,194 @@ def structure_key(tape: Tape, take_imms: bool, flags: dict) -> str:
     return h.hexdigest()
 
 
-def generate(tape: Tape, kind: str, take_imms: bool, flags: dict) -> str:
-    """The CUDA source of one evaluator: ``mpr_unrolled_kernel`` (a thread
-    a lane, one SSA statement an operation) and its C entry point
-    ``mpr_unrolled`` (csrc/unrolled.cuh)."""
+def record(tape: Tape, kind: str, take_imms: bool, flags: dict):
+    """One walk of ``tape`` over a :class:`_CEmitter`: returns the emitter
+    (its serial ``lines``, a comment before each clause, and its ``stmts``)
+    and the outputs (names or constants)."""
     K = _CEmitter(flags["fast_transcendentals"])
     sem = _sem(kind, K, flags)
     if kind == "interval":
-        ins = [K._new(f"in{k}[i]") for k in range(6)]
+        ins = [K.load("in", k) for k in range(6)]
         x, y, z = (ins[0], ins[1]), (ins[2], ins[3]), (ins[4], ins[5])
     else:
-        x, y, z = (K._new(f"in{k}[i]") for k in range(3))
+        x, y, z = (K.load("in", k) for k in range(3))
     if take_imms:
         class _Imms:
             def __getitem__(self, t):
-                return K._new(f"__ldg(imms + {t})")
+                return K.load("imm", t)
         imms = _Imms()
     else:
         imms = [float(v) for v in tape.imms]
-    names = {int(o): o.name for o in Op}
+    names = _op_names()
 
     def comment(t, op, o, l, r):
         K.lines.append(f"// {t}: s{o} = {names.get(op, op)} s{l} s{r}")
+        K.clause = t
     res = _walk(tape, sem, x, y, z, imms, comment)
-    outs = res if isinstance(res, tuple) else (res,)
+    return K, res if isinstance(res, tuple) else (res,)
+
+
+def _op_names():
+    return {int(o): o.name for o in Op}
+
+
+def program(tape: Tape, kind: str, take_imms: bool,
+            flags: dict) -> up.Program:
+    """The statements of ``tape``'s ``kind`` walk and its outputs."""
+    K, outs = record(tape, kind, take_imms, flags)
+    return up.Program(K.stmts, outs)
+
+
+# The lanes and split forms' min/max: PTX min.NaN / max.NaN (one
+# instruction, sm_80 on; a NaN operand gives the canonical NaN) in place
+# of clause.cuh's nmin / nmax (two NaN tests, fminf, two selects).  Both
+# equal torch.minimum / maximum on the card, NaNs by NaN-ness (chip_smoke.py
+# phase 13 and tests/test_torch_gpu.py hold them to it on +-0, +-inf and
+# NaN).  The serial form keeps nmin / nmax.
+_C_MINMAX = {"nmin": "mpr_min_nan", "nmax": "mpr_max_nan"}
+_C_BIN = {v: k for k, v in _BIN_OP.items()}
+
+
+def _c_expr(s: up.Stmt, ref, idx: str) -> str:
+    """C expression of ``s``, its operands written by ``ref``, an input
+    read at lane index ``idx``."""
+    if s.op == "in":
+        return f"in{s.args[0]}[{idx}]"
+    if s.op == "imm":
+        return f"__ldg(imms + {s.args[0]})"
+    if s.op == "part":
+        return f"mpr_part[{s.args[0]}][lane]"
+    a = [ref(v) for v in s.args]
+    if s.op in _C_BIN:
+        return f"{a[0]} {_C_BIN[s.op]} {a[1]}"
+    if s.op == "neg":
+        return f"-{a[0]}"
+    if s.op == "sel":
+        return f"{a[0]} ? {a[1]} : {a[2]}"
+    return f"{_C_MINMAX.get(s.op, s.op)}({', '.join(a)})"
+
+
+def _listing(tape: Tape) -> str:
+    """The tape as comments, a clause a line."""
+    names = _op_names()
+    ops, outs = tape.ops.tolist(), tape.outs.tolist()
+    lhss, rhss = tape.lhss.tolist(), tape.rhss.tolist()
+    return "\n".join(f"// {t}: s{outs[t]} = {names.get(ops[t], ops[t])} "
+                     f"s{lhss[t]} s{rhss[t]}" for t in range(tape.length))
+
+
+def _lanes_body(order, outs, k: int) -> str:
+    """The statements of ``order`` for ``k`` lanes a thread (``vN_j`` is
+    lane j's; a lane-invariant statement is written once), then the
+    stores (lane 0 always lies below n, the others are guarded)."""
+    inv = up.lane_invariant(order)
+
+    def name(v, j):
+        if isinstance(v, float):
+            return lit(v)
+        return v if v in inv else f"{v}_{j}"
+    lines = []
+    for s in order:
+        if s.name in inv:
+            lines.append(f"const {s.ty} {s.name} = "
+                         f"{_c_expr(s, lambda v: name(v, 0), '')};")
+            continue
+        for j in range(k):
+            lines.append(f"const {s.ty} {s.name}_{j} = "
+                         f"{_c_expr(s, lambda v, j=j: name(v, j), f'i{j}')};")
+    for j in range(k):
+        st = " ".join(f"out{q}[l{j}] = {name(o, j)};"
+                      for q, o in enumerate(outs))
+        lines.append(st if j == 0 else f"if (l{j} < n) {{ {st} }}")
+    return "\n        ".join(lines)
+
+
+def _lanes_source(tape, prog: up.Program, k: int, take_imms: bool,
+                  head: str) -> str:
+    order = up.schedule(prog.stmts, prog.outs)
+    T = ln.UNROLLED_THREADS
+    idx = ["const int l0 = b, i0 = b;"] + [
+        f"const int l{j} = b + {j * T}, i{j} = l{j} < n ? l{j} : n - 1;"
+        for j in range(1, k)]
+    # the immediates' pointer made opaque each step: their loads stay in
+    # the loop (hoisted, every immediate would hold a register)
+    im = ("unsigned long long mpr_im = (unsigned long long)imms;\n        "
+          "asm volatile(\"\" : \"+l\"(mpr_im));\n        "
+          "const float* const imms = (const float*)mpr_im;\n        "
+          ) if take_imms else ""
+    return (f"{head}\n#define MPR_UNROLLED_THREADS {T}\n"
+            f"#define MPR_BLOCK_THREADS {T}\n#define MPR_BLOCK_LANES "
+            f"{T * k}\n#define MPR_RESIDENT 1\n#include \"unrolled.cuh\"\n\n"
+            f"{_listing(tape)}\n\nMPR_GRID_KERNEL {{\n"
+            f"  for (int b = blockIdx.x * {T * k} + threadIdx.x; b < n; "
+            f"b += gridDim.x * {T * k}) {{\n"
+            f"    {{\n        {' '.join(idx)}\n        {im}"
+            f"{_lanes_body(order, prog.outs, k)}\n    }}\n  }}\n}}\n\n"
+            f"MPR_GRID_ENTRY\n")
+
+
+def _split_source(tape, sp: up.Split, head: str) -> str:
+    def ref(v):
+        return lit(v) if isinstance(v, float) else v
+
+    def stmts(order):
+        return "\n        ".join(f"const {s.ty} {s.name} = "
+                                 f"{_c_expr(s, ref, 'i')};" for s in order)
+    cases = []
+    for w, p in enumerate(sp.parts[:sp.warps]):
+        for n, _ in p.outs:
+            if p.order and next(s for s in p.order if s.name == n).ty \
+                    != "float":
+                raise AssertionError(f"part result {n} is not a float")
+        st = " ".join(f"mpr_part[{k}][lane] = {n};" for n, k in p.outs)
+        cases.append(f"  case {w}: {{\n        {stmts(p.order)}\n"
+                     f"        {st}\n        break;\n  }}")
+    stores = " ".join(f"out{q}[l] = {ref(o)};" for q, o in enumerate(sp.outs))
+    return (f"{head}\n#define MPR_BLOCK_THREADS {32 * sp.warps}\n"
+            f"#define MPR_BLOCK_LANES 32\n#define MPR_RESIDENT 0\n"
+            f"#include \"unrolled.cuh\"\n\n{_listing(tape)}\n\n"
+            f"MPR_GRID_KERNEL {{\n"
+            f"  __shared__ float mpr_part[{max(sp.n_slots, 1)}][32];\n"
+            f"  const int lane = threadIdx.x & 31;\n"
+            f"  const int l = blockIdx.x * 32 + lane;\n"
+            f"  const int i = l < n ? l : n - 1;\n"
+            f"  switch (threadIdx.x >> 5) {{\n" + "\n".join(cases)
+            + f"\n  }}\n  __syncthreads();\n  if (threadIdx.x >= 32) "
+            f"return;\n  {{\n        {stmts(sp.top)}\n"
+            f"        if (l < n) {{ {stores} }}\n  }}\n}}\n\n"
+            f"MPR_GRID_ENTRY\n")
+
+
+def generate(tape: Tape, kind: str, take_imms: bool, flags: dict,
+             shape: ln.UnrolledLaunch = None) -> str:
+    """The CUDA source of one evaluator in one form (``shape``; default
+    serial) and its C entry point ``mpr_unrolled`` (csrc/unrolled.cuh):
+
+      * serial: ``mpr_unrolled_kernel``, a thread a lane, the statements
+        in tape order (the deriv kernel, and the float and interval
+        kernels' first design);
+      * lanes: the statements in :func:`unrolled_plan.schedule`'s order,
+        written for ``k`` lanes a thread, in a grid-stride loop of the
+        card's resident blocks;
+      * split: :func:`unrolled_plan.split`'s parts, a warp each, and the
+        top on warp 0, 32 lanes a block."""
+    shape = shape or ln.UnrolledLaunch("serial")
+    mode = "imms from a pointer" if take_imms else "imms baked"
+    if shape.form != "serial":
+        prog = program(tape, kind, take_imms, flags)
+        head = (f"// {kind} evaluator of a {tape.length}-clause tape, "
+                f"{shape.tag} ({mode}; flags {flags}), written by "
+                f"mpr_tpu_torch/ops/unrolled_eval.py")
+        if shape.form == "lanes":
+            return _lanes_source(tape, prog, shape.k, take_imms, head)
+        return _split_source(tape, up.split(prog, shape.parts), head)
+    K, outs = record(tape, kind, take_imms, flags)
     body = "\n    ".join(K.lines)
     stores = "\n    ".join(f"out{k}[i] = {K._e(v)};"
                            for k, v in enumerate(outs))
     head = (f"// {kind} evaluator of a {tape.length}-clause tape "
-            f"({'imms from a pointer' if take_imms else 'imms baked'}; "
-            f"flags {flags}), written by mpr_tpu_torch/ops/unrolled_eval.py")
+            f"({mode}; flags {flags}), written by "
+            f"mpr_tpu_torch/ops/unrolled_eval.py")
     return (f"{head}\n#define MPR_UNROLLED_THREADS {ln.UNROLLED_THREADS}\n"
             f"#include \"unrolled.cuh\"\n\nMPR_UNROLLED_KERNEL {{\n"
             f"    const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
@@ -1185,17 +1366,42 @@ def vjp_chunk(plan: vp.VjpPlan, n: int) -> int:
     return max(vp.LANE_BLOCK, min(n, c - c % vp.LANE_BLOCK))
 
 
+def _form_tag(e) -> str:
+    """The form of a library: a :class:`_Kernel`'s, else serial."""
+    return e.form.tag if isinstance(e, _Kernel) else "serial"
+
+
+# fields of mpr_unrolled_info (csrc/unrolled.cuh), in order
+INFO_FIELDS = ("blocks_per_sm", "sms", "threads", "block_lanes",
+               "registers", "local_bytes", "shared_bytes")
+
+
+def kernel_info(kern) -> dict:
+    """A built lanes or split library's launch facts on the current
+    device (:data:`INFO_FIELDS`): the resident blocks an SM the occupancy
+    query gives at its registers, the SMs, its block, the lanes a block
+    takes a step, and its registers, local and static shared bytes."""
+    build_all([kern])
+    out = (ctypes.c_int * len(INFO_FIELDS))()
+    err = _libs[kern.key].mpr_unrolled_info(ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"mpr_unrolled_info failed: CUDA error {err}")
+    return dict(zip(INFO_FIELDS, list(out)))
+
+
 def _lib_path(key: str) -> Path:
     return UNROLLED_ROOT / key / "libunrolled.so"
 
 
 def build_all(evals) -> None:
-    """Make sure every evaluator in ``evals`` has its library: the missing
-    ones are generated and compiled by nvcc processes all started at once,
-    then every library is loaded.  A failed build raises with nvcc's
-    output; nothing falls back."""
+    """Make sure every evaluator in ``evals`` has its libraries (each
+    form :meth:`UnrolledEval.kernels` lists; a :class:`_Kernel` stands for
+    its own form): the missing ones are generated and compiled by nvcc
+    processes all started at once, then every library is loaded.  Each
+    build's seconds run from its start to its own end.  A failed build
+    raises with nvcc's output; nothing falls back."""
     with _lock:
-        todo = [e for e in evals if e.key not in _libs]
+        todo = [k for e in evals for k in e.kernels() if k.key not in _libs]
         starts, procs = {}, []
         seen = set()
         for e in todo:
@@ -1213,13 +1419,18 @@ def build_all(evals) -> None:
                 [build._nvcc(), *_nvcc_flags(), "-I", str(build.CSRC),
                  "-shared", "-o", str(tmp), str(src)],
                 stdout=log, stderr=subprocess.STDOUT)))
-        failed = []
+        failed, ends = [], {}
         try:
+            while len(ends) < len(procs):
+                for e, *_, p in procs:
+                    if e.key not in ends and p.poll() is not None:
+                        ends[e.key] = time.perf_counter()
+                time.sleep(0.02)
             for e, out, tmp, log, p in procs:
                 rc = p.wait()
                 log.seek(0)
                 text = log.read()
-                secs = time.perf_counter() - starts[e.key]
+                secs = ends[e.key] - starts[e.key]
                 if rc:
                     failed.append(f"{e.kind} evaluator {e.key}:\n{text}")
                     continue
@@ -1227,8 +1438,8 @@ def build_all(evals) -> None:
                 (out.parent / "seconds").write_text(f"{secs:.3f}\n")
                 os.replace(tmp, out)
                 BUILDS[e.key] = {"kind": e.kind, "clauses": e.tape.length,
-                                 "seconds": secs, "log": text,
-                                 "compiled": True}
+                                 "form": _form_tag(e), "seconds": secs,
+                                 "log": text, "compiled": True}
         finally:
             for e, out, tmp, log, p in procs:
                 if p.poll() is None:
@@ -1249,13 +1460,17 @@ def build_all(evals) -> None:
                 secs = out.parent / "seconds"
                 BUILDS[e.key] = {
                     "kind": e.kind, "clauses": e.tape.length,
+                    "form": _form_tag(e),
                     "seconds": float(secs.read_text()) if secs.exists()
                     else 0.0,
                     "log": log.read_text() if log.exists() else "",
                     "compiled": False}
             handle = ctypes.CDLL(str(out))
-            for entry, sig in _ENTRIES.get(e.kind,
-                                           [("mpr_unrolled", _SIGNATURE)]):
+            entries = _ENTRIES.get(e.kind, [("mpr_unrolled", _SIGNATURE)])
+            if _form_tag(e) != "serial":
+                entries = entries + [("mpr_unrolled_info",
+                                      [ctypes.c_void_p])]
+            for entry, sig in entries:
                 fn = getattr(handle, entry)
                 fn.argtypes = sig
                 fn.restype = ctypes.c_int
@@ -1287,13 +1502,57 @@ class UnrolledEval:
         self.flags = _flags()
         self.key = f"{kind}-{structure_key(tape, self.take_imms, self.flags)}"
 
-    def source(self) -> str:
+    def source(self, form: ln.UnrolledLaunch = None) -> str:
+        """The CUDA source of ``form`` (default: the lanes form the
+        picker takes for a float or interval evaluator, serial for the
+        others)."""
         if self.kind == "vjp":
             return generate_vjp(self.tape, self.flags, self.plan, self.seg,
                                 self.shape)
         if self.kind == "vjpf":
             return generate_vjp_fwd(self.tape, self.flags, self.plan)
-        return generate(self.tape, self.kind, self.take_imms, self.flags)
+        return generate(self.tape, self.kind, self.take_imms, self.flags,
+                        form or ln.unrolled_defaults(self.kind,
+                                                     self.short)[-1])
+
+    def kernel(self, form: ln.UnrolledLaunch):
+        """The library of ``form``: the evaluator itself for a serial-only
+        kind, else a :class:`_Kernel` (made once a form)."""
+        ln.check_unrolled_launch(form, self.kind)
+        if self.kind not in ln.UNROLLED_KS:
+            return self
+        got = self.__dict__.setdefault("_kernels", {})
+        if form.tag not in got:
+            got[form.tag] = _Kernel(self, form)
+        return got[form.tag]
+
+    def kernels(self) -> list:
+        """The libraries of the forms the launch picker may choose (what
+        :func:`build_all` builds for the evaluator)."""
+        return [self.kernel(f)
+                for f in ln.unrolled_defaults(self.kind, self.short)]
+
+    @property
+    def short(self) -> bool:
+        """A float or interval tape bound by its lanes' bytes: at most
+        ``launch.OPS_PER_BYTE`` float operations a byte a lane moves."""
+        if self.kind not in ln.UNROLLED_KS:
+            return False
+        if getattr(self, "_short", None) is None:
+            self._short = up.float_ops(self.program()) <= (
+                ln.OPS_PER_BYTE * 4 * (N_IN[self.kind] + N_OUT[self.kind]))
+        return self._short
+
+    def launch(self, n: int) -> ln.UnrolledLaunch:
+        """The form the picker takes for a launch over ``n`` lanes."""
+        return ln.unrolled_launch(n, self.kind, self.short)
+
+    def program(self) -> up.Program:
+        """The statements of the walk (``ops/unrolled_plan.py``)."""
+        if getattr(self, "_program", None) is None:
+            self._program = program(self.tape, self.kind, self.take_imms,
+                                    self.flags)
+        return self._program
 
     def _imms_list(self, imms):
         if self.take_imms and imms is not None:
@@ -1327,11 +1586,30 @@ class UnrolledEval:
         raise NotImplementedError
 
 
+class _Kernel:
+    """One form (``form``, an ``UnrolledLaunch``) of a float or interval
+    evaluator ``ev``: a library of its own, keyed by the evaluator's key
+    and the form."""
+
+    def __init__(self, ev: UnrolledEval, form: ln.UnrolledLaunch):
+        self.ev, self.form = ev, form
+        self.kind, self.tape = ev.kind, ev.tape
+        self.key = f"{ev.key}-{form.tag}"
+
+    def source(self) -> str:
+        return generate(self.tape, self.kind, self.ev.take_imms,
+                        self.ev.flags, self.form)
+
+    def kernels(self) -> list:
+        return [self]
+
+
 class _FloatEval(UnrolledEval):
-    def __call__(self, x, y, z=None, imms=None):
+    def __call__(self, x, y, z=None, imms=None, launch=None):
         if z is None:
             z = torch.zeros_like(torch.as_tensor(x, dtype=torch.float32))
-        return _module.unrolled_float(self, x, y, z, imms=imms)
+        return _module.unrolled_float(self, x, y, z, imms=imms,
+                                      launch=launch)
 
     @property
     def vjp(self) -> "_VjpEval":
@@ -1376,9 +1654,9 @@ class _VjpEval:
 
 
 class _IntervalEval(UnrolledEval):
-    def __call__(self, xl, xh, yl, yh, zl, zh, imms=None):
+    def __call__(self, xl, xh, yl, yh, zl, zh, imms=None, launch=None):
         return _module.unrolled_interval(self, xl, xh, yl, yh, zl, zh,
-                                         imms=imms)
+                                         imms=imms, launch=launch)
 
 
 class _DerivEval(UnrolledEval):
@@ -1397,10 +1675,11 @@ def _on_cuda(args) -> bool:
     return False
 
 
-def _run(ev: UnrolledEval, args, imms):
+def _run(ev: UnrolledEval, args, imms, launch=None):
     """Launch ``ev``'s kernel on CUDA inputs: broadcast, flatten, check,
-    build at first use, launch on the current stream.  Returns the outputs
-    in the inputs' broadcast shape."""
+    pick the form (``launch`` forces one), build at first use, launch on
+    the current stream.  Returns the outputs in the inputs' broadcast
+    shape."""
     dev = next(a.device for a in args if torch.is_tensor(a))
     lanes = [t.reshape(-1).contiguous() for t in _as_lanes(args, dev)]
     shape = torch.broadcast_shapes(*(torch.as_tensor(a).shape
@@ -1427,23 +1706,29 @@ def _run(ev: UnrolledEval, args, imms):
     outs = [torch.empty(n, dtype=torch.float32, device=dev)
             for _ in range(N_OUT[ev.kind])]
     if n:
-        build_all([ev])
-        _launch(ev, lanes, imms, outs)
+        form = (ev.launch(n) if launch is None
+                else ln.check_unrolled_launch(launch, ev.kind))
+        build_all([ev.kernel(form)])
+        _launch(ev, lanes, imms, outs, form)
     outs = [t.reshape(shape) for t in outs]
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-def _launch(ev: UnrolledEval, lanes, imms, outs):
-    """The launch alone: ``ev``'s built kernel on flat contiguous f32
-    ``lanes`` of one CUDA device (and ``imms`` under ``take_imms``) into
-    the allocated flat ``outs``, on the current stream; raises on a CUDA
-    error."""
+def _launch(ev: UnrolledEval, lanes, imms, outs, form=None):
+    """The launch alone: ``ev``'s built kernel of ``form`` (default: the
+    picker's) on flat contiguous f32 ``lanes`` of one CUDA device (and
+    ``imms`` under ``take_imms``) into the allocated flat ``outs``, on the
+    current stream; raises on a CUDA error.  The serial form is launched
+    a thread a lane; the lanes and split forms size their own grid."""
     n = lanes[0].shape[0]
-    blocks, threads = ln.unrolled_launch(n)
+    form = form or ev.launch(n)
+    blocks = threads = 0
+    if form.form == "serial":
+        blocks, threads = -(-n // ln.UNROLLED_THREADS), ln.UNROLLED_THREADS
     ptrs = [t.data_ptr() for t in lanes] + [None] * (6 - len(lanes))
     optrs = [t.data_ptr() for t in outs] + [None] * (4 - len(outs))
     with torch.cuda.device(lanes[0].device):
-        err = _libs[ev.key].mpr_unrolled(
+        err = _libs[ev.kernel(form).key].mpr_unrolled(
             *ptrs, imms.data_ptr() if ev.take_imms else None, *optrs,
             n, blocks, threads, torch.cuda.current_stream().cuda_stream)
     if err:
@@ -1451,11 +1736,12 @@ def _launch(ev: UnrolledEval, lanes, imms, outs):
                            f"error {err}")
 
 
-def unrolled_float(ev, x, y, z, imms=None):
+def unrolled_float(ev, x, y, z, imms=None, launch=None):
     """The float evaluator's kernel on CUDA inputs (counted in
     ``unrolled_float.launches``), its plain version on CPU inputs.  On
     CUDA, imm-input evaluators with ``imms`` that require grad go through
-    :class:`_FloatFn` (backward: kernel K1)."""
+    :class:`_FloatFn` (backward: kernel K1).  ``launch`` (an
+    ``UnrolledLaunch``) forces a form (tests and chip_smoke.py)."""
     if not _on_cuda((x, y, z, imms)):
         return ev.plain(x, y, z, imms=imms)
     if any(torch.is_tensor(a) and a.requires_grad for a in (x, y, z)):
@@ -1464,8 +1750,8 @@ def unrolled_float(ev, x, y, z, imms=None):
                            "version (UnrolledEval.plain)")
     if (ev.take_imms and torch.is_tensor(imms) and imms.requires_grad
             and torch.is_grad_enabled()):
-        return _FloatFn.apply(imms, x, y, z, ev)
-    out = _run(ev, (x, y, z), imms)
+        return _FloatFn.apply(imms, x, y, z, ev, launch)
+    out = _run(ev, (x, y, z), imms, launch)
     if out.numel():
         _unrolled_float.launches += 1
     return out
@@ -1476,10 +1762,10 @@ class _FloatFn(torch.autograd.Function):
     ``imms``: forward the float kernel, backward kernel K1."""
 
     @staticmethod
-    def forward(ctx, imms, x, y, z, ev):
+    def forward(ctx, imms, x, y, z, ev, launch):
         ctx.ev = ev
         ctx.save_for_backward(imms, *(torch.as_tensor(a) for a in (x, y, z)))
-        out = _run(ev, (x, y, z), imms.detach())
+        out = _run(ev, (x, y, z), imms.detach(), launch)
         if out.numel():
             _unrolled_float.launches += 1
         return out
@@ -1490,7 +1776,7 @@ class _FloatFn(torch.autograd.Function):
         grad = _module.unrolled_float_vjp(ctx.ev.vjp, x, y, z, g, imms)
         full = torch.zeros_like(imms)
         full[:grad.shape[0]] = grad
-        return full, None, None, None, None
+        return full, None, None, None, None, None
 
 
 def unrolled_float_vjp(ev, x, y, z, g, imms):
@@ -1555,13 +1841,14 @@ def unrolled_float_vjp(ev, x, y, z, g, imms):
     return grad
 
 
-def unrolled_interval(ev, xl, xh, yl, yh, zl, zh, imms=None):
+def unrolled_interval(ev, xl, xh, yl, yh, zl, zh, imms=None, launch=None):
     """The interval evaluator's kernel on CUDA inputs (counted in
-    ``unrolled_interval.launches``), its plain version on CPU inputs."""
+    ``unrolled_interval.launches``), its plain version on CPU inputs;
+    ``launch`` forces a form, as for :func:`unrolled_float`."""
     args = (xl, xh, yl, yh, zl, zh)
     if not _on_cuda(args + (imms,)):
         return ev.plain(*args, imms=imms)
-    out = _run(ev, args, imms)
+    out = _run(ev, args, imms, launch)
     if out[0].numel():
         _unrolled_interval.launches += 1
     return out

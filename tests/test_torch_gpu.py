@@ -1026,6 +1026,119 @@ def test_unrolled_kernel_under_config_flags_matches_plain(cuda, name, flag):
         _bits_equal(ev(*args), ev.plain(*args))
 
 
+# Every form of the float and interval kernels (ops/launch.py
+# UnrolledLaunch: the lanes form at each K it is built at, the split form
+# at P = 4, 8 and 32, the serial form of the first design) against the plain
+# version, bit for bit, at lane counts around a warp, a block, one wave of
+# the lanes form and 2^20, a tenth of the lanes +-0, +-inf or NaN.
+from mpr_tpu_torch.ops import launch as uln  # noqa: E402
+
+U_FORM_TAPES = ["all_ops", "random3", "stress40"]
+
+
+def _u_forms(kind):
+    return ([uln.UnrolledLaunch("lanes", k=k) for k in uln.UNROLLED_KS[kind]]
+            + [uln.UnrolledLaunch("split", parts=p) for p in (4, 8, 32)]
+            + [uln.UnrolledLaunch("serial")])
+
+
+def _u_lanes(kind, n, dev, seed=71):
+    rng = np.random.default_rng(seed)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], np.float32)
+
+    def plane():
+        v = rng.uniform(-1.5, 1.5, n).astype(np.float32)
+        m = rng.random(n) < 0.1
+        v[m] = rng.choice(special, int(m.sum()))
+        return v
+    x, y, z = plane(), plane(), plane()
+    vals = [x, y, z]
+    if kind == "interval":
+        w = rng.uniform(0.0, 0.6, (3, n)).astype(np.float32)
+        vals = [x, x + w[0], y, y + w[1], z, z + w[2]]
+    return [torch.from_numpy(v).to(dev) for v in vals]
+
+
+@pytest.fixture(scope="module")
+def unrolled_forms():
+    """Every form of the float and interval evaluators of the form tapes,
+    both modes, built at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    evs = {(kind, name, take): U_BUILDERS[kind](_u_tape(name), take)
+           for kind in ("float", "interval") for name in U_FORM_TAPES
+           for take in (False, True)}
+    ue.build_all([ev.kernel(f) for ev in evs.values()
+                  for f in _u_forms(ev.kind)])
+    return evs
+
+
+@pytest.mark.parametrize("take", [False, True], ids=["baked", "imms"])
+@pytest.mark.parametrize("name", U_FORM_TAPES)
+@pytest.mark.parametrize("kind", ["float", "interval"])
+def test_unrolled_every_form_matches_plain(unrolled_forms, cuda, kind, name,
+                                           take):
+    ev = unrolled_forms[(kind, name, take)]
+    wave = uln.UNROLLED_WAVE
+    imms = torch.as_tensor(ev.tape.imms, device=cuda) if take else None
+    for n in (1, 31, 33, 127, 129, wave - 1, wave + 1, 1 << 20):
+        args = _u_lanes(kind, n, cuda, seed=n)
+        want = ev.plain(*args, imms=imms)
+        for form in _u_forms(kind):
+            before = getattr(ue, f"unrolled_{kind}").launches
+            got = ev(*args, imms=imms, launch=form)
+            torch.cuda.synchronize()
+            assert getattr(ue, f"unrolled_{kind}").launches == before + 1
+            _bits_equal(got, want)
+        # the picker's own form
+        _bits_equal(ev(*args, imms=imms), want)
+
+
+def test_unrolled_min_max_nan_forms_match_torch_on_special_values(cuda):
+    """min.NaN / max.NaN (the lanes and split forms) and nmin / nmax (the
+    serial form) against torch.minimum / maximum on every pair of +-0,
+    +-inf, NaN, a subnormal and ordinary values."""
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 1e-40,
+                     -3.5, 2.5e38], np.float32)
+    a, b = (torch.from_numpy(v.ravel().copy()).to(cuda)
+            for v in np.meshgrid(vals, vals))
+    z = torch.zeros_like(a)
+    for op in (18, 20):           # MIN_LHS_RHS, MAX_LHS_RHS
+        tape = Tape.from_arrays(ops=[op], outs=[4], lhss=[1], rhss=[2],
+                                imms=[0.0], axis_slots=(1, 2, 3),
+                                result_slot=4, num_slots=5, num_choices=1)
+        want = (torch.minimum if op == 18 else torch.maximum)(a, b)
+        f, fi = ue.build_float(tape), ue.build_interval(tape)
+        for form in _u_forms("float"):
+            _bits_equal(f(a, b, z, launch=form), want)
+        for form in _u_forms("interval"):
+            lo, hi = fi(a, a, b, b, z, z, launch=form)
+            _bits_equal((lo, hi), (want, want))
+
+
+def test_unrolled_kernel_info_reports_the_grid_of_each_form(cuda):
+    tape = mpr_tpu_torch.compile_tree(shapes.stress_2d(40))
+    ev = ue.build_interval(tape)
+    lanes = ue.kernel_info(ev.kernel(uln.UnrolledLaunch("lanes", k=2)))
+    assert lanes["threads"] == uln.UNROLLED_THREADS
+    assert lanes["block_lanes"] == 2 * uln.UNROLLED_THREADS
+    assert lanes["blocks_per_sm"] >= 1 and lanes["sms"] >= 1
+    assert lanes["local_bytes"] == 0
+    sp = ue.kernel_info(ev.kernel(uln.UnrolledLaunch("split", parts=32)))
+    assert sp["block_lanes"] == 32 and sp["threads"] % 32 == 0
+    assert sp["threads"] <= 32 * 32 and sp["shared_bytes"] > 0
+
+
+def test_unrolled_forced_form_that_does_not_fit_raises(cuda):
+    tape = mpr_tpu_torch.compile_tree(shapes.circle(0.5))
+    x = torch.linspace(-1, 1, 100, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        ue.build_interval(tape)(x, x, x, x, x, x,
+                                launch=uln.UnrolledLaunch("lanes", k=4))
+    with pytest.raises(ValueError, match="does not fit"):
+        ue.build_deriv(tape).kernel(uln.UnrolledLaunch("split", parts=4))
+
+
 def test_unrolled_imm_change_builds_nothing(cuda):
     """With the immediates an input, new values take the same kernel: no
     build, no new library, and the result follows the new values."""
