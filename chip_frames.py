@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
-"""Frame times and kernel A and C device times of the port on one CUDA card.
+"""Frame times, cold first frames and fit steps of the port on one CUDA card.
 
-    python3 chip_frames.py [--root DIR] [--label NAME]
+    python3 chip_frames.py [--what frames|cold|fits] [--root DIR] [--label NAME]
 
-Renders the four cells of ``chip_smoke.py`` (``CASES``: ``stress_2d`` at
-1024^2 and 2048^2 through ``pipeline2d.render_tile_block``; ``CASES_3D``:
-``gyroid_sphere`` at 1024^3 and ``extruded_stress`` at 512^3 through
-``pipeline3d.render3d_rows`` with normals) with the ``mpr_tpu_torch``
-package found in DIR (default: this script's directory), so that two
-checkouts can be timed in turns on one card.  For each cell it prints the
-frame time (CUDA events around a frame, median of 20 frames in 2D and 10
-in 3D, after warm-up) and the device time (torch.profiler, mean of 10
-launches) of every launch of kernels A and C a frame makes, then one JSON
-line with all of it and the card's name and power limit.  It checks
-nothing: ``chip_smoke.py`` is the check.  Exits non-zero without a card.
+Each mode runs the ``mpr_tpu_torch`` package found in DIR (default: this
+script's directory), so that two checkouts can be timed in turns on one
+card, and ends with one JSON line of all it measured and the card's name
+and power limit.  It checks nothing: ``chip_smoke.py`` is the check.
+Exits non-zero without a card.
+
+``frames`` (default): the interpreter engine on the four cells of
+``chip_smoke.py`` (``CASES``: ``stress_2d`` at 1024^2 and 2048^2 through
+``pipeline2d.render_tile_block``; ``CASES_3D``: ``gyroid_sphere`` at
+1024^3 and ``extruded_stress`` at 512^3 through
+``pipeline3d.render3d_rows`` with normals).  For each cell the frame time
+(CUDA events around a frame, median of 20 frames in 2D and 10 in 3D,
+after warm-up) and the device time (torch.profiler, mean of 10 launches)
+of every launch of kernels A and C a frame makes.
+
+``cold``: the unrolled engine's first frame on an empty build directory of
+its generated kernels, as a user's first frame of a new tape: the 2D cell
+(``stress_2d(600)`` at 1024^2) and the extruded cell (512^3, normals).
+Host clock from making the renderer to the frame's end, the generated
+kernels' count and nvcc seconds, and the second frame's host time.
+
+``fits``: chip_smoke.py phase 14's unrolled fit steps (unrolled and
+culled 256^2, culled 1024^2, the gyroid's dense grid 32, the extruded
+window 512; targets are the unrolled renders of the tapes with seeded
+perturbed immediates) and its four meshes at n=128.  Each step's steady
+time (CUDA events, median of 10 after 2 steps), each mesh's seconds on
+the host clock (the first call, which builds its baked evaluators, and a
+second).  The fit steps' kernels are built first, all at once.
 """
 
 from __future__ import annotations
@@ -55,8 +72,147 @@ def _recorded(tk, frame):
     return seen
 
 
+def cold_frames(sm, card, label) -> dict:
+    """``--what cold``: see the module's docstring."""
+    import shutil
+    import tempfile
+    import time
+    from pathlib import Path
+    import torch
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.render import camera, unrolled
+    n_blobs, size = sm.CASES[0]
+    name, make, view, size3 = sm.CASES_3D[1]
+    cells = [(f"stress_2d({n_blobs}) {size}^2",
+              lambda S: S.stress_2d(n_blobs),
+              lambda r: r.render2d(size=size)),
+             (f"{name} {size3}^3", make,
+              lambda r: r.render3d(mat=camera.gui3d_view(*view),
+                                   size=size3))]
+    out = {}
+    for cell, tree, frame in cells:
+        tape = mpr_tpu_torch.compile_tree(tree(shapes))
+        ue.UNROLLED_ROOT.mkdir(parents=True, exist_ok=True)
+        fresh = Path(tempfile.mkdtemp(prefix="cold-",
+                                      dir=ue.UNROLLED_ROOT.parent))
+        saved, ue.UNROLLED_ROOT = ue.UNROLLED_ROOT, fresh
+        try:
+            built = set(ue.BUILDS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(unrolled.get_renderer(tape))
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            frame(unrolled.get_renderer(tape))
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+        finally:
+            ue.UNROLLED_ROOT = saved
+            shutil.rmtree(fresh, ignore_errors=True)
+        secs = [b["seconds"] for k, b in ue.BUILDS.items()
+                if k not in built and b["compiled"]]
+        out[cell] = {"first_frame_s": round(first, 3),
+                     "second_frame_s": round(second, 4),
+                     "kernels_built": len(secs),
+                     "nvcc_s_each": sorted(round(x, 2) for x in secs)}
+        print(f"{label} {cell}: cold first unrolled frame {first:.3f} s "
+              f"(host clock; {len(secs)} generated kernels built, nvcc "
+              f"{out[cell]['nvcc_s_each']} s), second frame {second:.4f} s"
+              f"  [{card}]", flush=True)
+    return out
+
+
+def fit_steps(sm, card, label) -> dict:
+    """``--what fits``: see the module's docstring."""
+    import dataclasses
+    import time
+    import numpy as np
+    import torch
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.io import mesh as mmesh
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.parallel import sharded
+    from mpr_tpu_torch.render import brute, unrolled
+    stape = mpr_tpu_torch.compile_tree(shapes.stress_2d(sm.CASES[0][0]))
+    (_, gmake, *_), (_, emake, *_) = sm.CASES_3D
+    gtape = mpr_tpu_torch.compile_tree(gmake(shapes))
+    etape = mpr_tpu_torch.compile_tree(emake(shapes))
+    dev = torch.device("cuda")
+    evals = []
+    for tape in (stape, gtape, etape):
+        r = unrolled.get_renderer(tape, imm_inputs=True)
+        evals += [r.fi, r.f] + r.f.vjp.evals
+    t0 = time.perf_counter()
+    ue.build_all(evals)
+    build_s = time.perf_counter() - t0
+    print(f"{label} fit kernels: {len(evals)} evaluators built in "
+          f"{build_s:.1f} s  [{card}]", flush=True)
+    rng = np.random.default_rng(14)
+
+    def target(tape, render):
+        imms = tape.imms * (1.0 + 0.02 * rng.standard_normal(tape.length))
+        out = render(unrolled.get_renderer(tape, imm_inputs=True),
+                     imms.astype(np.float32))
+        out = out[0] if isinstance(out, tuple) else out
+        return torch.as_tensor(np.asarray(out), dtype=torch.float32,
+                               device=dev)
+    s2, s2b, grid, win = sm.FIT_2D, sm.FIT_2D_BIG, sm.FIT_GRID, sm.FIT_WINDOW
+    fills = {s: target(stape, lambda r, i, s=s: r.render2d(size=s, imms=i))
+             for s in (s2, s2b)}
+    # chip_smoke.py's brute render, here on the host (on the card it would
+    # build the interpreter's library)
+    depth_grid = target(gtape, lambda r, i: brute.render3d_brute(
+        dataclasses.replace(r.tape, imms=i), size=grid, device="cpu"))
+    depth_win = target(etape, lambda r, i: r.render3d(
+        size=win, imms=i, with_normals=False))
+    fits = [(f"unrolled {s2}^2", stape, 1e-2, fills[s2],
+             lambda lr: sharded.make_fit_step_unrolled(stape, s2, lr=lr)),
+            (f"culled {s2}^2", stape, 1e-2, fills[s2],
+             lambda lr: sharded.make_fit_step_culled(stape, s2, lr=lr)),
+            (f"culled {s2b}^2", stape, 1e-2, fills[s2b],
+             lambda lr: sharded.make_fit_step_culled(stape, s2b, lr=lr)),
+            (f"3d grid={grid}", gtape, 3e-5, depth_grid,
+             lambda lr: sharded.make_fit_step_3d(gtape, grid, lr=lr)),
+            (f"3d window {win}", etape, 2e-5, depth_win,
+             lambda lr: sharded.make_fit_step_3d_window(etape, win, lr=lr))]
+    out = {"build_s": round(build_s, 2), "steps": {}, "mesh": {}}
+    for fit, tape, lr, tgt, make in fits:
+        step = make(lr)
+        imms = torch.as_tensor(tape.imms, device=dev)
+        ms = sm.cuda_ms(lambda: step(imms, tgt), 10, 2)
+        out["steps"][fit] = round(ms, 4)
+        print(f"{label} fit {fit}: steady step {ms:.4f} ms (events, median "
+              f"of 10)  [{card}]", flush=True)
+    closed = {"mt": ("drilled sphere", shapes.difference(
+                  shapes.sphere(0.7), shapes.cylinder_z(0.3, -1, 1))),
+              "dc": ("sphere", shapes.sphere(0.6))}
+    for method in ("mt", "dc"):
+        for name, tape in (("gyroid_sphere", gtape),
+                           (closed[method][0], mpr_tpu_torch.compile_tree(
+                               closed[method][1]))):
+            secs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mmesh.mesh_tape(tape, n=sm.MESH_N, method=method)
+                torch.cuda.synchronize()
+                secs.append(round(time.perf_counter() - t0, 3))
+            out["mesh"][f"{name} {method}"] = secs
+            print(f"{label} mesh {name} n={sm.MESH_N} {method}: first "
+                  f"{secs[0]:.3f} s, second {secs[1]:.3f} s (host clock)  "
+                  f"[{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--what", default="frames",
+                   choices=("frames", "cold", "fits"),
+                   help="what to time (see the module's docstring)")
     p.add_argument("--root", default=HERE,
                    help="directory that holds the mpr_tpu_torch to time")
     p.add_argument("--label", default="", help="a name for the JSON line")
@@ -78,6 +234,11 @@ def main() -> int:
               f", not {root}", file=sys.stderr)
         return 2
     card = sm.card_line()
+    if args.what != "frames":
+        what = {"cold": cold_frames, "fits": fit_steps}[args.what]
+        print(json.dumps({"label": args.label, "root": root, "card": card,
+                          args.what: what(sm, card, args.label)}))
+        return 0
     dev = torch.device("cuda")
     frames = []
     for n_blobs, size in sm.CASES:

@@ -2314,8 +2314,8 @@ def run_unrolled(ctx, results, launches, pre):
             if not rr:
                 continue
 
-            def total(key, rr=rr):
-                v = [x.get(key) for x in rr]
+            def total(key, rr=rr, of=lambda x: x):
+                v = [of(x).get(key) for x in rr]
                 return None if None in v else round(sum(v), 6)
             per[label] = {
                 "branch": None if mat is None
@@ -2330,9 +2330,8 @@ def run_unrolled(ctx, results, launches, pre):
                 "device_ms": total("device_ms"),
                 "device_ms_each": [x["device_ms"] for x in rr],
                 "first_design_device_ms": (
-                    None if kname == "unrolled_deriv" else round(sum(
-                        x["forced"]["serial"].get("device_ms") or 0.0
-                        for x in rr), 6)),
+                    None if kname == "unrolled_deriv" else total(
+                        "device_ms", of=lambda x: x["forced"]["serial"])),
                 "plain_ms": round(sum(x["plain_ms"] for x in rr), 3),
                 "bound_ms": round(sum(x["bound_ms"] for x in rr), 6),
                 "bound_by": rr[-1]["bound_by"],

@@ -69,6 +69,10 @@ def _eval_grid(tape: Tape, n: int, lo, hi, chunk_rows: int = 8,
     if not _use_oracle(use_oracle, dev, tape.length <= 256 and n < 64):
         from ..ops import unrolled_eval as ue
         f = ue.build_float(tape)
+        if dev.type == "cuda":
+            # every form a chunk may take (the last is often under a
+            # wave), built at once
+            ue.build_all([f])
         xs = torch.as_tensor(X.ravel(), device=dev)
         ys = torch.as_tensor(Y.ravel(), device=dev)
         for z0 in range(0, n + 1, chunk_rows):

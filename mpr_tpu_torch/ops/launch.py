@@ -525,7 +525,7 @@ UNROLLED_KS = {"float": (1, 2, 4), "interval": (1, 2)}
 UNROLLED_K = {"float": 1, "interval": 1}
 UNROLLED_K_SHORT = {"float": 2, "interval": 1}
 OPS_PER_BYTE = 10.0      # 33.5e12 float32 operations a second / 3.35e12 B
-UNROLLED_PARTS = (1, 2, 4, 8, 16, 32)
+UNROLLED_PARTS = (4, 8, 32)
 UNROLLED_P = 8
 UNROLLED_WAVE_WARPS = 8
 UNROLLED_WAVE = SM_COUNT * UNROLLED_WAVE_WARPS * 32

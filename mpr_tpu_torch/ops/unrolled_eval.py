@@ -890,7 +890,8 @@ def _nvcc_flags():
 
 def _generator_hash() -> str:
     h = hashlib.sha256(" ".join(_nvcc_flags()).encode())
-    for p in (Path(__file__), Path(vp.__file__), build.CSRC / "unrolled.cuh",
+    for p in (Path(__file__), Path(up.__file__), Path(vp.__file__),
+              Path(ln.__file__), build.CSRC / "unrolled.cuh",
               build.CSRC / "clause.cuh", build.CSRC / "adjoint.cuh"):
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -903,8 +904,8 @@ def structure_key(tape: Tape, take_imms: bool, flags: dict) -> str:
     """What a kernel of ``tape`` is keyed by: the clauses (ops, outs,
     lhss, rhss), the immediates unless ``take_imms``, ``axis_slots``,
     ``result_slot``, the config flags and a hash of the generator's own
-    source, its headers and the nvcc flags (``render/unrolled.py``'s
-    ``tape_key`` analog)."""
+    source, the schedule and launch modules it reads, its headers and the
+    nvcc flags (``render/unrolled.py``'s ``tape_key`` analog)."""
     global _GEN_HASH
     if _GEN_HASH is None:
         _GEN_HASH = _generator_hash()

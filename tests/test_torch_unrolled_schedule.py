@@ -17,6 +17,8 @@ Inputs are made with numpy from a seed; a tenth of the lanes hold +-0,
 +-inf or NaN.
 """
 
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -428,6 +430,19 @@ def test_each_form_has_its_own_library_key_and_the_defaults_build():
         fd.kernel(ln.UnrolledLaunch("lanes", k=2))
 
 
+@pytest.mark.parametrize("module", [up, ln])
+def test_the_library_key_follows_the_schedule_and_launch_modules(
+        module, tmp_path, monkeypatch):
+    """The schedule, the split and the block size baked into every source
+    come from these modules: an edit of either must give new keys, or an
+    old build would be loaded."""
+    before = ue._generator_hash()
+    copy = tmp_path / Path(module.__file__).name
+    copy.write_bytes(Path(module.__file__).read_bytes() + b"\n# edited\n")
+    monkeypatch.setattr(module, "__file__", str(copy))
+    assert ue._generator_hash() != before
+
+
 @pytest.mark.parametrize("name,short", [("gyroid", True), ("all_ops", True),
                                         ("extruded", False),
                                         ("stress600", False)])
@@ -485,6 +500,7 @@ def test_unrolled_launch_forces_a_shape_and_refuses_one_that_does_not_fit(
         "serial")
     assert ln.unrolled_launch(5, kind, form="lanes").k == ln.UNROLLED_K[kind]
     bad = [dict(k=3), dict(k=8), dict(parts=64), dict(parts=3),
+           dict(parts=1), dict(parts=2), dict(parts=16),
            dict(form="split", k=2), dict(form="lanes", parts=4),
            dict(form="serial", k=2), dict(form="warp")]
     if kind == "interval":
