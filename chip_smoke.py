@@ -9,10 +9,12 @@ Phases (any failure exits non-zero before the final line):
      CUDA kernels from ``mpr_tpu_torch/ops/csrc`` (nvcc, first use): the
      main library (every kernel, B, V and D at the shapes the render path
      picks; its seconds are the render path's first-use build) and then
-     the extra one (B, V, D and K2 at the other shapes, for phase 8b and
-     phase 14's forced shapes), with ptxas's registers, stack frame and
-     spills for every instantiation of A, B, C, C2, V, D, K2f and K2 (a
-     spill fails the run at its end);
+     the extra one (B, V, D and K2 at the other shapes, for phase 8b's
+     and 14's forced shapes, and K2f's first design), with
+     ptxas's registers, stack frame and spills for every instantiation of
+     A, B, C, C2, V, D, K2f (the walk at every K of ``SCAN_SWEEP``,
+     storing or not, and its first design) and K2 (a spill fails the run
+     at its end);
   2. the 2D path: with every launch count set to 0, render the
      ``stress_2d(600)`` model at 1024^2 and ``stress_2d(1500)`` at 2048^2
      through ``mpr_tpu_torch.render.render2d``, recording each kernel's
@@ -125,15 +127,29 @@ Phases (any failure exits non-zero before the final line):
      four steps (it must fall), each step timed, the launch counts (K1 or
      K2 must launch, no plain evaluator may run); K1's and K2's launch
      shapes with their ptxas registers (a spill in any K1 or K2 kernel
-     fails the run at its end); K1, K2 and K2f on their recorded inputs
+     fails the run at its end); K1 and K2 on their recorded inputs
      against their plain versions, timed beside their bounds (operations
      counted from the tape's forward walk and its VJP rules,
      ``vjp_plan.vjp_ops``) and K1's and K2's designs' own byte floors
      (what the storage plan writes and reads), K2 also at forced launch
-     shapes; the sharded renders and a sharded step under an NCCL group
+     shapes; the scan fit's K2f launch (one a step: it stores the plan in
+     the forward pass) as phase 15 holds and times a launch, storing and
+     not, with the step's K2f device time beside the first design's two
+     launches; the sharded renders and a sharded step under an NCCL group
      of one, equal to the one-device results; ``cli fit`` (three engines,
      both modes, ``--params-only``) and ``cli mesh`` (both methods) as
      subprocesses, and ``cli render2d --sharded --check`` on both engines;
+ 15. (run after phase 7) kernel K2f at the dense references: with its
+     count set to 0, ``render2d_brute`` of each 2D cell and
+     ``render3d_brute`` of each 3D cell (equal to phases 3's and 7's
+     images; K2f must launch once a 2D frame, once a slab of rows in 3D);
+     on the recorded lanes of the 2D launches and of each 3D cell's middle
+     slab, K2f at its picked shape and every shape of ``SCAN_SWEEP`` bit
+     for bit against its first design and its plain version, each timed
+     (device ms, torch.profiler) beside the first design's and the bound,
+     with the walk's file slots against the tape's, the shape and ptxas's
+     registers, stack and spills; the report says whether any launch ran
+     slower than the first design;
  12. print the kernel times of the previous designs of A, B, C, C2, V, D,
      K1, K2 and the generated float and interval kernels (recorded,
      labelled as such; not measured here), the unrolled sweep and the
@@ -391,8 +407,8 @@ def device_ms(fn, n=10, name=None, tries=1):
     """Device time of the one kernel ``fn()`` launches, in ms: the mean
     duration of the kernels torch.profiler traces over ``n`` calls (the
     mean of those traced, which holds where the trace drops a record), or
-    of those whose name starts with ``name`` where ``fn`` launches others
-    too.  The events of :func:`cuda_ms` also time the host's work around a
+    of those whose name holds ``name`` where ``fn`` launches others too.
+    The events of :func:`cuda_ms` also time the host's work around a
     short kernel's launch; this does not.  A trace with no such record is
     taken again, ``tries`` times in all; then None."""
     import torch
@@ -408,7 +424,7 @@ def device_ms(fn, n=10, name=None, tries=1):
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA
-              and (name is None or e.name.startswith(name))]
+              and (name is None or name in e.name)]
         if us:
             return round(sum(us) / len(us) / 1e3, 6)
     return None
@@ -1434,8 +1450,10 @@ def ptxas_rows(log):
     loads) for each instantiation of kernels B, V, D and K2 in nvcc's
     -Xptxas -v output (bucket 0 is the shared home), of kernel A (K is 1
     with widening, 0 without; bucket 0), of kernels C and C2 (K is 1 for a
-    warp a row, 0 for a block a row; bucket 0) and of K2f (K is 1 where it
-    stores the plan for K2, 0 for the plain walk; bucket 0)."""
+    warp a row, 0 for a block a row; bucket 0) and of K2f (the walk
+    ``scan_walk_kernel``: K its lanes a thread, bucket 1 where it stores
+    the plan for K2, 0 for the plain walk; its first design
+    ``scan_eval_first_kernel``: K 1 storing, 0 not; bucket 0)."""
     import re
     rows, cur = [], None
     for line in log.splitlines():
@@ -1450,9 +1468,14 @@ def ptxas_rows(log):
         if m:
             cur = [m.group(1), int(m.group(2)), int(m.group(3))]
             continue
+        m = re.search(r"Function properties for \S*?(scan_walk_kernel)"
+                      r"ILi(\d+)ELb(\d)E", line)
+        if m:
+            cur = [m.group(1), int(m.group(2)), int(m.group(3))]
+            continue
         m = re.search(r"Function properties for \S*?(interval_shorten_kernel|"
-                      r"compact_kernel|compact_order_kernel|scan_eval_kernel)"
-                      r"ILb(\d)E", line)
+                      r"compact_kernel|compact_order_kernel|"
+                      r"scan_eval_first_kernel)ILb(\d)E", line)
         if m:
             cur = [m.group(1), int(m.group(2)), 0]
             continue
@@ -1479,7 +1502,9 @@ def print_ptxas(tk3, logs):
     split by warps).  Every (kernel, K, bucket) of B, V, D and K2 must be
     built, those of ``tk3.MAIN_K`` in the main library, and both of A's
     (with and without widening), C's and C2's (a warp or a block a row)
-    and K2f's (storing the plan or not) in the main library.
+    and K2f's walk at every K of ``launch.SCAN_SWEEP``, storing the plan
+    or not, in the main library (its first design, both ways, in the
+    extra one).
     Returns the instantiations that spill: the run fails on them once every
     phase has run."""
     names = {"pixel_eval_kernel": "pixel_eval_runs",
@@ -1494,8 +1519,12 @@ def print_ptxas(tk3, logs):
                 shape = "widen" if k else "no widening"
             elif kern.startswith("compact"):
                 shape = "a warp a row" if k else "a block a row"
-            elif kern.startswith("scan_eval"):
-                shape = "storing the plan" if k else "plain walk"
+            elif kern == "scan_eval_first_kernel":
+                shape = "first design, " + ("storing the plan" if k
+                                            else "plain walk")
+            elif kern == "scan_walk_kernel":
+                shape = f"K={k} " + ("storing the plan" if bucket
+                                     else "plain walk")
             else:
                 shape = f"K={k} " + ("shared" if bucket == 0 else (
                     f"local/split {bucket} slots" if kern.startswith("deriv")
@@ -1522,8 +1551,12 @@ def print_ptxas(tk3, logs):
             check("main" in built.get((kern, warp, 0), ()),
                   f"{kern} (warp a row {warp}) is not in the main library")
     for store in (0, 1):
-        check("main" in built.get(("scan_eval_kernel", store, 0), ()),
-              f"K2f (store {store}) is not in the main library")
+        for k in sorted({sh.k for sh in ln.SCAN_SWEEP}):
+            check("main" in built.get(("scan_walk_kernel", k, store), ()),
+                  f"K2f K={k} (store {store}) is not in the main library")
+        check("extra" in built.get(("scan_eval_first_kernel", store, 0), ()),
+              f"K2f's first design (store {store}) is not in the extra "
+              "library")
     return spills
 
 
@@ -2378,7 +2411,7 @@ FIT_ROWS = (
      "mpr_tpu/parallel/sharded.py:192-236 (jax.value_and_grad of "
      "eval_scan.eval_f; XLA, no TPU kernel)"),
     ("scan_eval", "eval_scan", "K2f",
-     "mpr_tpu_torch/ops/csrc/scan_adjoint.cu",
+     "mpr_tpu_torch/ops/csrc/scan_eval.cu + mpr_tpu_torch/ops/scan_plan.py",
      "mpr_tpu/ops/eval_scan.py:78 (eval_f, a lax.scan; XLA, no TPU "
      "kernel)"),
 )
@@ -2589,6 +2622,208 @@ def sweep_k2(eval_scan, ln, td, x, y, z, g, want, card):
     return out
 
 
+def k2f_ptxas():
+    """ptxas's (registers, stack, spill stores, spill loads) of K2f's walk
+    by (K, storing) and of its first design by ("first", storing), from
+    the libraries' nvcc logs."""
+    from mpr_tpu_torch.ops import build
+    out = {}
+    for log in build.BuildStats.log.values():
+        for kern, k, b, regs, stack, st, ld in ptxas_rows(log):
+            if kern == "scan_walk_kernel":
+                out[(k, bool(b))] = (regs, stack, st, ld)
+            elif kern == "scan_eval_first_kernel":
+                out[("first", bool(k))] = (regs, stack, st, ld)
+    return out
+
+
+def k2f_store(td, n):
+    """Zeroed tensors for K2f's store of ``n`` lanes (the plan's values
+    and choice words in the blocked layout).  Neither design writes a lane
+    past ``n``, so two stores made alike compare whole."""
+    import torch
+    from mpr_tpu_torch.ops import vjp_plan as vp
+    plan = td.vjp_plan()[0]
+    return (torch.zeros(vp.blocked_size(plan.n_vals, n), dtype=torch.float32,
+                        device=td.device),
+            torch.zeros(vp.blocked_size(plan.n_words, n), dtype=torch.int32,
+                        device=td.device))
+
+
+def same_bits(a, b):
+    """Equal bit for bit (every NaN alike), float or integer."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = (torch.nan_to_num(t, 7.0).view(torch.int32) for t in (a, b))
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def k2f_ms(fn, name):
+    """Device ms of the K2f kernel ``fn()`` launches (its name holds
+    ``name``): torch.profiler, or where three traces hold no record of
+    it, CUDA events around the call (median of 5; they add the host's
+    enqueue of the call's small kernels, under 0.05 ms)."""
+    ms = device_ms(fn, 3, name, 3)
+    return ms if ms is not None else round(cuda_ms(fn, 5, 1), 6)
+
+
+def k2f_launch(label, td, x, y, z, store, card):
+    """K2f at one launch of a path, on its recorded lanes: the picked
+    shape and every shape of ``SCAN_SWEEP``, the first design and the
+    plain version (the tape-order walk, and with ``store`` its store,
+    ``scan_plan.store_plain``) on the same inputs.  Every shape's v, and
+    with ``store`` its values and choice words, must equal the first
+    design's bit for bit (the stores' whole bytes) and the plain
+    version's; each is timed (device ms, torch.profiler) beside the first
+    design's and the bound (inputs, v, the walk's entries and the store's
+    bytes; the walk's float operations).  Returns the launch's row."""
+    import numpy as np
+    import torch
+    from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.ops import launch as ln
+    from mpr_tpu_torch.ops import scan_plan as spm
+    sp = td.scan_plan()[0]
+    plan = td.vjp_plan()[0]
+    n = x.numel()
+    pick = ln.scan_launch(sp.slots, n)
+    first_st = k2f_store(td, n) if store else None
+    v1 = eval_scan.scan_eval_first(td, x, y, z, store=first_st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if store:
+        pv, pvals, pwords = spm.store_plain(td, x, y, z)
+    else:
+        pv = eval_scan.eval_f_plain(td, x, y, z)
+    torch.cuda.synchronize()
+    plain_ms_ = (time.perf_counter() - t0) * 1e3
+    check(same_bits(v1, pv), f"K2f's first design differs from the plain "
+          f"walk at {label}")
+    if store:
+        check(same_bits(first_st[0][:pvals.numel()], pvals)
+              and same_bits(first_st[1][:pwords.numel()], pwords),
+              f"K2f's first design stores other bits than the plain walk "
+              f"at {label}")
+    regs = k2f_ptxas()
+    sweep = {}
+    for shape in (pick,) + tuple(s for s in ln.SCAN_SWEEP if s != pick):
+        st = k2f_store(td, n) if store else None
+        v = eval_scan.scan_eval(td, x, y, z, store=st, launch=shape)
+        ok = same_bits(v, v1) and (not store or (
+            same_bits(st[0], first_st[0]) and same_bits(st[1], first_st[1])))
+        check(ok, f"K2f at {shape} differs from its first design at {label}"
+              f" (v, or the store's bytes)")
+        tag = f"{shape.threads}x{shape.k}"
+        sweep[tag] = k2f_ms(lambda: eval_scan.scan_eval(
+            td, x, y, z, store=st, launch=shape), "scan_walk_kernel")
+        del v, st
+    first_ms = k2f_ms(lambda: eval_scan.scan_eval_first(
+        td, x, y, z, store=first_st), "scan_eval_first_kernel")
+    tag = f"{pick.threads}x{pick.k}"
+    P = sp.length
+    ops = n * sum(FLOAT_OPS.get(int(plan.ops[t]), 0) for t in sp.order)
+    nbytes = n * 16 + P * 16 + (n * plan.k2_lane_bytes if store else 0)
+    # the design's own floor: its file's shared-memory traffic (each
+    # operand read from the file, each value kept, each choice word's
+    # read-modify-write between its first and last code) at 128 bytes a
+    # clock an SM, or the bound's bytes, whichever is longer
+    fl = sp.fl.astype(np.int64) & 0xFFFFFFFF
+    cw = (sp.st.astype(np.int64) & 0xFFFFFFFF) >> 16 != spm.NONE16
+    access = (np.sum((fl & spm.A_ACC) == 0) + np.sum((fl & spm.B_ACC) == 0)
+              + np.sum((fl & spm.KEEP) != 0))
+    if store:
+        access += (np.sum(cw & ((fl & spm.W_FIRST) == 0))
+                   + np.sum(cw & ((fl & spm.W_LAST) == 0)))
+    file_bytes = n * 4 * int(access)
+    shared_ms = file_bytes / (132 * 128 * sm_clock_hz()) * 1e3
+    row = dict(lanes=n, clauses=P, store=bool(store), ops=ops, bytes=nbytes,
+               file_slots=sp.slots, tape_slots=td.num_slots,
+               shape=dict(threads=pick.threads, k=pick.k,
+                          smem=pick.smem(sp.slots),
+                          blocks=ln.scan_blocks(pick, sp.slots, n)),
+               ptxas=regs.get((pick.k, bool(store))),
+               first_ptxas=regs.get(("first", bool(store))),
+               device_ms=sweep[tag], first_device_ms=first_ms,
+               plain_ms=plain_ms_, sweep=sweep, max_abs_err=0.0)
+    row["bound_ms"], row["bound_by"] = bound(row)
+    row["file_bytes"] = file_bytes
+    row["floor_ms"] = max(shared_ms, nbytes / PEAK_BYTES_PER_S * 1e3)
+    ratio = (row["device_ms"] / first_ms if row["device_ms"] and first_ms
+             else None)
+    row["vs_first"] = ratio
+    print(f"  K2f at {label}: {n} lanes x {P} clauses"
+          f"{' storing the plan' if store else ''}, shape {tag} "
+          f"(smem {row['shape']['smem']} B, {row['shape']['blocks']} "
+          f"blocks), file {sp.slots} slots against the tape's "
+          f"{td.num_slots}; device {row['device_ms']} ms, the first design "
+          f"{first_ms} ms (x{ratio if ratio is None else round(ratio, 4)})"
+          f"; bound {row['bound_ms']:.5f} ms ({row['bound_by']}), the "
+          f"design's floor {row['floor_ms']:.5f} ms ({file_bytes} B of "
+          f"file traffic); plain "
+          f"{plain_ms_:.1f} ms; ptxas (registers, stack, spill stores, "
+          f"loads) {row['ptxas']}, first design {row['first_ptxas']}; "
+          f"every shape bit-equal to the first design and the plain "
+          f"version; sweep {sweep}  [{card}]")
+    return row
+
+
+def run_k2f(ctx, results):
+    """Phase 15: K2f at the dense references.  With K2f's count set to 0,
+    ``render2d_brute`` of each 2D cell and ``render3d_brute`` of each 3D
+    cell (one launch a frame in 2D, one a slab of rows in 3D; the images
+    equal phases 3's and 7's); then, on the recorded lanes of the 2D
+    launches and of one slab a 3D cell (the middle one), K2f against its
+    plain version and its first design at every swept shape, timed
+    (:func:`k2f_launch`)."""
+    import mpr_tpu_torch
+    import numpy as np
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.ops.tape_data import TapeData
+    from mpr_tpu_torch.render import brute, camera
+    card, dev = ctx["card"], ctx["dev"]
+    real = eval_scan.scan_eval
+    rows, counts = {}, {}
+    jobs = [(f"brute 2D stress_2d({nb}) {sz}^2",
+             lambda nb=nb, sz=sz: brute.render2d_brute(
+                 mpr_tpu_torch.compile_tree(shapes.stress_2d(nb)), size=sz),
+             ctx["brute2d"][sz], 0) for nb, sz in CASES]
+    for name, make, view, size in CASES_3D:
+        slabs = -(-size // max(1, brute.SLAB_VOXELS // (size * size)))
+        jobs.append((f"brute 3D {name} {size}^3 (slab {slabs // 2} of "
+                     f"{slabs})", lambda make=make, view=view, size=size:
+                     brute.render3d_brute(
+                         mpr_tpu_torch.compile_tree(make(shapes)),
+                         mat=camera.gui3d_view(*view), size=size),
+                     ctx["brute3d"][name], slabs // 2))
+    for label, render, want, keep in jobs:
+        seen = []
+
+        def rec(td, x, y, z, store=None, launch=None):
+            if len(seen) == keep:
+                seen.append((td, x, y, z))
+            else:
+                seen.append(None)
+            return real(td, x, y, z, store=store, launch=launch)
+        eval_scan._scan_eval.launches = 0
+        eval_scan.scan_eval = rec
+        try:
+            img = render()
+        finally:
+            eval_scan.scan_eval = real
+        counts[label] = eval_scan._scan_eval.launches
+        bad = int(np.sum(img != want))
+        print(f"K2f phase: {label}: {counts[label]} K2f launches, "
+              f"{bad} pixels differ from the phase's earlier image")
+        check(counts[label] == len(seen) >= keep + 1,
+              f"{label}: K2f launched {counts[label]} times")
+        check(bad == 0, f"{label}: the image differs")
+        td, x, y, z = seen[keep]
+        rows[label] = k2f_launch(label, td, x, y, z, False, card)
+        rows[label]["launches"] = counts[label]
+        del seen
+    results["k2f"] = rows
+
+
 def run_fit(ctx, results, launches, pre):
     """Phase 14: mesh export, the five fit steps on K1 and K2, the sharded
     render and step under a process group of one (NCCL), and ``cli fit``
@@ -2768,7 +3003,7 @@ def run_fit(ctx, results, launches, pre):
         def plain_k1(ev, x, y, z, g, imms):
             return plain_vjp_unrolled(ue, ev, x, y, z, g, imms)
 
-        def plain_k2(td, x, y, z, g):
+        def plain_k2(td, x, y, z, g, store=None):
             return plain_vjp_scan(eval_scan, td, x, y, z, g)
         ue.unrolled_float_vjp, eval_scan.scan_adjoint = plain_k1, plain_k2
         try:
@@ -2852,14 +3087,37 @@ def run_fit(ctx, results, launches, pre):
                              registers=k2_regs.get((pick.k, pick.bucket)))
                 print(f"K2 launch shape at {label}: {shape}  [{card}]")
             else:
+                # the step's K2f launch (storing the plan for K2, kept for
+                # the backward pass), and the plain walk of the same lanes
+                # (the launch the step made before it stored in forward)
                 td, x, y, z = a[:4]
-                if kw.get("store") is not None or (len(a) > 4 and a[4]
-                                                   is not None):
-                    continue        # the adjoint's own forward launches
-                run = (lambda: eval_scan.scan_eval(td, x, y, z))
-                plain = (lambda: eval_scan.eval_f_plain(td, x, y, z))
-                lanes = x.numel()
-                ops = lanes * sum(FLOAT_OPS.get(int(o), 0) for o in tape.ops)
+                rr = k2f_launch(f"the {label} fit", td, x, y, z, True, card)
+                st = k2f_store(td, x.numel())
+                rr["ms"] = cuda_ms(lambda: eval_scan.scan_eval(
+                    td, x, y, z, store=st), 5, 1)
+                rr["launch_shape"] = rr["shape"]
+                rr["plain_walk"] = k2f_launch(f"the {label} fit (not "
+                                              "storing)", td, x, y, z, False,
+                                              card)
+                per_step = fit_rows[label]["launches"]["scan_eval"] / FIT_STEPS
+                kept = sum(t.numel() * 4 for t in eval_scan.k2_store(
+                    td, x.numel()))
+                first_step = (rr["first_device_ms"] or 0.0) + (
+                    rr["plain_walk"]["first_device_ms"] or 0.0)
+                rr["step"] = dict(launches=per_step,
+                                  device_ms=rr["device_ms"] * per_step
+                                  if rr["device_ms"] else None,
+                                  first_design_device_ms=first_step,
+                                  kept_store_bytes=kept)
+                print(f"  K2f a {label} step: {per_step:g} launch(es) "
+                      f"(storing; the backward pass reads the store, "
+                      f"{kept} B held between the passes), device "
+                      f"{rr['step']['device_ms']} ms; the first design's "
+                      f"two launches (walk, then the store) {first_step:.6f}"
+                      f" ms  [{card}]")
+                per[label] = rr
+                del st
+                continue
             got = run()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2870,7 +3128,7 @@ def run_fit(ctx, results, launches, pre):
                                (got - want).abs())
             err = float(diff.max())
             scale = float(want.abs().max())
-            tol = FIT_GRAD_TOL * scale if kname != "scan_eval" else 0.0
+            tol = FIT_GRAD_TOL * scale
             check(err <= tol, f"{kname} ({label}) differs from its plain "
                   f"version by {err} (largest {scale})")
             rr = dict(lanes=lanes, clauses=tape.length, max_abs_err=err,
@@ -3084,7 +3342,7 @@ def main() -> int:
                 n in source for n in ("voxel_eval", "deriv_eval",
                                       "pixel_eval.cu", "interval_shorten",
                                       "compact.cu", "compact_order.cu",
-                                      "scan_adjoint")):
+                                      "scan_adjoint", "scan_eval")):
             print("  " + line.strip())
     spills = print_ptxas(tk3, build.BuildStats.log)
 
@@ -3097,6 +3355,8 @@ def main() -> int:
     run_stale_imms(ctx)
     sys.stdout.flush()
     run_3d(ctx, results, launches)
+    sys.stdout.flush()
+    run_k2f(ctx, results)
     sys.stdout.flush()
     run_edges(ctx, results)
     sys.stdout.flush()
@@ -3204,6 +3464,21 @@ def main() -> int:
         })
     rows.extend(results["unrolled"])
     rows.extend(results["fit_rows"])
+    k2f = next(r for r in rows if r["name"] == "scan_eval")
+    k2f["per_launch"] = results["k2f"]
+    k2f["launches_brute"] = {k: r["launches"]
+                             for k, r in results["k2f"].items()}
+    launch_rows = list(results["k2f"].items())
+    for c, x in k2f["per_fit"].items():
+        launch_rows += [(f"{c} fit", x),
+                        (f"{c} fit, not storing", x["plain_walk"])]
+    slower = [k for k, r in launch_rows if r.get("vs_first") is None
+              or r["vs_first"] > 1.0]
+    verdict = (f"MISSED at {slower}" if slower
+               else "no launch slower: held")
+    print(f"K2f against its first design in this run: "
+          f"{ {k: r.get('vs_first') for k, r in launch_rows} }; {verdict}"
+          f"  [{card}]")
     print(json.dumps({"fits": results["fits"], "mesh": results["mesh"]}))
     print(json.dumps({"effects": effect_rows}))
     sweeps = {f"stress_2d({nb}) {sz}^2": results[sz]["sweep"]

@@ -13,7 +13,8 @@ tape, capacity or op set ever needs a new build.
 There are two libraries (``LIBRARIES``).  ``main`` holds every kernel,
 kernels B, V and D at the launch shapes the render path picks; ``extra``
 holds B, V, D and K2 at the other shapes (``-DMPR_EXTRA_SHAPES``), which
-only a forced launch shape reaches, so the render path's first use does not
+only a forced launch shape reaches, and K2f's first design, which the
+card's runs time beside K2f, so the render path's first use does not
 compile them.  Kernel A takes every launch shape at run time: both its
 instantiations (with and without widening) are in ``main``; so do kernels
 C and C2, whose two instantiations each (a warp a row, a block a row) the
@@ -42,7 +43,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library -> (its sources, None for every .cu in csrc/; extra nvcc flags)
 LIBRARIES = {"main": (None, ()),
              "extra": (("deriv_eval.cu", "pixel_eval.cu", "scan_adjoint.cu",
-                        "voxel_eval.cu"), ("-DMPR_EXTRA_SHAPES",))}
+                        "scan_eval.cu", "voxel_eval.cu"),
+                       ("-DMPR_EXTRA_SHAPES",))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,9 +60,10 @@ SIGNATURES = {
     "mpr_compact_runs": [_P] * 10 + [_I] * 6 + [_P],
     "mpr_compact_order": [_P] * 10 + [_I] * 7 + [_P],
     "mpr_scan_adjoint": [_P] * 9 + [_I] * 14 + [_P],
+    "mpr_scan_eval": [_P] * 7 + [_I] * 14 + [_P],
 }
 # further entry points of a source, beside ``mpr_<stem>``
-EXTRA_ENTRIES = {"mpr_scan_adjoint_eval": [_P] * 9 + [_I] * 9 + [_P]}
+EXTRA_ENTRIES = {"mpr_scan_eval_first": [_P] * 9 + [_I] * 9 + [_P]}
 
 
 class BuildStats:

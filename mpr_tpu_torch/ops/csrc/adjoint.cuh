@@ -107,6 +107,24 @@ inline int reduce_partials(const float* partials, float* grad, int T,
   return (int)cudaGetLastError();
 }
 
+// cp.async: start copying 16 bytes from global to shared memory (both
+// 16-byte aligned), close the thread's group of copies, wait for all of
+// its groups (then a barrier makes the data visible to the block).
+__device__ __forceinline__ void cp16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Allow a block `smem` bytes of dynamic shared memory (above 48 KB the
 // kernel must opt in).
 inline int allow_smem(const void* fn, int smem) {

@@ -1,17 +1,15 @@
-// Kernels K2f and K2: the interpreter's float walk and its adjoint.
+// Kernel K2: the adjoint of the interpreter's float walk.
 //
-// The port's own kernels: no TPU kernel stands behind them.  On the TPU,
+// The port's own kernel: no TPU kernel stands behind it.  On the TPU,
 // mpr_tpu/ops/eval_scan.py::eval_f is a lax.scan over the tape (a
 // lax.switch a clause over whole lane vectors), and the fit's gradient
 // (mpr_tpu/parallel/sharded.py::make_fit_step) is XLA's transpose of that
 // scan under jax.value_and_grad.  Here the tape is data, as in kernels B, V
 // and D: one build serves every tape.
 //
-//   K2f (scan_eval_kernel): a thread a lane walks the whole tape over a
-//     register file of slots in local memory and writes the result slot;
-//     for K2, it also stores what the tape's storage plan lists
-//     (ops/vjp_plan.py): the clause values the partials read, at compact
-//     positions (spos[t] >= 0: row spos[t] of vals), and a 2-bit choice
+//   K2f (scan_eval.cu) walks the tape forward and stores what the tape's
+//     storage plan lists (ops/vjp_plan.py): the clause values the partials
+//     read, at compact positions (row spos of vals), and a 2-bit choice
 //     code for each min/max clause, 16 to a word (row cidx / 16 of ch; bit
 //     0: the lhs equals the result, bit 1: the other operand does), both in
 //     blocks of 128 lanes (vjp_plan.LANE_BLOCK: entry (row, lane) at
@@ -48,16 +46,14 @@
 // does; a clause that does not reach it reads no stored value (its
 // partials see zeros).
 //
-// Bound on the H100: K2f by operations for long tapes (plus its register
-// file's local-memory traffic and the plan's stores); K2 by the latency of
-// its clause chain (an adjoint read, the rule, an adjoint read-modify-
-// write a clause) against the lanes an SM holds, and by the plan's bytes.
+// Bound on the H100: K2 by the latency of its clause chain (an adjoint
+// read, the rule, an adjoint read-modify-write a clause) against the lanes
+// an SM holds, and by the plan's bytes.
 //
 // Two libraries hold K2's instantiations (ops/build.py): the main one the
 // shapes adjoint_launch picks (K = 2 in either home), the extra one, built
 // with MPR_EXTRA_SHAPES, K = 4 (ops/launch.py::MAIN_K, ADJ_KS; at K = 1
-// ptxas spilled a few bytes, and it ran no faster than K = 2).  K2f is in
-// the main library only.
+// ptxas spilled a few bytes, and it ran no faster than K = 2).
 //
 // Numerics: --fmad=false (ops/build.py), the float branch of clause.cuh.
 
@@ -71,8 +67,6 @@ namespace {
 
 using namespace mpr;
 
-constexpr int SCAN_THREADS = 128;
-constexpr int MAX_SLOTS = 256;
 constexpr int ADJ_TILE = 256;         // ops/launch.py ADJ_TILE
 constexpr int ADJ_MAX_THREADS = 256;  // ops/launch.py ADJ_THREADS
 constexpr int LANE_BLOCK = 128;       // ops/vjp_plan.py LANE_BLOCK
@@ -86,80 +80,6 @@ constexpr uint32_t CODE_X = 0xFFFCu, CODE_Y = 0xFFFDu, CODE_Z = 0xFFFEu,
     __VA_ARGS__;                                   \
   }
 
-#ifndef MPR_EXTRA_SHAPES
-
-__device__ __forceinline__ float float_dyn(int op, float a, float b,
-                                           float imm) {
-  switch (op) {
-#define MPR_CASE(OP) \
-  case OP: return float_op<OP>(a, b, imm);
-    MPR_CASE(OP_SQUARE) MPR_CASE(OP_SQRT) MPR_CASE(OP_NEG) MPR_CASE(OP_SIN)
-    MPR_CASE(OP_COS) MPR_CASE(OP_ASIN) MPR_CASE(OP_ACOS) MPR_CASE(OP_ATAN)
-    MPR_CASE(OP_EXP) MPR_CASE(OP_ABS) MPR_CASE(OP_LOG) MPR_CASE(OP_ADD_IMM)
-    MPR_CASE(OP_ADD) MPR_CASE(OP_MUL_IMM) MPR_CASE(OP_MUL)
-    MPR_CASE(OP_MIN_IMM) MPR_CASE(OP_MIN) MPR_CASE(OP_MAX_IMM)
-    MPR_CASE(OP_MAX) MPR_CASE(OP_SUB_IMM) MPR_CASE(OP_SUB_IMM_RHS)
-    MPR_CASE(OP_SUB) MPR_CASE(OP_DIV_IMM) MPR_CASE(OP_DIV_IMM_RHS)
-    MPR_CASE(OP_DIV) MPR_CASE(OP_COPY_IMM) MPR_CASE(OP_COPY_LHS)
-    MPR_CASE(OP_COPY_RHS) MPR_CASE(OP_HYPOT) MPR_CASE(OP_ADDSQ)
-#undef MPR_CASE
-    default: return a * 0.0f;  // INVALID, JUMP
-  }
-}
-
-// STORE: also the plan's values and choice words (K2's forward half); the
-// other instantiation is the plain forward walk.
-template <bool STORE>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_eval_kernel(const uint32_t* __restrict__ words,
-                 const float* __restrict__ imms,
-                 const int* __restrict__ spos, const float* __restrict__ x,
-                 const float* __restrict__ y, const float* __restrict__ z,
-                 float* __restrict__ v, float* __restrict__ vals,
-                 uint32_t* __restrict__ ch, int n, int nv, int nw, int L,
-                 int nslots, int result, int sx, int sy, int sz) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  // lane i's row 0 in the blocked layout
-  const size_t blk = i / LANE_BLOCK, off = i % LANE_BLOCK;
-  const size_t vb = blk * nv * LANE_BLOCK + off;
-  const size_t cb = blk * nw * LANE_BLOCK + off;
-  float regs[MAX_SLOTS];
-  for (int s = 0; s < nslots; ++s) regs[s] = 0.0f;
-  if (sx) regs[sx] = x[i];
-  if (sy) regs[sy] = y[i];
-  if (sz) regs[sz] = z[i];
-  uint32_t cw = 0u;
-  int ci = 0;
-#pragma unroll 1
-  for (int t = 0; t < L; ++t) {
-    const uint32_t w = __ldg(words + t);
-    const int op = w_op(w);
-    const float a = regs[w_lhs(w)], b = regs[w_rhs(w)];
-    const float imm = __ldg(imms + t);
-    const float r = float_dyn(op, a, b, imm);
-    regs[w_out(w)] = r;
-    if (STORE) {
-      const int sp = __ldg(spos + t);
-      if (sp >= 0) vals[vb + (size_t)sp * LANE_BLOCK] = r;
-      if (op >= CHOICE_OP_LO && op <= CHOICE_OP_HI) {
-        const float q = (op == OP_MIN_IMM || op == OP_MAX_IMM) ? imm : b;
-        cw |= ((uint32_t)(a == r) | ((uint32_t)(q == r) << 1))
-              << (2 * (ci & 15));
-        if ((ci & 15) == 15) {
-          ch[cb + (size_t)(ci >> 4) * LANE_BLOCK] = cw;
-          cw = 0u;
-        }
-        ++ci;
-      }
-    }
-  }
-  if (STORE && (ci & 15)) ch[cb + (size_t)(ci >> 4) * LANE_BLOCK] = cw;
-  v[i] = regs[result];
-}
-
-#endif  // MPR_EXTRA_SHAPES
-
 // One clause of K2's tape (ops/vjp_plan.py::VjpPlan.entry_codes): the
 // word, the immediate, the codes of the lhs and rhs values its rule reads
 // (ab: lhs | rhs << 16) and of its result (rc & 0xFFFF), its choice index
@@ -170,24 +90,6 @@ struct alignas(16) Entry {
   uint32_t ab;
   uint32_t rc;
 };
-
-// cp.async: start copying 16 bytes from global to shared memory (both
-// 16-byte aligned), close the thread's group of copies, wait for all of
-// its groups (then a barrier makes the data visible to the block).
-__device__ __forceinline__ void cp16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Start copying tile j of the tape (ADJ_TILE entries, fewer at its end)
 // into dst.
@@ -553,32 +455,6 @@ AdjKernel pick(int k, int bucket) {
 }
 
 }  // namespace
-
-#ifndef MPR_EXTRA_SHAPES
-// K2f: v (and, with vals non-null, the plan's values and choice words: nv
-// and nw rows in the blocked layout) on n lanes.
-extern "C" int mpr_scan_adjoint_eval(const void* words, const void* imms,
-                                     const void* spos, const void* x,
-                                     const void* y, const void* z, void* v,
-                                     void* vals, void* ch, int n, int nv,
-                                     int nw, int L, int nslots, int result,
-                                     int sx, int sy, int sz, void* stream) {
-  if (n < 0 || L < 0 || nv < 1 || nw < 1 || nslots < 1 ||
-      nslots > MAX_SLOTS ||
-      result < 0 || result >= MAX_SLOTS || (vals && (!spos || !ch)))
-    return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  const auto fn = vals ? scan_eval_kernel<true> : scan_eval_kernel<false>;
-  fn<<<(n + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0,
-       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const float*>(imms),
-      static_cast<const int*>(spos), static_cast<const float*>(x),
-      static_cast<const float*>(y), static_cast<const float*>(z),
-      static_cast<float*>(v), static_cast<float*>(vals),
-      static_cast<uint32_t*>(ch), n, nv, nw, L, nslots, result, sx, sy, sz);
-  return (int)cudaGetLastError();
-}
-#endif
 
 // K2: grad (+)= d(sum_i g_i v_i)/d(imms) on n lanes, from K2f's stores
 // (nv and nw rows in the blocked layout, over ld lanes, a multiple of

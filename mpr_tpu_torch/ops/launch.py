@@ -14,13 +14,17 @@ a block, threads a row and dynamic shared memory make a
 
 Kernel K2 (``csrc/scan_adjoint.cu``, the interpreter's adjoint) keeps an
 adjoint file a lane in one of the two homes: home, threads, lanes a thread
-(K) and dynamic shared memory make an :class:`AdjointLaunch`.  The
-generated unrolled evaluators (``ops/unrolled_eval.py``) run in one of
-three forms, an :class:`UnrolledLaunch`.
+(K) and dynamic shared memory make an :class:`AdjointLaunch`.  Kernel K2f
+(``csrc/scan_eval.cu``, the interpreter's forward walk) keeps the file of
+its re-slotted walk in shared memory: threads and K make a
+:class:`ScanLaunch`.  The generated unrolled evaluators
+(``ops/unrolled_eval.py``) run in one of three forms, an
+:class:`UnrolledLaunch`.
 
 Every function here is pure host code; the pickers are
-:func:`interval_launch`, :func:`pixel_launch`, :func:`compact_launch` and
-:func:`adjoint_launch` (kernels A, B, C and C2, and K2),
+:func:`interval_launch`, :func:`pixel_launch`, :func:`compact_launch`,
+:func:`adjoint_launch` and :func:`scan_launch` (kernels A, B, C and C2,
+K2 and K2f),
 :func:`unrolled_launch` (the generated evaluators) and
 ``kernels3d.voxel_launch`` / ``deriv_launch`` (V and D).  A caller may force another shape (``launch=``
 of a wrapper), which the wrapper checks.
@@ -704,3 +708,88 @@ def check_adjoint_launch(launch: AdjointLaunch, s_cap: int,
     the kernel takes, whose shared bytes and bucket are the ones they give
     for ``s_cap`` and ``length``, within the limit."""
     return _check_adj(launch, s_cap, length, SMEM_LIMIT)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K2f, the interpreter's forward walk (csrc/scan_eval.cu)
+# ---------------------------------------------------------------------------
+
+SCAN_TILE = 256          # walk entries of a staged tile (two buffers)
+SCAN_ENTRY_BYTES = 16    # word, immediate, store codes, flags
+# threads an SM a launch of more lanes keeps busy before the picker takes
+# more lanes a thread
+SCAN_SM_THREADS = 1024
+
+
+@dataclass(frozen=True)
+class ScanLaunch:
+    """One launch shape of kernel K2f: ``threads`` a block, ``k`` lanes a
+    thread, the file (``ops/scan_plan.py``: its slots, K floats a slot a
+    thread) in shared memory beside two staged tiles of the walk and a
+    spare entry."""
+    threads: int
+    k: int
+
+    @property
+    def lanes(self) -> int:
+        """Lanes a block takes at once."""
+        return self.threads * self.k
+
+    def smem(self, slots: int) -> int:
+        """Dynamic shared bytes for a file of ``slots`` slots."""
+        return ((2 * SCAN_TILE + 1) * SCAN_ENTRY_BYTES
+                + 4 * max(slots, 1) * self.k * self.threads)
+
+
+# Every shape K2f takes (K = 1 and 4 are built, in the main library;
+# threads are a launch argument): what chip_smoke.py's sweep and the card
+# tests run.  The picker takes K = 1 for a launch that leaves an SM fewer
+# than ``SCAN_SM_THREADS`` threads at K = 4, else K = 4, and the threads
+# that let an SM hold the most warps beside their files (128 at a tie).
+# The sweep on an H100 at 700 W (chip_smoke.py phase 15, PERF.md): K = 4
+# ran the 2^20- and 2^22-lane brute launches of stress_2d(600) and (1500)
+# in 0.4-0.5x K = 1's time, K = 1 the scan fit's storing launch of
+# 65,536 lanes in 0.84-0.92x K = 4's; at stress_2d(1500)'s 24 slots, 256
+# threads (16 warps an SM) took 0.83x 128's (12 warps).
+SCAN_SWEEP = tuple(ScanLaunch(t, k) for k in (1, 4) for t in (128, 256))
+
+
+def check_scan_launch(launch: ScanLaunch, slots: int) -> ScanLaunch:
+    """A caller's ``launch`` of kernel K2f, checked: a shape of
+    ``SCAN_SWEEP`` whose file of ``slots`` slots fits in shared memory."""
+    if launch not in SCAN_SWEEP or launch.smem(slots) > SMEM_LIMIT:
+        raise ValueError(f"kernel K2f launch shape {launch} is not one of "
+                         f"SCAN_SWEEP or does not fit a file of {slots} "
+                         "slots")
+    return launch
+
+
+def scan_launch(slots: int, n: int, *, threads: int = None,
+                k: int = None) -> ScanLaunch:
+    """Kernel K2f's launch shape for a file of ``slots`` slots (the
+    re-slotted walk's live peak) over ``n`` lanes: K = 4 lanes a thread
+    where ``n`` leaves every SM ``SCAN_SM_THREADS`` threads at K = 4, else
+    K = 1 (a short launch needs its warps to hide each clause's latency),
+    at the threads of ``SCAN_SWEEP`` under which an SM holds the most
+    warps (128 at a tie); a file too large for K = 4 takes K = 1.
+    ``threads`` and ``k`` force a shape of ``SCAN_SWEEP`` (the missing
+    part as above); one outside it raises."""
+    if threads is None and k is None:
+        big = n >= 4 * SM_COUNT * SCAN_SM_THREADS
+        for kk in ((4, 1) if big else (1,)):
+            fits = [s for s in SCAN_SWEEP
+                    if s.k == kk and s.smem(slots) <= SMEM_LIMIT]
+            if fits:
+                return max(fits, key=lambda s: (_resident(
+                    s.smem(slots), s.threads) * s.threads, -s.threads))
+        raise ValueError(f"kernel K2f has no shape for a file of {slots} "
+                         "slots")
+    return check_scan_launch(ScanLaunch(threads or 128, k or 1), slots)
+
+
+def scan_blocks(launch: ScanLaunch, slots: int, n: int) -> int:
+    """Blocks of a K2f launch over ``n`` lanes: one a block's lanes, at
+    most as many as the card holds at once (each walks its lanes in a
+    grid-stride loop)."""
+    resident = max(1, _resident(launch.smem(slots), launch.threads))
+    return max(1, min(-(-n // launch.lanes), SM_COUNT * resident))

@@ -159,9 +159,10 @@ class TapeData:
         """The same tape with another constant plane (a fit step, a
         slider): ``imms`` (the capacity's length, on the tape's device;
         it may require grad).  The new TapeData keeps this one's
-        dependency schedule, the interval adjoint's operand table and the
-        backward storage plan, none of which holds an immediate (kernel A
-        reads ``imms`` through the schedule's ``t`` plane)."""
+        dependency schedule, the interval adjoint's operand table, the
+        backward storage plan and K2f's walk, none of which holds an
+        immediate (kernel A reads ``imms`` through the schedule's ``t``
+        plane)."""
         imms = torch.as_tensor(imms, dtype=torch.float32, device=self.device)
         if imms.shape != self.imms.shape:
             raise ValueError(f"imms: shape {tuple(imms.shape)}, want "
@@ -205,6 +206,16 @@ class TapeData:
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 for a in (plan.vpos.astype(np.int32), ab, rc))
         return self._plan["plan"]
+
+    def scan_plan(self):
+        """Kernel K2f's re-slotted walk (``ops/scan_plan.py``) and its
+        planes on the tape's device: ``(sp, (order, entries))``; built at
+        the first call on this TapeData or any copy of it and kept."""
+        if "scan" not in self._plan:
+            from .scan_plan import scan_plan
+            sp = scan_plan(self.vjp_plan()[0])
+            self._plan["scan"] = (sp, sp.planes(self.device))
+        return self._plan["scan"]
 
     @property
     def capacity(self) -> int:

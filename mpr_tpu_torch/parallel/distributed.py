@@ -4,13 +4,16 @@ Counterpart of ``mpr_tpu.parallel.distributed``.  Each process drives one
 card (or the CPU, with the ``gloo`` backend); :func:`init` wires them into
 one process group, and :func:`global_mesh` lays the group out as the
 ``(dp, sp)`` mesh of ``parallel/sharded.py``.  Nothing tells a program of
-its cluster here: pass the group's address (``tcp://localhost:<port>``),
-its size and this process's rank.
+its cluster here: pass the group's address (``tcp://localhost:<port>``,
+or ``file://<path>`` of a file the processes share, which needs no free
+port), its size and this process's rank, and end each process with
+:func:`shutdown`.
 
     from mpr_tpu_torch.parallel import distributed, sharded
     distributed.init("tcp://localhost:29500", world_size=4, rank=r)
     mesh = distributed.global_mesh()
     img = sharded.render2d_sharded(tape, size=4096, mesh=mesh)
+    distributed.shutdown()
 """
 
 from __future__ import annotations
@@ -42,3 +45,11 @@ def global_mesh() -> Mesh:
     """The ``(dp, sp)`` mesh over every process of the default group (a
     one-process mesh before :func:`init`)."""
     return make_mesh()
+
+
+def shutdown() -> None:
+    """Leave the default process group, if this process joined one.  A
+    process that exits inside its group leaves the backend's threads
+    running, and their teardown at exit can abort it."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

@@ -1335,6 +1335,109 @@ def test_k2_refuses_a_shape_of_another_tape(cuda):
         eval_scan.scan_adjoint(td, x, x, x, x, launch=other)
 
 
+def _k2f_store(td, n):
+    from mpr_tpu_torch.ops import vjp_plan as vp
+    plan = td.vjp_plan()[0]
+    return (torch.zeros(vp.blocked_size(plan.n_vals, n), device=td.device),
+            torch.zeros(vp.blocked_size(plan.n_words, n), dtype=torch.int32,
+                        device=td.device))
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = (torch.nan_to_num(t, 7.0).view(torch.int32) for t in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def _k2f_sweep():
+    from mpr_tpu_torch.ops import launch as ln
+    return [(s.threads, s.k) for s in ln.SCAN_SWEEP]
+
+
+@pytest.mark.parametrize("store", [False, True], ids=["walk", "store"])
+@pytest.mark.parametrize("threads,k", _k2f_sweep())
+def test_k2f_at_every_swept_shape_matches_plain(cuda, threads, k, store):
+    """K2f at every shape of ``SCAN_SWEEP`` (both libraries), storing the
+    plan or not, bit for bit against its plain version (the tape-order
+    walk and its store, ``scan_plan.store_plain``) and its first design
+    (the stores' whole bytes), on random trees, the tape that runs every
+    opcode and stress_2d(600), in chunks of lanes that leave a thread's
+    lanes part dead."""
+    from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.ops import launch as ln
+    from mpr_tpu_torch.ops import scan_plan as spm
+    shape = ln.ScanLaunch(threads, k)
+    rng = np.random.default_rng(12)
+    for name in [f"random{i}" for i in range(8)] + ["all_ops", "stress600"]:
+        tape = (mpr_tpu_torch.compile_tree(shapes.stress_2d(600))
+                if name == "stress600" else _tape(name))
+        td = TapeData.from_tape(tape, device=cuda)
+        n = 30001
+        x, y, z = (torch.as_tensor(rng.uniform(-1.2, 1.2, n).astype(
+            np.float32), device=cuda) for _ in range(3))
+        for c0, c1 in ((0, 7), (7, 12345), (12345, n)):
+            xs, ys, zs = x[c0:c1], y[c0:c1], z[c0:c1]
+            m = c1 - c0
+            st = _k2f_store(td, m) if store else None
+            v = eval_scan.scan_eval(td, xs, ys, zs, store=st, launch=shape)
+            st1 = _k2f_store(td, m) if store else None
+            v1 = eval_scan.scan_eval_first(td, xs, ys, zs, store=st1)
+            if store:
+                pv, pvals, pwords = spm.store_plain(td, xs, ys, zs)
+                assert _same_bits(st[0], st1[0]) and _same_bits(st[1], st1[1])
+                assert _same_bits(st[0][:pvals.numel()], pvals), name
+                assert _same_bits(st[1][:pwords.numel()], pwords), name
+            else:
+                pv = eval_scan.eval_f_plain(td, xs, ys, zs)
+            assert _same_bits(v, pv), (name, c0)
+            assert _same_bits(v1, pv), (name, c0)
+
+
+def test_k2f_picks_its_shape_and_refuses_others(cuda):
+    from mpr_tpu_torch.ops import eval_scan
+    from mpr_tpu_torch.ops import launch as ln
+    td = TapeData.from_tape(_tape("stress40"), device=cuda)
+    x = torch.linspace(-1, 1, 1000, device=cuda)
+    before = eval_scan.scan_eval.launches
+    eval_scan.scan_eval(td, x, x, x)
+    assert eval_scan.scan_eval.launches == before + 1
+    with pytest.raises(ValueError, match="SCAN_SWEEP"):
+        eval_scan.scan_eval(td, x, x, x, launch=ln.ScanLaunch(64, 1))
+
+
+@pytest.mark.parametrize("name", ["stress_2d(600)", "random3"])
+def test_the_scan_fit_stores_once_a_step(cuda, name, monkeypatch):
+    """Under autograd, eval_f's forward launch of K2f stores the plan and
+    K2 reads it: one K2f launch a step where the lanes fit one chunk;
+    otherwise the walk forward and K2f storing again in each chunk.  The
+    gradient equals autograd of the plain walk either way."""
+    from mpr_tpu_torch.ops import eval_scan
+    tape = (mpr_tpu_torch.compile_tree(shapes.stress_2d(600))
+            if name == "stress_2d(600)" else _tape(name))
+    td = TapeData.from_tape(tape, device=cuda)
+    rng = np.random.default_rng(13)
+    n = 40000
+    x, y, z, g = (torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32),
+                                  device=cuda) for _ in range(4))
+    im = td.imms.clone().requires_grad_(True)
+    want, = torch.autograd.grad(
+        eval_scan.eval_f_plain(td.replace_imms(im), x, y, z), im, g)
+    plan = td.vjp_plan()[0]
+    for chunk, walks in ((n, 1), (15000, 1 + 3)):
+        monkeypatch.setattr(eval_scan, "ADJ_BYTES",
+                            plan.k2_lane_bytes * chunk)
+        im = td.imms.clone().requires_grad_(True)
+        before = (eval_scan.scan_eval.launches,
+                  eval_scan.scan_adjoint.launches)
+        v = eval_scan.eval_f(td.replace_imms(im), x, y, z)
+        got, = torch.autograd.grad(v, im, g)
+        assert (eval_scan.scan_eval.launches - before[0],
+                eval_scan.scan_adjoint.launches - before[1]) == (
+                    walks, -(-n // chunk))
+        assert _same_bits(v.detach(), eval_scan.eval_f_plain(td, x, y, z))
+        _close(got, want)
+
+
 _TRAP_K2 = """
 import sys
 import torch

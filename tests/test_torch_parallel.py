@@ -11,7 +11,6 @@ all_reduce adds the ranks' sums; measured differences are a few ulp).
 
 import os
 import pathlib
-import socket
 import subprocess
 import sys
 
@@ -42,6 +41,7 @@ def test_factor2_matches_mpr_tpu():
 def test_one_process_mesh_and_init_do_nothing():
     distributed.init()                       # no address: nothing to wire
     distributed.init(None, world_size=1)
+    distributed.shutdown()                   # no group: nothing to leave
     m = distributed.global_mesh()
     assert (m.size, m.rank, m.dp, m.sp) == (1, 0, 1, 1)
     assert not torch.distributed.is_initialized()
@@ -140,13 +140,8 @@ for name, (step, st, tg) in steps.items():
     out["imms_" + name] = new.numpy()
 if rank == 0:
     np.savez({result!r}, **out)
+distributed.shutdown()
 '''
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _targets():
@@ -164,7 +159,9 @@ def two_ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("ranks")
     targets = _targets()
     np.savez(d / "targets.npz", **targets)
-    code = _RANK.format(repo=str(REPO), addr=f"tcp://localhost:{_free_port()}",
+    # the ranks meet at a file of their own: a port picked here and bound
+    # later by rank 0 could be taken in between by another process
+    code = _RANK.format(repo=str(REPO), addr=(d / "store").as_uri(),
                         targets=str(d / "targets.npz"),
                         result=str(d / "rank0.npz"), lr=PROBE_LR)
     env = dict(os.environ, OMP_NUM_THREADS="1")
