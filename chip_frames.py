@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Frame times, cold first frames and fit steps of the port on one CUDA card.
 
-    python3 chip_frames.py [--what frames|cold|fits] [--root DIR] [--label NAME]
+    python3 chip_frames.py [--what frames|cold|fits|unrolled] [--root DIR]
+                           [--label NAME]
 
 Each mode runs the ``mpr_tpu_torch`` package found in DIR (default: this
 script's directory), so that two checkouts can be timed in turns on one
@@ -22,7 +23,16 @@ of every launch of kernels A and C a frame makes.
 its generated kernels, as a user's first frame of a new tape: the 2D cell
 (``stress_2d(600)`` at 1024^2) and the extruded cell (512^3, normals).
 Host clock from making the renderer to the frame's end, the generated
-kernels' count and nvcc seconds, and the second frame's host time.
+kernels' count and each one's nvcc seconds by semantics and form, and
+the second frame's host time.
+
+``unrolled``: the unrolled engine's frames on chip_smoke.py phase 13's
+cells (``stress_2d(600)`` at 1024^2, the gyroid at 1024^3 and the
+extruded model at 512^3, both on the full ladder), built first: each
+frame's time (CUDA events, median of 20 in 2D and 10 in 3D, after
+warm-up), and the device time (torch.profiler, mean of 10 launches) and
+form of every launch of the generated float, interval and deriv kernels
+a frame makes, each launched alone on its recorded inputs.
 
 ``fits``: chip_smoke.py phase 14's unrolled fit steps (unrolled and
 culled 256^2, culled 1024^2, the gyroid's dense grid 32, the extruded
@@ -112,16 +122,69 @@ def cold_frames(sm, card, label) -> dict:
         finally:
             ue.UNROLLED_ROOT = saved
             shutil.rmtree(fresh, ignore_errors=True)
-        secs = [b["seconds"] for k, b in ue.BUILDS.items()
-                if k not in built and b["compiled"]]
+        secs = {f"{b['kind']} {b.get('form', 'serial')}": round(
+                    b["seconds"], 2) for k, b in ue.BUILDS.items()
+                if k not in built and b["compiled"]}
         out[cell] = {"first_frame_s": round(first, 3),
                      "second_frame_s": round(second, 4),
                      "kernels_built": len(secs),
-                     "nvcc_s_each": sorted(round(x, 2) for x in secs)}
+                     "nvcc_s": secs}
         print(f"{label} {cell}: cold first unrolled frame {first:.3f} s "
               f"(host clock; {len(secs)} generated kernels built, nvcc "
-              f"{out[cell]['nvcc_s_each']} s), second frame {second:.4f} s"
-              f"  [{card}]", flush=True)
+              f"s {secs}), second frame {second:.4f} s  [{card}]",
+              flush=True)
+    return out
+
+
+def unrolled_frames(sm, card, label) -> dict:
+    """``--what unrolled``: see the module's docstring."""
+    import torch
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.render import unrolled
+    dev = torch.device("cuda")
+    kinds = ("unrolled_interval", "unrolled_float", "unrolled_deriv")
+    out = {}
+    for cell, tape, mat, size in sm.unrolled_cells():
+        r = unrolled.get_renderer(tape)
+        if mat is None:
+            eye, z = torch.eye(3, device=dev), torch.tensor(0.0, device=dev)
+            frame, reps = (lambda: r.frame2d(eye, z, size)), 20
+        else:
+            m = torch.as_tensor(mat, device=dev)
+            frame, reps = (lambda: r.frame3d(m, size, skip4=False)), 10
+        frame()
+        torch.cuda.synchronize()
+        ms = sm.cuda_ms(frame, reps, 3)
+        seen = {k: [] for k in kinds}
+        saved = {k: getattr(ue, k) for k in kinds}
+        for k, fn in saved.items():
+            def rec(ev, *a, _fn=fn, _k=k, **kw):
+                seen[_k].append((ev, a, kw.get("imms")))
+                return _fn(ev, *a, **kw)
+            setattr(ue, k, rec)
+        try:
+            frame()
+            torch.cuda.synchronize()
+        finally:
+            for k, fn in saved.items():
+                setattr(ue, k, fn)
+        kern = {}
+        for k, launches in seen.items():
+            for ev, a, imms in launches:
+                run, keep = sm.bare_launch(ue, ev, a, imms)
+                n = keep[0][0].numel()
+                kern.setdefault(k, []).append({
+                    "lanes": n, "form": ev.launch(n).tag,
+                    "device_ms": sm.device_ms(run, 10,
+                                              "mpr_unrolled_kernel", 3)})
+                del keep
+        out[cell] = {"frame_ms": ms, "launches": kern}
+        print(f"{label} {cell} @{size}: frame {ms:.3f} ms (events, median "
+              f"of {reps}); device ms " + "; ".join(
+                  f"{k[9:]} " + ", ".join(
+                      f"{x['form']} {x['lanes']} lanes {x['device_ms']}"
+                      for x in v) for k, v in kern.items())
+              + f"  [{card}]", flush=True)
     return out
 
 
@@ -211,7 +274,7 @@ def fit_steps(sm, card, label) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--what", default="frames",
-                   choices=("frames", "cold", "fits"),
+                   choices=("frames", "cold", "fits", "unrolled"),
                    help="what to time (see the module's docstring)")
     p.add_argument("--root", default=HERE,
                    help="directory that holds the mpr_tpu_torch to time")
@@ -235,7 +298,8 @@ def main() -> int:
         return 2
     card = sm.card_line()
     if args.what != "frames":
-        what = {"cold": cold_frames, "fits": fit_steps}[args.what]
+        what = {"cold": cold_frames, "fits": fit_steps,
+                "unrolled": unrolled_frames}[args.what]
         print(json.dumps({"label": args.label, "root": root, "card": card,
                           args.what: what(sm, card, args.label)}))
         return 0

@@ -14,14 +14,15 @@
 // Layout: inputs and outputs are SoA float32 planes of n lanes (float:
 // x y z -> v; interval: xl xh yl yh zl zh -> lo hi; deriv: x y z -> v dx
 // dy dz).  Three forms (ops/launch.py UnrolledLaunch): serial, a thread a
-// lane with the statements in tape order (the deriv kernel, K1's forward
+// lane with the statements in tape order (the first design; K1's forward
 // half); lanes, the statements in a register-pressure order
-// (ops/unrolled_plan.py schedule: depth first, at most a dozen values live
-// where tape order keeps up to 170), K lanes a thread, resident blocks
-// walking the lanes; split, the tape's result DAG cut among the warps of
-// a block that takes 32 lanes (a launch of under 8 warps an SM, where one
-// thread walking the whole tape would leave the card nearly empty), each
-// warp's subtrees left in shared memory for warp 0's top clauses.  Bound:
+// (ops/unrolled_plan.py schedule: depth first, a dozen float values live
+// where tape order keeps up to 170, about 40 dual numbers' values where
+// it keeps 500), K lanes a thread; split, the tape's result DAG cut
+// among the warps of a block that takes 32 lanes (a launch of under 8
+// warps an SM, where one thread walking the whole tape would leave the
+// card nearly empty), each warp's subtrees left in shared memory for warp
+// 0's top clauses.  Bound:
 // operations (each clause-operation once a lane) for long tapes, the
 // lanes' bytes for short ones; in the lanes and split forms min and max
 // issue one instruction each (mpr_min_nan) where clause.cuh's nmin takes
@@ -130,17 +131,25 @@ __device__ __forceinline__ float mpr_bal_b(uint32_t c) {
 
 // ---- the lanes and split forms (ops/unrolled_eval.py generate) -------------
 //
-// MPR_BLOCK_THREADS threads a block take MPR_BLOCK_LANES lanes a step.
-// Lanes form (MPR_RESIDENT 1): the grid is the card's resident blocks at
-// the kernel's registers (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// once a device), fewer where n needs fewer; the blocks walk the lanes in
-// a grid-stride loop, K lanes a thread, so an SM's warps run the same
-// statements at once.  Split form (MPR_RESIDENT 0): a block of up to 32
-// warps takes 32 lanes, a block every 32 lanes.
+// MPR_BLOCK_THREADS threads a block take MPR_BLOCK_LANES lanes, a block
+// every MPR_BLOCK_LANES lanes.  Lanes form: a block of 128 threads, K
+// lanes a thread.  Split form: a block of up to 32 warps takes 32 lanes.
+// (A grid capped at the card's resident blocks, each walking several
+// steps of the lanes, was slower at every lanes launch of the chip cells
+// of more than one wave: chip_frames.py --what unrolled, PERF.md.)
 #ifdef MPR_BLOCK_THREADS
+// MPR_MIN_BLOCKS (the deriv kernel's forms): launch bounds with a minimum
+// of blocks an SM, so that ptxas keeps to the registers those allow
+// (255 at one block of 128) rather than an occupancy of its own choosing.
+#ifdef MPR_MIN_BLOCKS
+#define MPR_GRID_KERNEL                                                      \
+  __global__ void __launch_bounds__(MPR_BLOCK_THREADS, MPR_MIN_BLOCKS)       \
+      mpr_unrolled_kernel(MPR_UNROLLED_PARAMS)
+#else
 #define MPR_GRID_KERNEL                                                      \
   __global__ void __launch_bounds__(MPR_BLOCK_THREADS)                       \
       mpr_unrolled_kernel(MPR_UNROLLED_PARAMS)
+#endif
 
 // PTX min.NaN / max.NaN (sm_80 on): one instruction, the canonical NaN
 // when an operand is NaN, else min / max as fminf / fmaxf give them (so
@@ -158,7 +167,8 @@ __device__ __forceinline__ float mpr_max_nan(float a, float b) {
 
 MPR_GRID_KERNEL;
 
-// Resident blocks an SM and SMs of the current device, asked once a device.
+// Resident blocks an SM and SMs of the current device, asked once a device
+// (mpr_unrolled_info reports them).
 static int mpr_occupancy(int* per_sm, int* sms) {
   static int cache[64][2];
   int dev = 0;
@@ -184,7 +194,7 @@ static int mpr_occupancy(int* per_sm, int* sms) {
 // The C entry points: mpr_unrolled takes blocks = threads = 0 (the form
 // sizes its own launch) and returns the launch's CUDA error;
 // mpr_unrolled_info writes (resident blocks an SM, SMs, threads a block,
-// lanes a block a step, registers, local bytes, static shared bytes).
+// lanes a block, registers, local bytes, static shared bytes).
 #define MPR_GRID_ENTRY                                                       \
   extern "C" int mpr_unrolled(                                               \
       const void* in0, const void* in1, const void* in2, const void* in3,    \
@@ -195,13 +205,6 @@ static int mpr_occupancy(int* per_sm, int* sms) {
       return (int)cudaErrorInvalidValue;                                     \
     if (n == 0) return 0;                                                    \
     long long grid = ((long long)n + MPR_BLOCK_LANES - 1) / MPR_BLOCK_LANES; \
-    if (MPR_RESIDENT) {                                                      \
-      int per_sm = 0, sms = 0;                                               \
-      int err = mpr_occupancy(&per_sm, &sms);                                \
-      if (err) return err;                                                   \
-      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;             \
-      if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;    \
-    }                                                                        \
     mpr_unrolled_kernel<<<(int)grid, MPR_BLOCK_THREADS, 0,                   \
                           static_cast<cudaStream_t>(stream)>>>(              \
         static_cast<const float*>(in0), static_cast<const float*>(in1),      \

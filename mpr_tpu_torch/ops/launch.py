@@ -524,10 +524,15 @@ UNROLLED_THREADS = 128
 # cell's 256 and 15,552 lanes (0.022 and 0.040 ms against 0.036 / 0.024
 # and 0.043 / 0.105).  8 warps an SM (33,792 lanes) lies between the
 # cells' largest split launch (20,928) and their smallest lanes launch
-# (148,352).
-UNROLLED_KS = {"float": (1, 2, 4), "interval": (1, 2)}
-UNROLLED_K = {"float": 1, "interval": 1}
-UNROLLED_K_SHORT = {"float": 2, "interval": 1}
+# (148,352).  The deriv kernel (dual numbers, four values a clause) takes
+# the same forms at K = 1 and 2: K = 1 was the fastest lanes form on the
+# extruded tape's 237,568 normals lanes (0.1344 ms against 0.1670 at K =
+# 2; split 0.1336 / 0.2560 / 1.0683 at P = 4 / 8 / 32), K = 2 on the
+# 22-clause gyroid's 724,992 (0.0089 against 0.0095 at K = 1), as in
+# each of three runs.
+UNROLLED_KS = {"float": (1, 2, 4), "interval": (1, 2), "deriv": (1, 2)}
+UNROLLED_K = {"float": 1, "interval": 1, "deriv": 1}
+UNROLLED_K_SHORT = {"float": 2, "interval": 1, "deriv": 2}
 OPS_PER_BYTE = 10.0      # 33.5e12 float32 operations a second / 3.35e12 B
 UNROLLED_PARTS = (4, 8, 32)
 UNROLLED_P = 8
@@ -538,12 +543,12 @@ UNROLLED_WAVE = SM_COUNT * UNROLLED_WAVE_WARPS * 32
 @dataclass(frozen=True)
 class UnrolledLaunch:
     """One form of a generated evaluator: ``"lanes"`` (the scheduled
-    statements, ``k`` lanes a thread, resident blocks of
-    ``UNROLLED_THREADS`` walking the lanes), ``"split"`` (the tape cut
+    statements, ``k`` lanes a thread, a block of ``UNROLLED_THREADS``
+    every ``UNROLLED_THREADS * k`` lanes), ``"split"`` (the tape cut
     among up to ``parts`` warps of a block, 32 lanes a block) or
-    ``"serial"`` (the statements in tape order, a thread a lane: the
-    deriv kernel, K1's forward half, and the float and interval kernels'
-    first design)."""
+    ``"serial"`` (the statements in tape order, a thread a lane: K1's
+    forward half, and the float, interval and deriv kernels' first
+    design)."""
     form: str
     k: int = 1
     parts: int = 1
@@ -566,9 +571,9 @@ def unrolled_defaults(kind: str, short: bool = False):
 
 
 def check_unrolled_launch(launch: UnrolledLaunch, kind: str):
-    """A caller's form of a ``kind`` evaluator, checked: the deriv kernel
-    and K1's forward half are serial only; the lanes form at a K its kind
-    is built at, the split form at P in ``UNROLLED_PARTS``."""
+    """A caller's form of a ``kind`` evaluator, checked: K1's forward
+    half is serial only; the lanes form at a K its kind is built at, the
+    split form at P in ``UNROLLED_PARTS``."""
     ok = {"serial": launch.k == 1 and launch.parts == 1,
           "lanes": (kind in UNROLLED_KS and launch.parts == 1
                     and launch.k in UNROLLED_KS[kind]),
@@ -586,7 +591,7 @@ def unrolled_launch(n: int, kind: str, short: bool = False, *,
     """The form of a ``kind`` evaluator's launch over ``n`` lanes (of a
     ``short`` tape: one bound by its lanes' bytes).
 
-    Float and interval: under ``UNROLLED_WAVE`` lanes the split form at
+    Float, interval and deriv: under ``UNROLLED_WAVE`` lanes the split form at
     ``UNROLLED_P`` warps (a thread walking the whole tape would leave the
     card nearly empty, each scheduler fetching all of its code), else the
     lanes form at ``UNROLLED_K[kind]`` (``UNROLLED_K_SHORT`` for a short

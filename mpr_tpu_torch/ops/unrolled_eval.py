@@ -964,7 +964,9 @@ def program(tape: Tape, kind: str, take_imms: bool,
 # of clause.cuh's nmin / nmax (two NaN tests, fminf, two selects).  Both
 # equal torch.minimum / maximum on the card, NaNs by NaN-ness (chip_smoke.py
 # phase 13 and tests/test_torch_gpu.py hold them to it on +-0, +-inf and
-# NaN).  The serial form keeps nmin / nmax.
+# NaN).  The serial form keeps nmin / nmax.  These forms also write a
+# clause's sinf and cosf of one operand (a dual number's sin or cos) as
+# one sincosf (_sincos_pairs).
 _C_MINMAX = {"nmin": "mpr_min_nan", "nmax": "mpr_max_nan"}
 _C_BIN = {v: k for k, v in _BIN_OP.items()}
 
@@ -988,6 +990,41 @@ def _c_expr(s: up.Stmt, ref, idx: str) -> str:
     return f"{_C_MINMAX.get(s.op, s.op)}({', '.join(a)})"
 
 
+def _sincos_pairs(order) -> dict:
+    """The ``sinf`` and ``cosf`` statements of one clause on one operand
+    (a dual number's sin and cos clauses take both), each pair to be
+    written as one ``sincosf`` call, which shares the argument's range
+    reduction and rounds both as ``sinf`` and ``cosf`` do (the card holds
+    the lanes and split forms to the plain version bit for bit): the
+    pair's first statement in ``order`` -> (the sine's name, the
+    cosine's), its second -> None."""
+    out, alone = {}, {}
+    for s in order:
+        if s.op not in ("sinf", "cosf"):
+            continue
+        other = "cosf" if s.op == "sinf" else "sinf"
+        mate = alone.pop((s.clause, s.args[0], other), None)
+        if mate is None:
+            alone[(s.clause, s.args[0], s.op)] = s
+            continue
+        sin, cos = (mate, s) if s.op == "cosf" else (s, mate)
+        out[mate.name], out[s.name] = (sin.name, cos.name), None
+    return out
+
+
+def _statement(s: up.Stmt, pairs: dict, ref, idx: str, suffix: str = "") \
+        -> str:
+    """The C line of ``s`` (operands by ``ref``, inputs at ``idx``, the
+    name with ``suffix``): a declaration, both values of a sine-cosine
+    pair at its first statement, nothing at its second."""
+    if s.name not in pairs:
+        return f"const {s.ty} {s.name}{suffix} = {_c_expr(s, ref, idx)};"
+    if pairs[s.name] is None:
+        return ""
+    sin, cos = (n + suffix for n in pairs[s.name])
+    return f"float {sin}, {cos}; sincosf({ref(s.args[0])}, &{sin}, &{cos});"
+
+
 def _listing(tape: Tape) -> str:
     """The tape as comments, a clause a line."""
     names = _op_names()
@@ -1002,6 +1039,7 @@ def _lanes_body(order, outs, k: int) -> str:
     lane j's; a lane-invariant statement is written once), then the
     stores (lane 0 always lies below n, the others are guarded)."""
     inv = up.lane_invariant(order)
+    pairs = _sincos_pairs(order)
 
     def name(v, j):
         if isinstance(v, float):
@@ -1010,12 +1048,12 @@ def _lanes_body(order, outs, k: int) -> str:
     lines = []
     for s in order:
         if s.name in inv:
-            lines.append(f"const {s.ty} {s.name} = "
-                         f"{_c_expr(s, lambda v: name(v, 0), '')};")
+            lines.append(_statement(s, pairs, lambda v: name(v, 0), ""))
             continue
         for j in range(k):
-            lines.append(f"const {s.ty} {s.name}_{j} = "
-                         f"{_c_expr(s, lambda v, j=j: name(v, j), f'i{j}')};")
+            lines.append(_statement(s, pairs, lambda v, j=j: name(v, j),
+                                    f"i{j}", f"_{j}"))
+    lines = [x for x in lines if x]
     for j in range(k):
         st = " ".join(f"out{q}[l{j}] = {name(o, j)};"
                       for q, o in enumerate(outs))
@@ -1036,9 +1074,13 @@ def _lanes_source(tape, prog: up.Program, k: int, take_imms: bool,
           "asm volatile(\"\" : \"+l\"(mpr_im));\n        "
           "const float* const imms = (const float*)mpr_im;\n        "
           ) if take_imms else ""
+    # The grid covers the lanes (csrc/unrolled.cuh), so a thread takes one
+    # step of the loop; written as a loop, ptxas -O3 allocates the step
+    # without the spills (4-76 B) it made of three of the chip cells'
+    # lanes builds written as one guarded step (chip_smoke.py phase 13).
     return (f"{head}\n#define MPR_UNROLLED_THREADS {T}\n"
             f"#define MPR_BLOCK_THREADS {T}\n#define MPR_BLOCK_LANES "
-            f"{T * k}\n#define MPR_RESIDENT 1\n#include \"unrolled.cuh\"\n\n"
+            f"{T * k}\n#include \"unrolled.cuh\"\n\n"
             f"{_listing(tape)}\n\nMPR_GRID_KERNEL {{\n"
             f"  for (int b = blockIdx.x * {T * k} + threadIdx.x; b < n; "
             f"b += gridDim.x * {T * k}) {{\n"
@@ -1052,8 +1094,9 @@ def _split_source(tape, sp: up.Split, head: str) -> str:
         return lit(v) if isinstance(v, float) else v
 
     def stmts(order):
-        return "\n        ".join(f"const {s.ty} {s.name} = "
-                                 f"{_c_expr(s, ref, 'i')};" for s in order)
+        pairs = _sincos_pairs(order)
+        return "\n        ".join(x for x in (_statement(s, pairs, ref, "i")
+                                             for s in order) if x)
     cases = []
     for w, p in enumerate(sp.parts[:sp.warps]):
         for n, _ in p.outs:
@@ -1065,7 +1108,7 @@ def _split_source(tape, sp: up.Split, head: str) -> str:
                      f"        {st}\n        break;\n  }}")
     stores = " ".join(f"out{q}[l] = {ref(o)};" for q, o in enumerate(sp.outs))
     return (f"{head}\n#define MPR_BLOCK_THREADS {32 * sp.warps}\n"
-            f"#define MPR_BLOCK_LANES 32\n#define MPR_RESIDENT 0\n"
+            f"#define MPR_BLOCK_LANES 32\n"
             f"#include \"unrolled.cuh\"\n\n{_listing(tape)}\n\n"
             f"MPR_GRID_KERNEL {{\n"
             f"  __shared__ float mpr_part[{max(sp.n_slots, 1)}][32];\n"
@@ -1085,11 +1128,11 @@ def generate(tape: Tape, kind: str, take_imms: bool, flags: dict,
     serial) and its C entry point ``mpr_unrolled`` (csrc/unrolled.cuh):
 
       * serial: ``mpr_unrolled_kernel``, a thread a lane, the statements
-        in tape order (the deriv kernel, and the float and interval
-        kernels' first design);
+        in tape order (the float, interval and deriv kernels' first
+        design);
       * lanes: the statements in :func:`unrolled_plan.schedule`'s order,
-        written for ``k`` lanes a thread, in a grid-stride loop of the
-        card's resident blocks;
+        written for ``k`` lanes a thread, a block of
+        ``launch.UNROLLED_THREADS`` every ``UNROLLED_THREADS * k`` lanes;
       * split: :func:`unrolled_plan.split`'s parts, a warp each, and the
         top on warp 0, 32 lanes a block."""
     shape = shape or ln.UnrolledLaunch("serial")
@@ -1099,6 +1142,13 @@ def generate(tape: Tape, kind: str, take_imms: bool, flags: dict,
         head = (f"// {kind} evaluator of a {tape.length}-clause tape, "
                 f"{shape.tag} ({mode}; flags {flags}), written by "
                 f"mpr_tpu_torch/ops/unrolled_eval.py")
+        if kind == "deriv":
+            # dual numbers keep about four times the float values live:
+            # without a minimum of blocks ptxas -O3 spilled stress_2d(600)'s
+            # tape far below the registers the block allows, to meet an
+            # occupancy of its own choosing; one block an SM at least
+            # leaves it the registers it needs
+            head += "\n#define MPR_MIN_BLOCKS 1"
         if shape.form == "lanes":
             return _lanes_source(tape, prog, shape.k, take_imms, head)
         return _split_source(tape, up.split(prog, shape.parts), head)
@@ -1381,7 +1431,7 @@ def kernel_info(kern) -> dict:
     """A built lanes or split library's launch facts on the current
     device (:data:`INFO_FIELDS`): the resident blocks an SM the occupancy
     query gives at its registers, the SMs, its block, the lanes a block
-    takes a step, and its registers, local and static shared bytes."""
+    takes, and its registers, local and static shared bytes."""
     build_all([kern])
     out = (ctypes.c_int * len(INFO_FIELDS))()
     err = _libs[kern.key].mpr_unrolled_info(ctypes.addressof(out))
@@ -1505,8 +1555,7 @@ class UnrolledEval:
 
     def source(self, form: ln.UnrolledLaunch = None) -> str:
         """The CUDA source of ``form`` (default: the lanes form the
-        picker takes for a float or interval evaluator, serial for the
-        others)."""
+        picker takes for a float, interval or deriv evaluator)."""
         if self.kind == "vjp":
             return generate_vjp(self.tape, self.flags, self.plan, self.seg,
                                 self.shape)
@@ -1535,8 +1584,9 @@ class UnrolledEval:
 
     @property
     def short(self) -> bool:
-        """A float or interval tape bound by its lanes' bytes: at most
-        ``launch.OPS_PER_BYTE`` float operations a byte a lane moves."""
+        """A float, interval or deriv tape bound by its lanes' bytes: at
+        most ``launch.OPS_PER_BYTE`` float operations a byte a lane moves
+        (its ``N_IN`` inputs and ``N_OUT`` outputs)."""
         if self.kind not in ln.UNROLLED_KS:
             return False
         if getattr(self, "_short", None) is None:
@@ -1588,8 +1638,8 @@ class UnrolledEval:
 
 
 class _Kernel:
-    """One form (``form``, an ``UnrolledLaunch``) of a float or interval
-    evaluator ``ev``: a library of its own, keyed by the evaluator's key
+    """One form (``form``, an ``UnrolledLaunch``) of a float, interval or
+    deriv evaluator ``ev``: a library of its own, keyed by the evaluator's key
     and the form."""
 
     def __init__(self, ev: UnrolledEval, form: ln.UnrolledLaunch):
@@ -1661,10 +1711,11 @@ class _IntervalEval(UnrolledEval):
 
 
 class _DerivEval(UnrolledEval):
-    def __call__(self, x, y, z=None, imms=None):
+    def __call__(self, x, y, z=None, imms=None, launch=None):
         if z is None:
             z = torch.zeros_like(torch.as_tensor(x, dtype=torch.float32))
-        return _module.unrolled_deriv(self, x, y, z, imms=imms)
+        return _module.unrolled_deriv(self, x, y, z, imms=imms,
+                                      launch=launch)
 
 
 def _on_cuda(args) -> bool:
@@ -1855,12 +1906,13 @@ def unrolled_interval(ev, xl, xh, yl, yh, zl, zh, imms=None, launch=None):
     return out
 
 
-def unrolled_deriv(ev, x, y, z, imms=None):
+def unrolled_deriv(ev, x, y, z, imms=None, launch=None):
     """The deriv evaluator's kernel on CUDA inputs (counted in
-    ``unrolled_deriv.launches``), its plain version on CPU inputs."""
+    ``unrolled_deriv.launches``), its plain version on CPU inputs;
+    ``launch`` forces a form, as for :func:`unrolled_float`."""
     if not _on_cuda((x, y, z, imms)):
         return ev.plain(x, y, z, imms=imms)
-    out = _run(ev, (x, y, z), imms)
+    out = _run(ev, (x, y, z), imms, launch)
     if out[0].numel():
         _unrolled_deriv.launches += 1
     return out

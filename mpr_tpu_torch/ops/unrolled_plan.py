@@ -1,4 +1,4 @@
-"""The statement plan of the generated float and interval kernels.
+"""The statement plan of the generated float, interval and deriv kernels.
 
 ``ops/unrolled_eval.py`` walks a tape's clauses once over a C backend and
 records each float32 (or bool) operation as a :class:`Stmt`: its name, its
@@ -11,13 +11,15 @@ runs those statements:
 
   * :func:`schedule`: a register-pressure order.  Depth-first from the
     outputs over the clauses, each clause right after the clauses it
-    reads, the one that needs more registers (Sethi–Ullman's count on the
-    DAG) before the lighter one, a clause's statements together.  In tape
-    order a value lives from its clause to its last reader: up to 170 at
-    once on the chip cells' tapes, which ptxas must keep in registers or
-    spill.  Depth first, a dozen or so are (:func:`live_peak`).  The pass
-    drops, merges and reassociates nothing: a clause no output reads goes
-    right after the last clause it reads.
+    reads, the one that needs more registers (Sethi–Ullman's count on
+    the DAG) before the lighter one, a clause's statements together.  In
+    tape order a value lives from its clause to its last reader: up to
+    170 float values at once on the chip cells' tapes, and 500 of the
+    dual numbers' (four a clause), which ptxas must keep in registers or
+    spill.  Depth first, a dozen or so float values are
+    (:func:`live_peak`), about 40 of the dual numbers'.  The pass drops,
+    merges and reassociates nothing: a clause no output reads goes right
+    after the last clause it reads.
   * :func:`split`: a launch of fewer lanes than one wave of the card runs
     each lane's tape serially in one thread, the card nearly empty.  The
     split form cuts the result's clause DAG below its top clauses into
@@ -88,9 +90,13 @@ def schedule(stmts, outs):
     from the outputs' clauses: each clause right after the clauses it
     reads, the one of the larger Sethi–Ullman need first (ties: the
     earlier clause), its statements together in walk order (an interval
-    clause's bounds share their products and tests), each input load
-    just before its first reader.  A clause no output reaches follows
-    the last clause it reads.  Returns the statements, each once."""
+    clause's bounds share their products and tests, a dual number's value
+    and partials their operands), each input load just before its first
+    reader.  A clause's width is its statements read elsewhere (a float
+    clause has one, an interval clause two, a dual number's one to four:
+    a partial that is a literal holds no register).  A clause no output
+    reaches follows the last clause it reads.  Returns the statements,
+    each once."""
     owner = {s.name: s.clause for s in stmts}
     of_clause, loads = {}, {}
     for s in stmts:

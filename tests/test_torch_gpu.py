@@ -1026,10 +1026,11 @@ def test_unrolled_kernel_under_config_flags_matches_plain(cuda, name, flag):
         _bits_equal(ev(*args), ev.plain(*args))
 
 
-# Every form of the float and interval kernels (ops/launch.py
+# Every form of the float, interval and deriv kernels (ops/launch.py
 # UnrolledLaunch: the lanes form at each K it is built at, the split form
-# at P = 4, 8 and 32, the serial form of the first design) against the plain
-# version, bit for bit, at lane counts around a warp, a block, one wave of
+# at each P of UNROLLED_PARTS, the serial form of the first design) against
+# the plain version and the serial form, bit for bit (all outputs: the
+# deriv kernel's four), at lane counts around a warp, a block, one wave of
 # the lanes form and 2^20, a tenth of the lanes +-0, +-inf or NaN.
 from mpr_tpu_torch.ops import launch as uln  # noqa: E402
 
@@ -1038,7 +1039,8 @@ U_FORM_TAPES = ["all_ops", "random3", "stress40"]
 
 def _u_forms(kind):
     return ([uln.UnrolledLaunch("lanes", k=k) for k in uln.UNROLLED_KS[kind]]
-            + [uln.UnrolledLaunch("split", parts=p) for p in (4, 8, 32)]
+            + [uln.UnrolledLaunch("split", parts=p)
+               for p in uln.UNROLLED_PARTS]
             + [uln.UnrolledLaunch("serial")])
 
 
@@ -1061,12 +1063,12 @@ def _u_lanes(kind, n, dev, seed=71):
 
 @pytest.fixture(scope="module")
 def unrolled_forms():
-    """Every form of the float and interval evaluators of the form tapes,
-    both modes, built at once."""
+    """Every form of the float, interval and deriv evaluators of the form
+    tapes, both modes, built at once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     evs = {(kind, name, take): U_BUILDERS[kind](_u_tape(name), take)
-           for kind in ("float", "interval") for name in U_FORM_TAPES
+           for kind in U_BUILDERS for name in U_FORM_TAPES
            for take in (False, True)}
     ue.build_all([ev.kernel(f) for ev in evs.values()
                   for f in _u_forms(ev.kind)])
@@ -1075,7 +1077,7 @@ def unrolled_forms():
 
 @pytest.mark.parametrize("take", [False, True], ids=["baked", "imms"])
 @pytest.mark.parametrize("name", U_FORM_TAPES)
-@pytest.mark.parametrize("kind", ["float", "interval"])
+@pytest.mark.parametrize("kind", ["float", "interval", "deriv"])
 def test_unrolled_every_form_matches_plain(unrolled_forms, cuda, kind, name,
                                            take):
     ev = unrolled_forms[(kind, name, take)]
@@ -1084,12 +1086,15 @@ def test_unrolled_every_form_matches_plain(unrolled_forms, cuda, kind, name,
     for n in (1, 31, 33, 127, 129, wave - 1, wave + 1, 1 << 20):
         args = _u_lanes(kind, n, cuda, seed=n)
         want = ev.plain(*args, imms=imms)
+        first = ev(*args, imms=imms, launch=uln.UnrolledLaunch("serial"))
+        _bits_equal(first, want)
         for form in _u_forms(kind):
             before = getattr(ue, f"unrolled_{kind}").launches
             got = ev(*args, imms=imms, launch=form)
             torch.cuda.synchronize()
             assert getattr(ue, f"unrolled_{kind}").launches == before + 1
             _bits_equal(got, want)
+            _bits_equal(got, first)
         # the picker's own form
         _bits_equal(ev(*args, imms=imms), want)
 
@@ -1116,6 +1121,30 @@ def test_unrolled_min_max_nan_forms_match_torch_on_special_values(cuda):
             _bits_equal((lo, hi), (want, want))
 
 
+def test_unrolled_deriv_sincosf_matches_plain_on_special_values(cuda):
+    """A deriv sin or cos clause (sincosf in the lanes and split forms,
+    sinf and cosf in the serial one) against the plain version on +-0,
+    +-inf, NaN, subnormals, arguments past the fast range reduction and
+    100,000 seeded ones up to 1e4, at every form: all four outputs bit
+    for bit."""
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40, 0.5,
+                     -2.5, 3.1415927, 105615.0, -105616.0, 1e6, 3e8, 1e30,
+                     -3.4e38], np.float32)
+    rng = np.random.default_rng(73)
+    x = torch.from_numpy(np.concatenate([vals, rng.uniform(
+        -1e4, 1e4, 100_000).astype(np.float32)])).to(cuda)
+    y = torch.linspace(-1, 1, x.numel(), device=cuda)
+    for op in (5, 6):             # SIN_LHS, COS_LHS
+        tape = Tape.from_arrays(ops=[op, 16], outs=[4, 4], lhss=[1, 4],
+                                rhss=[0, 2], imms=[0.0, 0.0],
+                                axis_slots=(1, 2, 3), result_slot=4,
+                                num_slots=5, num_choices=0)
+        fd = ue.build_deriv(tape)
+        want = fd.plain(x, y, y)
+        for form in _u_forms("deriv"):
+            _bits_equal(fd(x, y, y, launch=form), want)
+
+
 def test_unrolled_kernel_info_reports_the_grid_of_each_form(cuda):
     tape = mpr_tpu_torch.compile_tree(shapes.stress_2d(40))
     ev = ue.build_interval(tape)
@@ -1136,7 +1165,9 @@ def test_unrolled_forced_form_that_does_not_fit_raises(cuda):
         ue.build_interval(tape)(x, x, x, x, x, x,
                                 launch=uln.UnrolledLaunch("lanes", k=4))
     with pytest.raises(ValueError, match="does not fit"):
-        ue.build_deriv(tape).kernel(uln.UnrolledLaunch("split", parts=4))
+        ue.build_deriv(tape).kernel(uln.UnrolledLaunch("lanes", k=4))
+    with pytest.raises(ValueError, match="does not fit"):
+        ue.build_deriv(tape).kernel(uln.UnrolledLaunch("split", parts=2))
 
 
 def test_unrolled_imm_change_builds_nothing(cuda):

@@ -1,5 +1,5 @@
-"""PyTorch port: the statement plan of the generated float and interval
-kernels (``ops/unrolled_plan.py``) and their launch forms, on the CPU.
+"""PyTorch port: the statement plan of the generated float, interval and
+deriv kernels (``ops/unrolled_plan.py``) and their launch forms, on the CPU.
 
 The generated kernels run the recorded statements in one of three forms
 (``ops/launch.py::unrolled_launch``): serial (tape order), lanes (the
@@ -27,6 +27,7 @@ import numpy as np
 
 import jax
 
+from mpr_tpu.frontend import shapes as jshapes
 from mpr_tpu.frontend import tree as JT
 from mpr_tpu.ops import unrolled_eval as jue
 from mpr_tpu.tape.tape import compile_tree as jcompile
@@ -38,12 +39,13 @@ from mpr_tpu_torch.frontend import tree as T
 from mpr_tpu_torch.ops import launch as ln
 from mpr_tpu_torch.ops import unrolled_eval as ue
 from mpr_tpu_torch.ops import unrolled_plan as up
+from mpr_tpu_torch.tape.opcodes import Op
 from mpr_tpu_torch.tape.tape import Tape
 
 from torch_port_cases import (all_ops_clauses, one_torch_thread,  # noqa: F401
                               random_trees)
 
-KINDS = ("float", "interval")
+KINDS = ("float", "interval", "deriv")
 _PRAND = random_trees(T, mpr_tpu_torch.compile_tree, 8)
 _JRAND = random_trees(JT, jcompile, 8)
 _TAPES = {}
@@ -82,7 +84,7 @@ def _lanes(kind, n=2048, seed=7):
         v[m] = rng.choice(special, int(m.sum()))
         return v
     x, y, z = plane(), plane(), plane()
-    if kind == "float":
+    if kind != "interval":
         return [torch.from_numpy(v) for v in (x, y, z)]
     w = rng.uniform(0.0, 0.6, (3, n)).astype(np.float32)
     return [torch.from_numpy(v) for v in (x, x + w[0], y, y + w[1], z,
@@ -99,8 +101,8 @@ def _bits_equal(got, want):
 
 
 def _evaluator(kind, tape, take):
-    return (ue.build_float if kind == "float" else ue.build_interval)(
-        tape, take)
+    return {"float": ue.build_float, "interval": ue.build_interval,
+            "deriv": ue.build_deriv}[kind](tape, take)
 
 
 def _imms(ev):
@@ -149,6 +151,30 @@ def test_the_schedule_keeps_a_dozen_values_live_where_tape_order_keeps_170(
     assert up.live_peak(prog.stmts, prog.outs) == 170
     assert up.live_peak(up.schedule(prog.stmts, prog.outs),
                         prog.outs) <= most
+
+
+@pytest.mark.parametrize("take", [False, True], ids=["baked", "imms"])
+@pytest.mark.parametrize("name,tape_order", [("extruded", 503),
+                                             ("stress600", 515)])
+def test_the_deriv_schedule_keeps_under_64_values_live_where_tape_order_keeps_500(
+        name, tape_order, take):
+    """Dual numbers hold four values a clause: tape order keeps about 500
+    live on the chip cells' tapes, the schedule under 64 (39 and 43)."""
+    prog = ue.build_deriv(_tape(name), take).program()
+    assert up.live_peak(prog.stmts, prog.outs) == tape_order
+    assert up.live_peak(up.schedule(prog.stmts, prog.outs), prog.outs) < 64
+
+
+@pytest.mark.parametrize("name", NAMES + ["extruded"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_the_schedule_keeps_no_more_values_live_than_tape_order(kind, name):
+    """On every tape of these tests, the float, interval and dual-number
+    forms alike, Sethi-Ullman's order keeps at most as many values live
+    as tape order does."""
+    prog = _evaluator(kind, _tape(name), False).program()
+    order = up.schedule(prog.stmts, prog.outs)
+    assert up.live_peak(order, prog.outs) <= up.live_peak(prog.stmts,
+                                                          prog.outs)
 
 
 def test_live_peak_counts_values_between_statements():
@@ -233,8 +259,7 @@ def test_the_split_of_the_chip_cells_tapes(name):
     """32 warps, none shares a statement, and the longest walks a few
     percent of the tape."""
     for kind in KINDS:
-        prog = ue.build_float(_tape(name)).program() if kind == "float" \
-            else ue.build_interval(_tape(name)).program()
+        prog = _evaluator(kind, _tape(name), False).program()
         sp = up.split(prog, 32)
         _check_split(prog, sp, 32)
         assert sp.warps == 32 and sp.duplicated() == 0
@@ -332,9 +357,10 @@ def test_the_plain_walk_and_its_replays_agree_with_mpr_tpu():
     x, y, z = (rng.uniform(-1.5, 1.5, 4000).astype(np.float32)
                for _ in range(3))
     for kind, jb in (("float", jue.build_float),
-                     ("interval", jue.build_interval)):
-        args = [x, y, z] if kind == "float" else [x, x + 0.25, y, y + 0.25,
-                                                  z, z + 0.25]
+                     ("interval", jue.build_interval),
+                     ("deriv", jue.build_deriv)):
+        args = [x, y, z] if kind != "interval" else [x, x + 0.25, y,
+                                                     y + 0.25, z, z + 0.25]
         want = jax.jit(jb(jtape))(*args)
         want = want if isinstance(want, tuple) else (want,)
         ev = _evaluator(kind, ptape, False)
@@ -351,6 +377,47 @@ def test_the_plain_walk_and_its_replays_agree_with_mpr_tpu():
             assert np.array_equal(p.numpy()[m], w[m])
             assert np.array_equal(g.numpy()[m], w[m])
     assert set(ptape.ops.tolist()) & {3, 5, 6, 7, 8, 9, 10, 12, 30} == set()
+
+
+# tests/test_torch_unrolled.py's limits of the dual-number form on a tape
+# with an inexact op: N ulp of mpr_tpu's value and a floor
+DERIV_ULPS, DERIV_FLOOR = 12, 4e-6
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("take", [False, True], ids=["baked", "imms"])
+def test_the_deriv_replays_agree_with_mpr_tpu_on_the_gyroid(take, form):
+    """mpr_tpu's build_deriv (XLA under jit) against the scheduled and
+    split replays of the port's deriv program on the gyroid model (sin,
+    cos, sqrt): NaNs and infinities in the same places, elsewhere within
+    12 ulp of mpr_tpu's value and 4e-6."""
+    jtape = jcompile(jshapes.intersection(jshapes.gyroid(0.4, 0.08),
+                                          jshapes.sphere(0.85)))
+    rng = np.random.default_rng(13)
+    args = [rng.uniform(-1.2, 1.2, 4000).astype(np.float32)
+            for _ in range(3)]
+    jkw = {"imms": jax.numpy.asarray(jtape.imms)} if take else {}
+    want = jax.jit(lambda *a, **k: jue.build_deriv(jtape, take)(*a, **k))(
+        *args, **jkw)
+    ev = ue.build_deriv(_tape("gyroid"), take)
+    ins = [torch.from_numpy(a) for a in args]
+    prog = ev.program()
+    if form == "schedule":
+        got = up.outputs(up.replay(up.schedule(prog.stmts, prog.outs), ins,
+                                   _imms(ev)), prog.outs, ins[0])
+    else:
+        got = up.replay_split(up.split(prog, int(form[5:])), ins, _imms(ev))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert np.array_equal(np.isnan(g), np.isnan(w))
+        m = ~np.isnan(w)
+        g, w = g[m], w[m]
+        fin = np.isfinite(w)
+        assert np.array_equal(g[~fin], w[~fin])
+        lim = DERIV_ULPS * np.spacing(np.abs(w[fin])).astype(np.float64) \
+            + DERIV_FLOOR
+        assert np.all(np.abs(g[fin].astype(np.float64) - w[fin]) <= lim)
 
 
 # ---------------------------------------------------------------------------
@@ -384,11 +451,57 @@ def test_the_lanes_source_writes_each_statement_for_k_lanes(k):
             for j in range(k):
                 assert f" {s.name}_{j} = " in src
             assert f" {s.name}_{k} = " not in src
-    assert "MPR_RESIDENT 1" in src and f"MPR_BLOCK_LANES {128 * k}" in src
+    assert f"MPR_BLOCK_LANES {128 * k}" in src and "MPR_RESIDENT" not in src
     assert "asm volatile" in src
     assert "mpr_min_nan(" in src and "nmin(" not in src
     assert "asm volatile" not in ue.build_float(tape).source(
         ln.UnrolledLaunch("lanes", k=k))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_the_deriv_lanes_source_stores_four_planes_for_k_lanes(k):
+    """A dual number's four outputs (value, d/dx, d/dy, d/dz) for each of
+    a thread's k lanes, min/max as selects (no min.NaN: ``_DerivSem``
+    picks an operand with < / >), the immediates read once."""
+    tape = _tape("all_ops")
+    ev = ue.build_deriv(tape, take_imms=True)
+    src = ev.source(ln.UnrolledLaunch("lanes", k=k))
+    assert src.count("__ldg(imms + ") == tape.length
+    assert f"MPR_BLOCK_LANES {128 * k}" in src and "MPR_RESIDENT" not in src
+    # launch bounds of one block an SM at least: the registers it needs
+    assert "#define MPR_MIN_BLOCKS 1" in src
+    assert "MPR_MIN_BLOCKS" not in ue.build_float(tape).source(
+        ln.UnrolledLaunch("lanes", k=k))
+    for j in range(k):
+        for q in range(4):
+            assert src.count(f"out{q}[l{j}] = ") == 1
+    assert "out4" not in src and f"out0[l{k}]" not in src
+    assert "nmin(" not in src and "mpr_min_nan(" not in src
+
+
+@pytest.mark.parametrize("take", [False, True], ids=["baked", "imms"])
+def test_a_dual_numbers_sine_and_cosine_are_one_sincosf(take):
+    """A deriv sin or cos clause takes sinf and cosf of one operand: the
+    lanes and split forms write the pair as one sincosf call (for each of
+    a thread's lanes), the serial first design and the float and interval
+    kernels (no such pair in one clause) keep sinf and cosf."""
+    tape = _tape("gyroid")
+    trig = sum(op in (Op.SIN_LHS, Op.COS_LHS) for op in tape.ops.tolist())
+    assert trig == 6
+    ev = ue.build_deriv(tape, take)
+    for form in ([ln.UnrolledLaunch("lanes", k=k)
+                  for k in ln.UNROLLED_KS["deriv"]]
+                 + [ln.UnrolledLaunch("split", parts=p)
+                    for p in ln.UNROLLED_PARTS]):
+        src = ev.source(form)
+        assert src.count("sincosf(") == trig * form.k, form
+        assert " sinf(" not in src and " cosf(" not in src, form
+    serial = ev.source(ln.UnrolledLaunch("serial"))
+    assert "sincosf(" not in serial and serial.count(" sinf(") == trig
+    for kind in ("float", "interval"):
+        src = _evaluator(kind, tape, take).source(
+            ln.UnrolledLaunch("lanes", k=1))
+        assert "sincosf(" not in src
 
 
 @pytest.mark.parametrize("P", [4, 32])
@@ -400,7 +513,7 @@ def test_the_split_source_has_a_case_a_warp_and_the_top_on_warp_0(P):
         src = ev.source(ln.UnrolledLaunch("split", parts=P))
         assert f"#define MPR_BLOCK_THREADS {32 * sp.warps}" in src
         assert src.count("  case ") == sp.warps
-        assert "__syncthreads();" in src and "MPR_RESIDENT 0" in src
+        assert "__syncthreads();" in src and "MPR_BLOCK_LANES 32" in src
         assert src.count("mpr_part[") == 2 * sp.n_slots + 1
 
 
@@ -425,9 +538,21 @@ def test_each_form_has_its_own_library_key_and_the_defaults_build():
             f"{ev.key}-serial"
         assert ev.kernel(ln.UnrolledLaunch("split", parts=32)) is \
             ev.kernel(ln.UnrolledLaunch("split", parts=32))
-    assert fd.kernels() == [fd] and not fd.short
+    keys = [k.key for k in fd.kernels()]
+    assert not fd.short and keys == [
+        f"{fd.key}-split-p{ln.UNROLLED_P}",
+        f"{fd.key}-lanes-k{ln.UNROLLED_K['deriv']}"]
+    # the first design is a forced form of its own library
+    assert fd.kernel(ln.UnrolledLaunch("serial")).key == f"{fd.key}-serial"
+    assert fd.kernel(ln.UnrolledLaunch("serial")).source() == ue.generate(
+        tape, "deriv", False, ue._flags())
+    for form in ([ln.UnrolledLaunch("lanes", k=k)
+                  for k in ln.UNROLLED_KS["deriv"]]
+                 + [ln.UnrolledLaunch("split", parts=p)
+                    for p in ln.UNROLLED_PARTS]):
+        assert fd.kernel(form).key == f"{fd.key}-{form.tag}"
     with pytest.raises(ValueError):
-        fd.kernel(ln.UnrolledLaunch("lanes", k=2))
+        fd.kernel(ln.UnrolledLaunch("lanes", k=4))
 
 
 @pytest.mark.parametrize("module", [up, ln])
@@ -448,8 +573,12 @@ def test_the_library_key_follows_the_schedule_and_launch_modules(
                                         ("stress600", False)])
 def test_a_tape_bound_by_bytes_is_short(name, short):
     """Short: at most OPS_PER_BYTE float operations a byte a lane moves
-    (16 bytes a float lane, 32 an interval one)."""
+    (16 bytes a float lane, 32 an interval one, 28 a deriv one).  The
+    all-opcodes tape's dual numbers (317 operations a lane, over 280) are
+    not short where its float and interval forms are."""
     for kind in KINDS:
+        if kind == "deriv" and name == "all_ops":
+            short = False
         ev = _evaluator(kind, _tape(name), False)
         ops = up.float_ops(ev.program())
         limit = ln.OPS_PER_BYTE * 4 * (ue.N_IN[kind] + ue.N_OUT[kind])
@@ -476,13 +605,19 @@ def test_unrolled_launch_picks_split_under_a_wave_and_lanes_above(kind):
             ln.unrolled_launch(1, kind, short),
             ln.unrolled_launch(wave, kind, short)]
     # the chip cells' launches: both 2D interval launches and the first 3D
-    # one split, the extruded float launch in lanes
+    # one split, the extruded float launch in lanes, the normals of both 3D
+    # cells in lanes, a small mesh's normals split
     if kind == "interval":
         assert {ln.unrolled_launch(n, kind).form
                 for n in (256, 15_552, 512)} == {"split"}
+    elif kind == "deriv":
+        assert {ln.unrolled_launch(n, kind).form
+                for n in (237_568, 724_992)} == {"lanes"}
+        assert ln.unrolled_launch(4_000, kind).form == "split"
     else:
         assert ln.unrolled_launch(9_289_664, kind).form == "lanes"
-    for kind2 in ("deriv", "vjpf", "vjp"):
+    # K1's forward half is serial only
+    for kind2 in ("vjpf", "vjp"):
         assert ln.unrolled_launch(10 ** 7, kind2) == ln.UnrolledLaunch(
             "serial")
 
@@ -503,13 +638,13 @@ def test_unrolled_launch_forces_a_shape_and_refuses_one_that_does_not_fit(
            dict(parts=1), dict(parts=2), dict(parts=16),
            dict(form="split", k=2), dict(form="lanes", parts=4),
            dict(form="serial", k=2), dict(form="warp")]
-    if kind == "interval":
+    if kind != "float":
         bad.append(dict(k=4))
     for kw in bad:
         with pytest.raises(ValueError):
             ln.unrolled_launch(1000, kind, **kw)
     with pytest.raises(ValueError):
-        ln.unrolled_launch(1000, "deriv", k=2)
+        ln.unrolled_launch(1000, "vjpf", form="lanes")
     with pytest.raises(ValueError):
         ln.check_unrolled_launch(ln.UnrolledLaunch("split", parts=32),
-                                 "deriv")
+                                 "vjpf")
