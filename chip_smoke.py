@@ -154,11 +154,44 @@ Phases (any failure exits non-zero before the final line):
      with the walk's file slots against the tape's, the shape and ptxas's
      registers, stack and spills; the report says whether any launch ran
      slower than the first design;
+ 16. (run after phase 13, so the generated kernels of its cells are built)
+     the native tape compiler and the viewer: (a) ``mpr_tpu_torch.native``
+     builds with g++ (a failed build fails the run); ``stress_2d(600)``,
+     ``stress_2d(1500)``, both 3D cells' trees and every shape of
+     ``examples/*.py`` and ``*.io`` compile with ``backend='native'`` and
+     ``'python'`` in both schedules to bit-equal tapes (a tree with named
+     parameters: the Python tape under ``'auto'``, ``'native'`` refuses
+     it), each timed both ways (the mean of 100 compiles after a warm-up,
+     as ``cli tape-time``; for the big tapes also ``flatten_tree``, the
+     Python half of a native compile) beside the host CPU's model name, and
+     phase 2's 1024^2 frame renders from the native tape equal to phase
+     2's image; (b) ``viewer.render_scene`` of ``stress_2d(600)`` in 2D at
+     1024^2 on the interpreter (A, C and B launched) equal to
+     ``pipeline2d.render2d`` flipped; ``examples/gyroid_demo.py`` at 512^2
+     in the four 3D modes on both engines (A, C, V and D launched on the
+     interpreter, the generated kernels on the unrolled engine), each
+     equal to the image composed from the engines' ``render3d`` and the
+     effects on the card, the heightmap and normals equal across the
+     engines; ``examples/parametric.io`` on the unrolled engine: after its
+     first frame three slider moves build and load no generated kernel,
+     each equal to a fresh render of ``with_params``; the HTTP loop on
+     127.0.0.1 with the render thread on a stream of its own (the page, a
+     frame, an engine switch and back: every hand-written and generated
+     kernel's wrapper in that thread passes it the thread's stream, and
+     torch.profiler's trace puts their kernels on the stream of a marker
+     kernel launched there, not on the main thread's (a trace that drops
+     a marker's record is taken again, three times in all); then an
+     edited script whose unrolled kernels build cold in the thread, its
+     ``/frame.png`` equal to ``render_scene``); the frame times (median of
+     10 after warm-up, the host's ``compile_tree`` and a 3D frame's
+     effects apart) of the 2D frame (on the interpreter also with the
+     Python passes) and of the gyroid in every 3D mode, on both engines;
  12. print the kernel times of the previous designs of A, B, C, C2, V, D,
      K1, K2 and the generated float and interval kernels (recorded,
      labelled as such; not measured here), the unrolled sweep and the
      comparison with the first design (measured in phase 13), the card
      line, one
+     JSON line of phase 16's compile and frame times, one
      JSON ``kernels`` line (the eight TPU kernels' rows, then the three
      generated kernels' and K1, K2 and K2f, marked ``port_kernel``), and
      last ``{"ok": true, "device": {...}}``.
@@ -2884,6 +2917,595 @@ def run_k2f(ctx, results):
     results["k2f"] = rows
 
 
+# ---- phase 16: the native tape compiler and the viewer ----------------------
+
+# compiles a tape is timed over (after one warm-up), as ``cli tape-time``
+COMPILE_REPS = 100
+# the big tapes whose native compile phase 16 also times flatten_tree of
+# (the tree's Python half of it)
+NATIVE_SPLIT = ("stress_2d(600)", "stress_2d(1500)", "gyroid_sphere",
+                "extruded_stress")
+# viewer frames timed after warm-up: the median of VIEWER_REPS
+VIEWER_REPS = 10
+VIEWER_MODES = ("heightmap", "normals", "ssao", "shaded")
+VIEWER_SIZE = 512                # the viewer's default size
+# seconds phase 16 waits for a frame the HTTP loop asked for: room for a
+# cold build of an unrolled tape's kernels
+VIEWER_WAIT_S = 180.0
+# the script the HTTP loop posts: a tape no earlier phase built, on the
+# unrolled engine, so that its kernels build in the render thread
+VIEWER_EDIT = "shape = stress_2d(20)\n"
+SLIDER_MOVES = ({"radius": 0.8}, {"bore-r": 0.15, "tilt": 1.0},
+                {"radius": 0.5, "tilt": 0.2})
+HAND_KERNELS = ("interval_shorten_kernel", "compact_kernel",
+                "pixel_eval_kernel", "voxel_eval_kernel", "deriv_eval_kernel")
+GENERATED_KERNEL = "mpr_unrolled_kernel"
+LAUNCHES_3D_KERNELS = ("interval_shorten_kernel", "compact_kernel",
+                       "voxel_eval_kernel", "deriv_eval_kernel")
+# the marker kernels' lengths (torch.cuda._sleep cycles: about 0.5 ms and
+# 0.05 ms at the card's clock) and the length between them
+MARKER_CYCLES = (1_000_000, 100_000)
+MARKER_SPLIT_US = 200.0
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, as /proc/cpuinfo gives it (else as
+    ``lscpu`` does), with the count of CPUs this process may use."""
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if not name:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip()
+                         for ln in out.splitlines()
+                         if ln.lower().startswith("model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return f"{name or 'unknown'}, {len(os.sched_getaffinity(0))} CPUs"
+
+
+def mean_ms(fn, reps):
+    """Mean host ms of ``fn()`` over ``reps`` calls after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def same_tape(a, b) -> bool:
+    """Two tapes equal in every field, the immediates bit for bit."""
+    import numpy as np
+    for f in ("ops", "outs", "lhss", "rhss", "imms"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(
+                x.view(np.int32), y.view(np.int32)):
+            return False
+    return (tuple(a.axis_slots) == tuple(b.axis_slots)
+            and (a.result_slot, a.num_slots, a.num_choices)
+            == (b.result_slot, b.num_slots, b.num_choices))
+
+
+def example_trees():
+    """(label, tree) of every shape of ``examples/*.py`` and ``*.io``, as
+    the viewer evaluates the scripts."""
+    import glob
+    from mpr_tpu_torch import viewer
+    out = []
+    paths = sorted(glob.glob(os.path.join(ROOT, "examples", "*.py"))
+                   + glob.glob(os.path.join(ROOT, "examples", "*.io")))
+    for p in paths:
+        with open(p) as f:
+            shapes_, _ = viewer._eval_src(f.read(), p)
+        name = os.path.basename(p)
+        for i, s in enumerate(shapes_):
+            out.append((f"{name}[{i}]" if len(shapes_) > 1 else name, s))
+    return out
+
+
+def run_native(ctx, results):
+    """Phase 16 (a): the native tape compiler against the Python passes."""
+    from mpr_tpu_torch import native
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.frontend.tree import lower_extended
+    from mpr_tpu_torch.render import render2d
+    from mpr_tpu_torch.tape.fuse import fuse_tree
+    from mpr_tpu_torch.tape.tape import compile_tree
+    card, cpu = ctx["card"], host_cpu()
+    check(native.lib() is not None, "the native tape compiler did not build "
+          "or load (g++ -O2 -std=c++17 -shared -fPIC)")
+    built = (f"built by g++ in {native.BUILD_SECONDS:.2f} s at its first "
+             f"use" if native.BUILD_SECONDS is not None
+             else "loaded (built before this run)")
+    print(f"native tape compiler: {native.library_path()} {built}")
+    trees = [(f"stress_2d({n})", shapes.stress_2d(n)) for n in (600, 1500)]
+    trees += [(name, make(shapes)) for name, make, _, _ in CASES_3D]
+    trees += example_trees()
+    rows, tapes = {}, {}
+    for label, tree in trees:
+        if tree._param:
+            # the native compiler has no PARAM clause: such a tree takes
+            # the Python passes under 'auto' and 'native' refuses it
+            t = compile_tree(tree)
+            check(bool(t.params) and same_tape(
+                t, compile_tree(tree, backend="python")),
+                f"{label}: 'auto' did not give the Python tape with params")
+            try:
+                compile_tree(tree, backend="native")
+            except RuntimeError:
+                pass
+            else:
+                check(False, f"{label}: backend='native' took a param tree")
+            rows[label] = {"clauses": t.length, "params": sorted(t.params)}
+            print(f"  {label}: param tree, {t.length} clauses: Python "
+                  f"passes ('native' refuses it)")
+            continue
+        for schedule in ("opruns", "dfs"):
+            tn = compile_tree(tree, schedule=schedule, backend="native")
+            tp = compile_tree(tree, schedule=schedule, backend="python")
+            check(same_tape(tn, tp), f"{label} ({schedule}): the native "
+                  f"tape differs from the Python passes'")
+            check(same_tape(tn, compile_tree(tree, schedule=schedule)),
+                  f"{label} ({schedule}): 'auto' gave another tape")
+        tapes[label] = tn = compile_tree(tree)
+        r = {"clauses": tn.length,
+             "native_ms": mean_ms(lambda: compile_tree(tree,
+                                                       backend="native"),
+                                  COMPILE_REPS),
+             "python_ms": mean_ms(lambda: compile_tree(tree,
+                                                       backend="python"),
+                                  COMPILE_REPS)}
+        if label in NATIVE_SPLIT:
+            pre = fuse_tree(lower_extended(tree))
+            r["flatten_ms"] = mean_ms(lambda: native.flatten_tree(pre),
+                                      COMPILE_REPS)
+        rows[label] = r
+        split = (f" (of which flatten_tree {r['flatten_ms']:.3f} ms)"
+                 if "flatten_ms" in r else "")
+        print(f"  {label}: {tn.length} clauses, native {r['native_ms']:.3f} "
+              f"ms, Python passes {r['python_ms']:.3f} ms "
+              f"({r['python_ms'] / r['native_ms']:.2f}x){split}, mean of "
+              f"{COMPILE_REPS}")
+    print(f"native tape compiler: {len(rows)} tapes bit-equal to the Python "
+          f"passes in both schedules; host CPU {cpu}  [{card}]")
+    # the phase-2 frame from the native tape and from the Python one
+    n_blobs, size = CASES[0]
+    want = ctx["images2d"][size]
+    for backend in ("native", "python"):
+        img = render2d(compile_tree(shapes.stress_2d(n_blobs),
+                                    backend=backend), size=size)
+        bad = int((img != want).sum())
+        check(bad == 0, f"stress_2d({n_blobs}) {size}^2 from the {backend} "
+              f"tape: {bad} pixels differ from phase 2's image")
+    print(f"stress_2d({n_blobs}) {size}^2 from the native and the Python "
+          f"tape: equal to phase 2's image")
+    results["native"] = {"host_cpu": cpu, "reps": COMPILE_REPS,
+                         "build_s": native.BUILD_SECONDS, "tapes": rows}
+
+
+def composed(shapes_, cam, mode, size, engine):
+    """The image the viewer should send for ``shapes_``, made from the
+    engines' public renders (each a copy to the host) and the effects on
+    the card."""
+    import numpy as np
+    import torch
+    import mpr_tpu_torch
+    from mpr_tpu_torch import viewer
+    from mpr_tpu_torch.render import effects, pipeline2d, pipeline3d
+    from mpr_tpu_torch.render import unrolled
+    r2 = unrolled.render2d if engine == "unrolled" else pipeline2d.render2d
+    r3 = unrolled.render3d if engine == "unrolled" else pipeline3d.render3d
+    mat = viewer.view_matrix(cam, mode)
+    if mode == "2d":
+        acc = np.zeros((size, size), bool)
+        for s in shapes_:
+            acc |= r2(mpr_tpu_torch.compile_tree(s), mat=mat, size=size)
+        return np.where(acc[::-1], 255, 0).astype(np.uint8)
+    depth = np.zeros((size, size), np.int32)
+    normals = np.zeros((size, size, 3), np.float32)
+    for s in shapes_:
+        d, n = r3(mpr_tpu_torch.compile_tree(s), mat=mat, size=size)
+        win = d > depth
+        depth = np.where(win, d, depth)
+        normals = np.where(win[..., None], n, normals)
+    if mode == "heightmap":
+        return (depth / size * 255).astype(np.uint8)[::-1]
+    if mode == "normals":
+        return ((normals * 127) + 128).clip(0, 255).astype(np.uint8)[::-1]
+    fn = effects.draw_ssao if mode == "ssao" else effects.draw_shaded
+    img = fn(torch.as_tensor(depth).cuda(), torch.as_tensor(normals).cuda())
+    return (img * 255).to(torch.uint8).cpu().numpy()[::-1]
+
+
+def generated_counts():
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    return {"unrolled_" + k: getattr(ue, "unrolled_" + k).launches
+            for k in ("interval", "float", "deriv")}
+
+
+def reset_generated():
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    for k in ("interval", "float", "deriv"):
+        getattr(ue, "unrolled_" + k).launches = 0
+
+
+def frame_times(src, cam, mode, size, engine, path, compile_fn=None):
+    """Median over VIEWER_REPS viewer frames after two warm-up ones (host
+    clock): the frame (``render_scene``'s own ms), its parts — the host's
+    ``compile_tree``, a 3D frame's ``compose`` (the effects and the 8-bit
+    image, between two synchronisations), the rest (the shapes' renders,
+    compositing, the copy to the host) — and the frame with the script's
+    evaluation."""
+    import statistics
+    import torch
+    from mpr_tpu_torch import viewer
+    real, real_compose = viewer.compile_tree, viewer.compose
+    inner = compile_fn or real
+    spent, composing = [], []
+
+    def timed(tree):
+        t0 = time.perf_counter()
+        try:
+            return inner(tree)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    def timed_compose(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_compose(*a, **k)
+        torch.cuda.synchronize()
+        composing.append(time.perf_counter() - t0)
+        return out
+    viewer.compile_tree, viewer.compose = timed, timed_compose
+    rows = []
+    try:
+        for i in range(VIEWER_REPS + 2):
+            spent.clear()
+            composing.clear()
+            t0 = time.perf_counter()
+            _, ms, _ = viewer.render_scene(src, cam, mode, size, engine,
+                                           path)
+            wall = (time.perf_counter() - t0) * 1e3
+            if i >= 2:
+                comp, eff = sum(spent) * 1e3, sum(composing) * 1e3
+                rows.append((ms, comp, eff, ms - comp - eff, wall))
+    finally:
+        viewer.compile_tree, viewer.compose = real, real_compose
+    med = [statistics.median(c) for c in zip(*rows)]
+    return dict(zip(("frame_ms", "compile_ms", "compose_ms", "render_ms",
+                     "wall_ms"), [round(x, 3) for x in med]))
+
+
+def run_viewer(ctx, results, launches):
+    """Phase 16 (b): the viewer (``mpr_tpu_torch/viewer.py``) on the card."""
+    import numpy as np
+    import mpr_tpu_torch
+    from mpr_tpu_torch import viewer
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.frontend import tree as T
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.render import pipeline2d
+    card, rec = ctx["card"], ctx["rec"]
+    out = {"frames": {}}
+    seen = {}
+
+    # the 2D frame of phase 2's cell, interpreter engine
+    n_blobs, size2 = CASES[0]
+    src2 = f"shape = stress_2d({n_blobs})\n"
+    cam = viewer.ViewerState().cam
+    rec.reset_counts()
+    img, ms, _ = viewer.render_scene(src2, cam, "2d", size2, "interp")
+    counts = rec.counts()
+    for name in KERNELS_2D:
+        check(counts[name] >= 1, f"viewer 2D frame: kernel {name} launched "
+              f"{counts[name]} times")
+    seen["2d"] = counts
+    want = pipeline2d.render2d(
+        mpr_tpu_torch.compile_tree(shapes.stress_2d(n_blobs)),
+        mat=viewer.view_matrix(cam, "2d"), size=size2)
+    want = np.where(want[::-1], 255, 0).astype(np.uint8)
+    bad = int((img != want).sum())
+    check(bad == 0, f"viewer 2D frame: {bad} pixels differ from "
+          f"pipeline2d.render2d flipped")
+    print(f"viewer stress_2d({n_blobs}) 2d {size2}^2 interp: equal to "
+          f"pipeline2d.render2d, launches {counts}")
+
+    # the gyroid scene at the viewer's size in every 3D mode, both engines
+    gpath = os.path.join(ROOT, "examples", "gyroid_demo.py")
+    with open(gpath) as f:
+        gsrc = f.read()
+    gshapes, gset = viewer._eval_src(gsrc, gpath)
+    st = viewer.ViewerState()
+    viewer._apply_script_settings(st, gset)
+    gcam, gsize = st.cam, st.size
+    check(gsize == VIEWER_SIZE, f"gyroid_demo.py asks for {gsize}")
+    images = {}
+    for engine in ("interp", "unrolled"):
+        for mode in VIEWER_MODES:
+            rec.reset_counts()
+            reset_generated()
+            img, ms, _ = viewer.render_scene(gsrc, gcam, mode, gsize, engine,
+                                             gpath)
+            hand, gen = rec.counts(), generated_counts()
+            if engine == "interp":
+                for name in LAUNCHES_3D:
+                    check(hand[name] >= 1, f"viewer gyroid {mode} interp: "
+                          f"kernel {name} launched {hand[name]} times")
+            else:
+                for name, n in gen.items():
+                    check(n >= 1, f"viewer gyroid {mode} unrolled: {name} "
+                          f"launched {n} times")
+                check(not any(hand[k] for k in LAUNCHES_3D),
+                      f"viewer gyroid {mode} unrolled: an interpreter "
+                      f"kernel launched {hand}")
+            seen[f"gyroid {mode} {engine}"] = {**hand, **gen}
+            want = composed(gshapes, gcam, mode, gsize, engine)
+            bad = int((img != want).sum())
+            check(bad == 0, f"viewer gyroid {mode} {engine}: {bad} pixels "
+                  f"differ from the image composed from render3d and the "
+                  f"effects")
+            images[engine, mode] = img
+    for mode in ("heightmap", "normals"):
+        bad = int((images["interp", mode] != images["unrolled", mode]).sum())
+        check(bad == 0, f"viewer gyroid {mode}: the engines' images differ "
+              f"on {bad} pixels")
+    print(f"viewer gyroid_demo.py {gsize}^2 {', '.join(VIEWER_MODES)} on "
+          f"both engines: equal to the composed images; heightmap and "
+          f"normals equal across the engines")
+
+    # sliders on the unrolled engine: pure data, nothing built
+    ppath = os.path.join(ROOT, "examples", "parametric.io")
+    with open(ppath) as f:
+        psrc = f.read()
+    (ptree,), _ = viewer._eval_src(psrc, ppath)
+    t0 = time.perf_counter()
+    viewer.render_scene(psrc, gcam, "normals", gsize, "unrolled", ppath)
+    first_s = time.perf_counter() - t0
+    before = (len(ue.BUILDS), len(ue._libs))
+    slider_ms = []
+    for vv in SLIDER_MOVES:
+        reset_generated()
+        img, ms, svars = viewer.render_scene(psrc, gcam, "normals", gsize,
+                                             "unrolled", ppath,
+                                             var_values=vv)
+        slider_ms.append(round(ms, 3))
+        gen = generated_counts()
+        check(all(n >= 1 for n in gen.values()), f"slider {vv}: {gen}")
+        check((len(ue.BUILDS), len(ue._libs)) == before, f"slider {vv}: a "
+              f"generated kernel was built or loaded")
+        check(all(svars[k][0] == v for k, v in vv.items()),
+              f"slider {vv}: {svars}")
+        want = composed([T.with_params(ptree, vv)], gcam, "normals", gsize,
+                        "unrolled")
+        bad = int((img != want).sum())
+        check(bad == 0, f"slider {vv}: {bad} pixels differ from a fresh "
+              f"render of with_params")
+    print(f"viewer parametric.io normals {gsize}^2 unrolled: first frame "
+          f"{first_s:.2f} s (host clock, its kernels built), "
+          f"{len(SLIDER_MOVES)} slider moves {slider_ms} ms built nothing "
+          f"and equal fresh renders  [{card}]")
+    out["sliders"] = {"first_frame_s": round(first_s, 3),
+                      "move_ms": slider_ms}
+
+    out["http"] = run_viewer_http(ctx, gsrc, gpath)
+
+    # frame times: the host's compile_tree share and the rest
+    cells = [(f"stress_2d({n_blobs}) 2d {size2}^2 {engine}", src2, cam,
+              "2d", size2, engine, "<viewer>")
+             for engine in ("interp", "unrolled")]
+    cells += [(f"gyroid {mode} {gsize}^2 {engine}", gsrc, gcam, mode, gsize,
+               engine, gpath)
+              for engine in ("interp", "unrolled") for mode in VIEWER_MODES]
+    for label, src, c, mode, size, engine, path in cells:
+        r = frame_times(src, c, mode, size, engine, path)
+        out["frames"][label] = r
+        print(f"viewer frame {label}: {r['frame_ms']:.3f} ms (compile_tree "
+              f"{r['compile_ms']:.3f} ms on the host, compose "
+              f"{r['compose_ms']:.3f} ms, the rest {r['render_ms']:.3f} "
+              f"ms), {r['wall_ms']:.3f} ms with the script's evaluation; "
+              f"median of {VIEWER_REPS}  [{card}]")
+    from mpr_tpu_torch.tape.tape import compile_tree
+    label = cells[0][0] + ", Python passes"
+    r = frame_times(*cells[0][1:], compile_fn=lambda t: compile_tree(
+        t, backend="python"))
+    out["frames"][label] = r
+    print(f"viewer frame {label}: {r['frame_ms']:.3f} ms (compile_tree "
+          f"{r['compile_ms']:.3f} ms, the rest {r['render_ms']:.3f} ms), "
+          f"{r['wall_ms']:.3f} ms with the script's evaluation  [{card}]")
+    out["host_cpu"] = host_cpu()
+    launches["viewer"] = seen
+    results["viewer"] = out
+
+
+def run_viewer_http(ctx, gsrc, gpath):
+    """Phase 16 (b), the HTTP loop: the render thread runs on a stream of
+    its own; the page, a frame, an engine switch traced with torch.profiler
+    (every kernel of ours on the thread's stream), then an edited script
+    whose unrolled kernels build in that thread, its frame decoded against
+    render_scene."""
+    import http.client
+    import http.server
+    import json as _json
+    import threading
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mpr_tpu_torch import viewer
+    from mpr_tpu_torch.io.png import decode_png
+    card, dev = ctx["card"], ctx["dev"]
+    state = viewer.ViewerState(device=dev)
+    state.path, state.src = gpath, gsrc
+    _, settings = viewer._eval_src(gsrc, gpath)
+    viewer._apply_script_settings(state, settings)
+    state.mode, state.engine = "shaded", "interp"
+    side = torch.cuda.Stream()
+
+    ident = {}
+
+    def work():
+        ident["worker"] = threading.get_ident()
+        with torch.cuda.stream(side):
+            viewer._render_worker(state)
+    worker = threading.Thread(target=work, daemon=True)
+    worker.start()
+    state.dirty.set()
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                            viewer.make_handler(state))
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+
+    def get(p):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c.request("GET", p)
+        r = c.getresponse()
+        return r.status, r.read()
+
+    def post(body):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c.request("POST", "/update", _json.dumps(body))
+        r = c.getresponse()
+        r.read()
+        return r.status
+
+    def wait_seq(n, timeout=VIEWER_WAIT_S):
+        t_end = time.perf_counter() + timeout
+        while time.perf_counter() < t_end:
+            st = _json.loads(get("/status")[1])
+            if st["seq"] >= n and not state.dirty.is_set():
+                with state.lock:
+                    if state.seq >= n and not state.dirty.is_set():
+                        return st
+            time.sleep(0.05)
+        raise SmokeError(f"viewer HTTP loop: no frame {n} within "
+                         f"{timeout:.0f} s")
+
+    try:
+        st = wait_seq(1)
+        check(st["error"] == "", f"viewer HTTP loop: {st['error']}")
+        status, page = get("/")
+        check(status == 200 and b"textarea" in page,
+              "viewer HTTP loop: GET / did not return the page")
+        # an engine switch and back: both engines' kernels must launch on
+        # the render thread's stream.  Every wrapper passes its kernel the
+        # stream torch.cuda.current_stream() gives where it runs: record
+        # what that gave the wrappers in the render thread (all of it must
+        # be the thread's stream), and trace the same frames with
+        # torch.profiler against marker kernels of two lengths, a long one
+        # on the thread's stream and a short one on the main thread's.
+        real_current = torch.cuda.current_stream
+        asked = []
+
+        def spy(device=None):
+            stream = real_current(device)
+            caller = sys._getframe(1).f_code.co_filename
+            if os.path.join("mpr_tpu_torch", "ops") in caller:
+                asked.append((threading.get_ident(),
+                              os.path.basename(caller), stream.cuda_stream))
+            return stream
+
+        def markers():
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(MARKER_CYCLES[0])
+            torch.cuda._sleep(MARKER_CYCLES[1])
+            torch.cuda.synchronize()
+
+        traced = None
+        for attempt in range(3):
+            asked.clear()
+            torch.cuda.current_stream = spy
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    markers()
+                    check(post({"engine": "unrolled"}) == 200, "POST engine")
+                    st = wait_seq(st["seq"] + 1)
+                    check(post({"engine": "interp"}) == 200, "POST engine")
+                    st = wait_seq(st["seq"] + 1)
+                    markers()
+            finally:
+                torch.cuda.current_stream = real_current
+            check(st["error"] == "", f"viewer HTTP loop: {st['error']}")
+            mine = [(f, h) for t, f, h in asked if t == ident["worker"]]
+            check({f for f, _ in mine} >= {"kernels.py", "unrolled_eval.py"},
+                  f"viewer render thread: the hand-written and generated "
+                  f"kernels' wrappers did not both launch there ({mine[:4]})")
+            check({h for _, h in mine} == {side.cuda_stream},
+                  f"viewer render thread: a wrapper launched on another "
+                  f"stream than the thread's ({sorted({h for _, h in mine})}"
+                  f" against {side.cuda_stream})")
+            kern = [e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+            spins = [e for e in kern if "spin" in e.name
+                     or "sleep" in e.name]
+            long_ids = {e.device_resource_id for e in spins
+                        if e.time_range.elapsed_us() >= MARKER_SPLIT_US}
+            short_ids = {e.device_resource_id for e in spins
+                         if e.time_range.elapsed_us() < MARKER_SPLIT_US}
+            ours = {}
+            for e in kern:
+                for name in HAND_KERNELS + (GENERATED_KERNEL,):
+                    if name in e.name:
+                        ours.setdefault(name, set()).add(
+                            e.device_resource_id)
+            print(f"viewer render thread, trace {attempt + 1}: "
+                  f"{len(mine)} launches asked for the thread's stream; "
+                  f"stream ids of our kernels {ours}, of the markers on the "
+                  f"thread's stream {sorted(long_ids)} and on the main "
+                  f"thread's {sorted(short_ids)}")
+            check(len(long_ids) <= 1 and not (long_ids & short_ids) and all(
+                ids <= long_ids for ids in ours.values()) if long_ids
+                else True, f"viewer render thread: a kernel ran on another "
+                f"stream than the thread's ({ours}, {long_ids})")
+            if (long_ids and short_ids and GENERATED_KERNEL in ours
+                    and all(k in ours for k in LAUNCHES_3D_KERNELS)):
+                traced = sorted(long_ids)
+                break
+        if traced is None:
+            print("viewer render thread: three traces dropped a marker or a "
+                  "kernel's record; the stream is held by the launches' "
+                  "arguments only (above)")
+        # an edited script on the unrolled engine: its kernels build cold in
+        # the render thread
+        t0 = time.perf_counter()
+        check(post({"script": VIEWER_EDIT, "engine": "unrolled",
+                    "mode": "2d"}) == 200, "POST script")
+        st = wait_seq(st["seq"] + 1)
+        edit_s = time.perf_counter() - t0
+        check(st["error"] == "", f"viewer HTTP loop, edited script: "
+              f"{st['error']}")
+        status, png = get("/frame.png")
+        check(status == 200, "GET /frame.png")
+        want, _, _ = viewer.render_scene(VIEWER_EDIT, st["cam"], st["mode"],
+                                         st["size"], st["engine"])
+        img = decode_png(png)
+        check(img.shape == want.shape and bool(np.array_equal(img, want)),
+              "viewer HTTP loop: /frame.png differs from render_scene")
+        print(f"viewer HTTP loop on 127.0.0.1:{port}: page, frames, engine "
+              f"switch on the render thread's stream; an edit on the "
+              f"unrolled engine (cold build) answered in {edit_s:.2f} s, "
+              f"/frame.png equal to render_scene  [{card}]")
+        return {"edit_s": round(edit_s, 3), "traced_stream": traced,
+                "streams": {k: sorted(v) for k, v in ours.items()}}
+    finally:
+        state.stop.set()
+        state.dirty.set()
+        worker.join(timeout=VIEWER_WAIT_S)
+        httpd.shutdown()
+        httpd.server_close()
+        server.join()
+
+
 def run_fit(ctx, results, launches, pre):
     """Phase 14: mesh export, the five fit steps on K1 and K2, the sharded
     render and step under a process group of one (NCCL), and ``cli fit``
@@ -3428,6 +4050,10 @@ def main() -> int:
     sys.stdout.flush()
     run_unrolled(ctx, results, launches, pre)
     sys.stdout.flush()
+    run_native(ctx, results)
+    sys.stdout.flush()
+    run_viewer(ctx, results, launches)
+    sys.stdout.flush()
     run_fit(ctx, results, launches, pre14)
     sys.stdout.flush()
 
@@ -3527,6 +4153,9 @@ def main() -> int:
             "launches_2d_path": launches["2d"][name],
             "launches_3d_path": launches["3d"][name],
             "launches_cli": launches["cli"][name],
+            "launches_viewer": {k: v[name]
+                                for k, v in launches["viewer"].items()
+                                if v.get(name)},
             "max_abs_err": max(errs + [x["max_abs_err"] for x in flat_3d]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -3550,6 +4179,8 @@ def main() -> int:
           f"{ {k: r.get('vs_first') for k, r in launch_rows} }; {verdict}"
           f"  [{card}]")
     print(json.dumps({"fits": results["fits"], "mesh": results["mesh"]}))
+    print(json.dumps({"native": results["native"],
+                      "viewer": results["viewer"], "card": card}))
     print(json.dumps({"effects": effect_rows}))
     sweeps = {f"stress_2d({nb}) {sz}^2": results[sz]["sweep"]
               for nb, sz in CASES}

@@ -6,9 +6,10 @@ last-used map, linear-scan slot allocation with LIFO free-list reuse, constant
 folding into immediates (commutative ops canonicalize the constant to the IMM
 operand; SUB/DIV get IMM_RHS / LHS_IMM forms), and a result-slot terminator.
 
-A copy of ``mpr_tpu.tape.tape`` that runs the Python passes only (the JAX
-package's optional native compiler gives bit-identical output and is not
-needed here).
+A copy of ``mpr_tpu.tape.tape``.  ``compile_tree`` hands a tree without
+named parameters to the native C++ compiler (``mpr_tpu_torch/native/``,
+bit-identical output) and keeps these Python passes for param trees and
+for a machine where the library cannot be built.
 
 Divergences from the reference (deliberate, documented):
   * The tape is a struct-of-arrays (ops/outs/lhss/rhss/imms as NumPy arrays)
@@ -259,9 +260,12 @@ def compile_tree(tree: Tree, schedule: str = "opruns",
     for the interpreters (see :func:`_schedule_opruns`);
     ``schedule='dfs'`` keeps the reference's orderedDfs emission order.
 
-    ``backend`` is kept for signature parity with ``mpr_tpu``: ``'auto'``
-    and ``'python'`` both run this module's Python passes; ``'native'``
-    raises (the port carries no native compiler).
+    ``backend='auto'`` uses the native C++ compiler
+    (mpr_tpu_torch/native/) for a tree without named parameters when its
+    shared library builds and loads — bit-identical output — falling back
+    to this module's pure-Python passes; ``'python'`` forces the
+    fallback, ``'native'`` requires the library (and raises on a param
+    tree).
 
     ``fuse=True`` runs the compile-time peephole pass (tape/fuse.py):
     hypot/addsq compound ops cut interpreter steps 10-15% on the
@@ -279,7 +283,8 @@ def compile_tree(tree: Tree, schedule: str = "opruns",
         # A constant-only expression (e.g. after folding) has no axis
         # reads for the slot binder to seed; emit the one-clause program
         # COPY_IMM directly (the opcode tape shortening already uses,
-        # reference/inc/gpu_opcode.hpp COPY_IMM).
+        # reference/inc/gpu_opcode.hpp COPY_IMM).  Shared by both
+        # compiler backends.
         return Tape(ops=np.asarray([int(Op.COPY_IMM)], np.int32),
                     outs=np.asarray([1], np.int32),
                     lhss=np.asarray([0], np.int32),
@@ -287,9 +292,21 @@ def compile_tree(tree: Tree, schedule: str = "opruns",
                     imms=np.asarray([tree.value], np.float32),
                     axis_slots=(0, 0, 0), result_slot=1, num_slots=2,
                     num_choices=0, tree=tree)
-    if backend not in ("auto", "python"):
-        raise ValueError(f"unknown tape compiler backend {backend!r} "
-                         "(the port compiles with the Python passes only)")
+    if backend not in ("auto", "python", "native"):
+        raise ValueError(f"unknown tape compiler backend {backend!r}")
+    if backend == "native" and tree._param:
+        raise RuntimeError("native tape compiler does not support param "
+                           "nodes (param tapes use the Python path)")
+    if backend in ("auto", "native") and not tree._param:
+        # param trees always take the Python path: the native compiler
+        # has no PARAM clause form, and param-carrying tapes are small
+        # interactive scenes, not the long compiles the C++ path is for
+        from ..native import compile_native
+        t = compile_native(tree, schedule)
+        if t is not None:
+            return t
+        if backend == "native":
+            raise RuntimeError("native tape compiler unavailable")
 
     ordered = tree.ordered_dfs()
 

@@ -412,8 +412,10 @@ def test_without_a_card_the_default_device_raises(argv, tmp_path,
     assert not list(tmp_path.iterdir())
 
 
-# What of mpr_tpu is still not ported (ROADMAP queue 1 item 5: the viewer,
-# a bench for the port, the native tape compiler) has no command here.
+# None of these is a command of the port's command line: the viewer runs as
+# its own module (python -m mpr_tpu_torch.viewer), the native tape compiler
+# has no flag (compile_tree takes it under backend='auto'), and the port has
+# no bench yet.
 @pytest.mark.parametrize("argv", [["viewer", "examples/csg_demo.py"],
                                   ["viewer", "--serve", "8766"],
                                   ["bench"],

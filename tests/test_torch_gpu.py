@@ -1633,3 +1633,75 @@ def test_unrolled_render3d_on_card_equals_brute(cuda, name, skip4):
     idepth, inormals = pipeline3d.render3d(tape, mat=mat, size=256)
     assert np.array_equal(depth, idepth)
     assert float(np.abs(normals - inormals).max()) <= 1e-4
+
+
+# ---- the viewer on the card --------------------------------------------------
+
+from mpr_tpu_torch import viewer  # noqa: E402
+
+_EXAMPLES = __import__("pathlib").Path(__file__).resolve().parents[1] / \
+    "examples"
+_VIEW_CAM = {"yaw": 0.5, "pitch": -0.9, "persp": 0.3, "scale": 1.0,
+             "panx": 0.0, "pany": 0.0}
+
+
+def _composed(shapes_, cam, mode, size, engine):
+    """The image the viewer should send, made from the engines' public
+    renders (numpy, on the card) and the effects on the card."""
+    r2 = unrolled.render2d if engine == "unrolled" else pipeline2d.render2d
+    r3 = unrolled.render3d if engine == "unrolled" else pipeline3d.render3d
+    mat = viewer.view_matrix(cam, mode)
+    if mode == "2d":
+        acc = np.zeros((size, size), bool)
+        for s in shapes_:
+            acc |= r2(mpr_tpu_torch.compile_tree(s), mat=mat, size=size)
+        return np.where(acc[::-1], 255, 0).astype(np.uint8)
+    depth = np.zeros((size, size), np.int32)
+    normals = np.zeros((size, size, 3), np.float32)
+    for s in shapes_:
+        d, n = r3(mpr_tpu_torch.compile_tree(s), mat=mat, size=size)
+        win = d > depth
+        depth = np.where(win, d, depth)
+        normals = np.where(win[..., None], n, normals)
+    if mode == "heightmap":
+        return (depth / size * 255).astype(np.uint8)[::-1]
+    if mode == "normals":
+        return ((normals * 127) + 128).clip(0, 255).astype(np.uint8)[::-1]
+    from mpr_tpu_torch.render import effects
+    fn = effects.draw_ssao if mode == "ssao" else effects.draw_shaded
+    img = fn(torch.as_tensor(depth).cuda(), torch.as_tensor(normals).cuda())
+    return (img * 255).to(torch.uint8).cpu().numpy()[::-1]
+
+
+@pytest.mark.parametrize("mode", ["2d", "heightmap", "normals", "ssao",
+                                  "shaded"])
+@pytest.mark.parametrize("engine", ["interp", "unrolled"])
+def test_viewer_render_scene_on_card_equals_composed(cuda, engine, mode):
+    src = ("shapes = [stress_2d(40), circle(0.3, 0.5, 0.5)]" if mode == "2d"
+           else (_EXAMPLES / "gyroid_demo.py").read_text())
+    shapes_, _ = viewer._eval_src(src)
+    img, ms, _ = viewer.render_scene(src, _VIEW_CAM, mode, 256, engine)
+    want = _composed(shapes_, _VIEW_CAM, mode, 256, engine)
+    assert img.dtype == want.dtype == np.uint8 and ms > 0
+    assert np.array_equal(img, want), int((img != want).sum())
+
+
+def test_viewer_slider_builds_nothing(cuda):
+    """examples/parametric.io on the unrolled engine: after the first
+    frame, slider moves build and load no generated kernel, and each image
+    equals a fresh render of ``with_params`` of the tree."""
+    path = _EXAMPLES / "parametric.io"
+    src = path.read_text()
+    viewer.render_scene(src, _VIEW_CAM, "normals", 256, "unrolled",
+                        str(path))
+    builds, libs = len(ue.BUILDS), len(ue._libs)
+    (tree,), _ = viewer._eval_src(src, str(path))
+    for vv in ({"radius": 0.8}, {"bore-r": 0.15, "tilt": 1.0},
+               {"radius": 0.5, "tilt": 0.2}):
+        img, _, _ = viewer.render_scene(src, _VIEW_CAM, "normals", 256,
+                                        "unrolled", str(path),
+                                        var_values=vv)
+        assert (len(ue.BUILDS), len(ue._libs)) == (builds, libs), vv
+        want = _composed([T.with_params(tree, vv)], _VIEW_CAM, "normals",
+                         256, "unrolled")
+        assert np.array_equal(img, want), vv

@@ -170,13 +170,19 @@ def test_no_device_and_no_card_raises():
 
 
 def test_port_imports_neither_jax_nor_mpr_tpu():
-    # every module of the port, the command line and the copied frontends
-    # included
-    code = ("import importlib, pkgutil, sys, mpr_tpu_torch\n"
+    # every module of the port, the command line, the viewer, the native
+    # tape compiler and the copied frontends included; importing them
+    # starts no thread and touches no card
+    code = ("import importlib, pkgutil, sys, threading, mpr_tpu_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages("
             "mpr_tpu_torch.__path__, 'mpr_tpu_torch.')]\n"
             "assert 'mpr_tpu_torch.cli' in mods and len(mods) > 30, mods\n"
+            "assert 'mpr_tpu_torch.viewer' in mods, mods\n"
+            "assert 'mpr_tpu_torch.native' in mods, mods\n"
             "for m in mods: importlib.import_module(m)\n"
+            "import mpr_tpu_torch.viewer, mpr_tpu_torch.native, torch\n"
+            "assert threading.active_count() == 1, threading.enumerate()\n"
+            "assert not torch.cuda.is_initialized()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mpr_tpu' "
             "or m.startswith('mpr_tpu.'))\n"
@@ -195,6 +201,8 @@ def test_port_sources_name_no_jax():
     files = sorted((REPO / "mpr_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "chip_frames.py"]
     assert len(files) > 10
+    assert REPO / "mpr_tpu_torch" / "viewer.py" in files
+    assert REPO / "mpr_tpu_torch" / "native" / "__init__.py" in files
     for p in files:
         toks = tokenize.generate_tokens(io.StringIO(p.read_text()).readline)
         names = {t.string for t in toks if t.type == tokenize.NAME}
