@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Frame times, cold first frames and fit steps of the port on one CUDA card.
 
-    python3 chip_frames.py [--what frames|cold|fits|unrolled] [--root DIR]
-                           [--label NAME]
+    python3 chip_frames.py [--what frames|cold|fits|unrolled|options]
+                           [--root DIR] [--label NAME]
 
 Each mode runs the ``mpr_tpu_torch`` package found in DIR (default: this
 script's directory), so that two checkouts can be timed in turns on one
@@ -33,6 +33,13 @@ frame's time (CUDA events, median of 20 in 2D and 10 in 3D, after
 warm-up), and the device time (torch.profiler, mean of 10 launches) and
 form of every launch of the generated float, interval and deriv kernels
 a frame makes, each launched alone on its recorded inputs.
+
+``options``: chip_smoke.py phase 17's frames at its two 3D cells (skip4
+off): the single phase, the two-phase voxel stage and the 2^3
+sub-refinement, each timed (CUDA events, median of 10 after warm-up) in
+turns, single, two-phase, refined, refined, two-phase, single, twice
+over.  It needs this checkout's ``mpr_tpu_torch`` (the options' entry
+points).
 
 ``fits``: chip_smoke.py phase 14's unrolled fit steps (unrolled and
 culled 256^2, culled 1024^2, the gyroid's dense grid 32, the extruded
@@ -188,6 +195,26 @@ def unrolled_frames(sm, card, label) -> dict:
     return out
 
 
+def option_frames(sm, card, label) -> dict:
+    """``--what options``: see the module's docstring."""
+    import torch
+    from mpr_tpu_torch.render import unrolled
+    dev = torch.device("cuda")
+    out = {}
+    for cell, tape, mat, size in sm.unrolled_cells()[1:]:
+        r = unrolled.get_renderer(tape)
+        m = torch.as_tensor(mat, device=dev)
+        frames = {o: sm.option_frame(unrolled, r, m, size, o)
+                  for o in sm.OPTIONS}
+        turns = {o: [] for o in sm.OPTIONS}
+        for o in (list(sm.OPTIONS) + list(reversed(sm.OPTIONS))) * 2:
+            turns[o].append(round(sm.cuda_ms(frames[o], 10, 2), 4))
+        out[cell] = turns
+        print(f"{label} {cell} @{size}: frame ms in turns (events, median "
+              f"of 10 each) {turns}  [{card}]", flush=True)
+    return out
+
+
 def fit_steps(sm, card, label) -> dict:
     """``--what fits``: see the module's docstring."""
     import dataclasses
@@ -274,7 +301,8 @@ def fit_steps(sm, card, label) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--what", default="frames",
-                   choices=("frames", "cold", "fits", "unrolled"),
+                   choices=("frames", "cold", "fits", "unrolled",
+                            "options"),
                    help="what to time (see the module's docstring)")
     p.add_argument("--root", default=HERE,
                    help="directory that holds the mpr_tpu_torch to time")
@@ -299,7 +327,8 @@ def main() -> int:
     card = sm.card_line()
     if args.what != "frames":
         what = {"cold": cold_frames, "fits": fit_steps,
-                "unrolled": unrolled_frames}[args.what]
+                "unrolled": unrolled_frames,
+                "options": option_frames}[args.what]
         print(json.dumps({"label": args.label, "root": root, "card": card,
                           args.what: what(sm, card, args.label)}))
         return 0

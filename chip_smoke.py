@@ -186,6 +186,23 @@ Phases (any failure exits non-zero before the final line):
      10 after warm-up, the host's ``compile_tree`` and a 3D frame's
      effects apart) of the 2D frame (on the interpreter also with the
      Python passes) and of the gyroid in every 3D mode, on both engines;
+ 17. (run after phase 13, so the generated kernels of its cells are built)
+     the unrolled 3D ladder's options at both 3D cells, skip4 off: with the
+     counts set to 0 before each, the single-phase frame, the two-phase
+     frame (``frame3d(two_phase=True)``) and the 2^3 sub-refinement
+     (``_render3d_impl(refine2=True)``): each must launch the interval
+     kernel three times (the refined frame once more for each chunk of
+     2^3 children), the float kernel once for each chunk of each voxel
+     stage and the deriv kernel once, and run no plain evaluator; each
+     depth equal to the single phase's and ``render3d_brute``'s (0 pixels
+     differ) and the normals to the single phase's; the launches of a new
+     shape (the children's interval launches, the float launches of both
+     phases and of 2^3 voxels) bit for bit against their plain versions;
+     the counts (n2, the two phases' na and nb and the cells phase 2
+     culled, the ambiguous children m3 against 8 n2); each frame's ms
+     (events, median of 10), its generated kernels' and other device
+     time and busy share (torch.profiler), and its ms at each
+     ``debug_stage`` stop;
  12. print the kernel times of the previous designs of A, B, C, C2, V, D,
      K1, K2 and the generated float and interval kernels (recorded,
      labelled as such; not measured here), the unrolled sweep and the
@@ -2486,6 +2503,180 @@ def run_unrolled(ctx, results, launches, pre):
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: the unrolled 3D ladder's options
+# ---------------------------------------------------------------------------
+
+# the voxel stages phase 17 runs at each 3D cell, and the debug_stage stops
+# it times of each (the stops before the voxel stage's choice, "A" and "B",
+# once)
+OPTIONS = ("single", "two_phase", "refine2")
+OPTION_STOPS = {"single": ("A", "B", "Bp", "V"), "two_phase": ("Bp", "V"),
+                "refine2": ("Bp", "R", "V")}
+OPTION_REPS = 10
+STOP_REPS = 5
+# the launches of a shape no other phase holds, by option: kernel -> the
+# launches of the frame before them (the children's interval launches
+# after the ladder's three; every float launch: k = 2, and both phases')
+NEW_SHAPES = {"two_phase": {"unrolled_float": 0},
+              "refine2": {"unrolled_interval": 3, "unrolled_float": 0}}
+
+
+def option_frame(unrolled, r, mat_t, size, option, stop=""):
+    """``frame() -> (depth, normals, counts)`` of the full ladder (skip4
+    off) with the voxel stage of ``option``: the renderer's ``frame3d``
+    (with its ``two_phase``), or ``_render3d_impl(refine2=True)``, the
+    only way to the 2^3 sub-refinement; with ``stop``, the ladder up to
+    that ``debug_stage``."""
+    if option != "refine2" and not stop:
+        return lambda: r.frame3d(mat_t, size, skip4=False,
+                                 two_phase=option == "two_phase")
+    imms = r._imms_arg(None, mat_t.device)
+    return lambda: unrolled._render3d_impl(
+        r.fi, r.f, r.fd, mat_t, size, True, False, imms,
+        two_phase=option == "two_phase", refine2=option == "refine2",
+        debug_stage=stop)
+
+
+def option_launches(unrolled, option, cnt):
+    """The launches of each generated kernel a frame of ``option`` with
+    the counts ``cnt`` must make."""
+    if option == "two_phase":
+        floats = (unrolled.voxel_launches(cnt[3], 4)
+                  + unrolled.voxel_launches(cnt[4], 4))
+    elif option == "refine2":
+        floats = unrolled.voxel_launches(cnt[3], 2)
+    else:
+        floats = unrolled.voxel_launches(cnt[2], 4)
+    # the children's interval launches: one a chunk of VOXEL_LANES / 8
+    # cells, as the float launches of 2^3 voxels
+    children = unrolled.voxel_launches(cnt[2], 2)
+    return {"unrolled_interval": 3 + (children if option == "refine2"
+                                      else 0),
+            "unrolled_float": floats, "unrolled_deriv": 1}
+
+
+def run_options(ctx, results, launches):
+    """Phase 17: the two-phase voxel stage, the 2^3 sub-refinement and the
+    stops of the unrolled 3D ladder at each 3D cell (after phase 13, which
+    built the cells' generated kernels)."""
+    import torch
+    from mpr_tpu_torch.ops import unrolled_eval as ue
+    from mpr_tpu_torch.render import unrolled
+    card, dev = ctx["card"], ctx["dev"]
+    recorder = Recorder({"unrolled_eval": ue}, UNROLLED_ROWS)
+    plain_calls = [0]
+    real_plain = ue.UnrolledEval.plain
+
+    def counted_plain(self, *a, **k):
+        plain_calls[0] += 1
+        return real_plain(self, *a, **k)
+    out, per_frame = {}, {}
+    for cell, tape, mat, size in unrolled_cells()[1:]:
+        r = unrolled.get_renderer(tape)
+        mat_t = torch.as_tensor(mat, device=dev)
+        res = out[cell] = {}
+        frames = {}
+        for option in OPTIONS:
+            frame = option_frame(unrolled, r, mat_t, size, option)
+            log = {}
+            if option != "single":
+                recorder.install(log)
+            recorder.reset_counts()
+            plain_calls[0] = 0
+            ue.UnrolledEval.plain = counted_plain
+            try:
+                depth, normals, cnt = frame()
+                torch.cuda.synchronize()
+            finally:
+                ue.UnrolledEval.plain = real_plain
+                recorder.remove()
+            got = per_frame[f"{cell} {option}"] = recorder.counts()
+            need = option_launches(unrolled, option, cnt)
+            frames[option] = (depth.cpu().numpy(), normals.cpu().numpy())
+            del depth, normals
+            print(f"unrolled option {option} {cell} @{size}: counts {cnt}, "
+                  f"launches {got}, expected {need}; {plain_calls[0]} plain "
+                  "evaluator calls")
+            check(got == need, f"the unrolled {option} frame of {cell} "
+                  f"launched {got}, {need} expected")
+            check(plain_calls[0] == 0, f"the unrolled {option} frame of "
+                  f"{cell} ran a plain evaluator {plain_calls[0]} times")
+            # the launches of a new shape against their plain versions:
+            # the children's interval launches and the k = 2 float
+            # launches of refine2, both phases' float launches
+            held, err = [], 0.0
+            for kname, skip in NEW_SHAPES.get(option, {}).items():
+                for j, (a, k, o) in enumerate(log.get(kname, [])[skip:]):
+                    pout = a[0].plain(*a[1:], imms=k.get("imms"))
+                    outs = o if isinstance(o, tuple) else (o,)
+                    pouts = pout if isinstance(pout, tuple) else (pout,)
+                    bad = bits_differ(outs, pouts)
+                    err = max([err] + [same(x, y)[1]
+                                       for x, y in zip(outs, pouts)])
+                    held.append(f"{kname} {outs[0].numel()} lanes: {bad}")
+                    check(bad == 0, f"{kname} launch {j + skip} of the "
+                          f"{option} frame of {cell} differs from its plain "
+                          f"version in {bad} values")
+                    del pout, pouts
+            del log
+            if held:
+                print(f"  new-shape launches against their plain versions "
+                      f"(values whose bits differ): {held}; max |err| "
+                      f"{err:.3g}")
+            single_d, single_n = frames["single"]
+            d, nrm = frames[option]
+            off = {"single phase": int((d != single_d).sum()),
+                   "render3d_brute": int((d != ctx["brute3d"][cell]).sum())}
+            nbad = int((nrm != single_n).sum())
+            print(f"  {option} depth vs {off} pixels differ; normals: "
+                  f"{nbad} values differ from the single phase's")
+            check(not any(off.values()) and nbad == 0, f"the {option} frame "
+                  f"of {cell} differs: depth {off}, normals {nbad}")
+            res[option] = {"counts": list(cnt), "launches": got}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        n2 = res["single"]["counts"][2]
+        na, nb = res["two_phase"]["counts"][3:5]
+        m3 = res["refine2"]["counts"][3]
+        res["culled_by_phase_2"] = n2 - na - nb
+        res["ambiguous_children_share"] = m3 / max(8 * n2, 1)
+        print(f"unrolled options {cell} @{size}: n2 {n2} cells; two-phase: "
+              f"na {na}, nb {nb}, phase 2 culled {n2 - na - nb}; refine2: "
+              f"m3 {m3} ambiguous children of {8 * n2} "
+              f"({100 * m3 / max(8 * n2, 1):.2f}%)")
+        # ---- times: the frames, their profiles and their stops --------------
+        for option in OPTIONS:
+            frame = option_frame(unrolled, r, mat_t, size, option)
+            ms = cuda_ms(frame, OPTION_REPS, 2)
+            wall, rows, busy = profile_frames(frame, 3)
+            gen = sum(v for k, v in rows if GENERATED_KERNEL in k)
+            rest = sum(v for k, v in rows if GENERATED_KERNEL not in k)
+            stops = {}
+            for stop in OPTION_STOPS[option]:
+                stops[stop] = round(cuda_ms(option_frame(
+                    unrolled, r, mat_t, size, option, stop), STOP_REPS, 1), 4)
+            res[option].update(
+                frame_ms=round(ms, 4), host_ms_profiled=round(wall, 4),
+                generated_device_ms=round(gen, 4) if rows else None,
+                other_device_ms=round(rest, 4) if rows else None,
+                busy=round(busy, 4) if rows else None, stop_ms=stops)
+            print(f"unrolled option {option} {cell} @{size}: frame {ms:.3f} "
+                  f"ms (events, median of {OPTION_REPS}); generated kernels "
+                  + (f"{gen:.4f} ms, other device work {rest:.4f} ms, busy "
+                     f"{100 * busy:.1f}% (torch.profiler, 3 frames)" if rows
+                     else "not measured (no device time in the trace)")
+                  + f"; frame ms at each stop (median of {STOP_REPS}) "
+                  f"{stops}  [{card}]")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    launches["unrolled_options"] = per_frame
+    for row in results["unrolled"]:
+        row["launches_options"] = {k: v[row["name"]]
+                                   for k, v in per_frame.items()}
+    results["unrolled_options"] = out
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: mesh export and differentiable fitting
 # ---------------------------------------------------------------------------
 
@@ -4050,6 +4241,8 @@ def main() -> int:
     sys.stdout.flush()
     run_unrolled(ctx, results, launches, pre)
     sys.stdout.flush()
+    run_options(ctx, results, launches)
+    sys.stdout.flush()
     run_native(ctx, results)
     sys.stdout.flush()
     run_viewer(ctx, results, launches)
@@ -4186,6 +4379,8 @@ def main() -> int:
               for nb, sz in CASES}
     sweeps.update({c: results[c]["sweep"] for c, *_ in CASES_3D})
     print(json.dumps({"launch_sweep": sweeps}))
+    print(json.dumps({"unrolled_options": results["unrolled_options"],
+                      "card": card}))
     print(json.dumps({"unrolled_sweep": results["unrolled_sweep"],
                       "unrolled_against_first_design":
                           results["unrolled_vs_first_design"]}))

@@ -16,7 +16,12 @@ no per-tile tapes; a ladder is as deep as the reference's stage list:
     :func:`_render3d_impl`), or 64^3 -> 16^3 -> voxels (``skip4``, which
     the renderer picks from the counts it observed, :meth:`_skip4_decide`),
     then forward-mode normals one voxel in front of the depth
-    (:func:`_normals_pass`).
+    (:func:`_normals_pass`).  Two options of the JAX package change the
+    voxel stage and not the depth: ``two_phase`` (front to back, phase 2
+    culled by phase 1's least depth a 4px column, :func:`_two_phase`)
+    and ``refine2`` (the 2^3 children of each 4^3 cell classified first,
+    :func:`_refine2`); ``debug_stage`` stops a frame after a stage
+    (:func:`_render3d_impl`).
 
 Each stage's ambiguous set is compacted with ``torch.nonzero``: its exact
 count is read back to the host (one read a stage), and the next stage is
@@ -272,13 +277,14 @@ class Stages3d(NamedTuple):
 
 
 def _stages3d(fi, mat, size: int, skip4: bool, imms, r0: int = 0,
-              rows: Optional[int] = None) -> Stages3d:
+              rows: Optional[int] = None, stop: str = "") -> Stages3d:
     """The interval stages of the 3D ladder, 64^3 -> 16^3 (-> 4^3 unless
     ``skip4``), with the occlusion culls between them (the
     mask_filled_tiles analog, reference/src/context.cu:471-495), on the
     slab of screen tile rows ``[r0, r0 + rows)`` (default: the whole
     image; whole z columns, so the culls stay exact).  Screen cells are
-    slab-local, cell coordinates global."""
+    slab-local, cell coordinates global.  ``stop`` "A" or "B" returns
+    after that stage with only its counts (every other field None)."""
     n = size // 64
     rows = n if rows is None else rows
     dev = mat.device
@@ -297,6 +303,8 @@ def _stages3d(fi, mat, size: int, skip4: bool, imms, r0: int = 0,
     cell64 = tyl * n + tx
     surv0 = (st0 == ST_AMBIG) & ((tz + 1) * 64 > h0.reshape(-1)[cell64])
     ids0 = _ids(surv0)
+    if stop == "A":
+        return Stages3d(*[None] * 10, counts=(int(ids0.shape[0]),))
 
     # ---- stage B: 16^3 children of the surviving tiles ---------------------
     g16x, g16y, g16z = _children_of_cells(ids0 % n, (ids0 // n) % rows + r0,
@@ -311,6 +319,8 @@ def _stages3d(fi, mat, size: int, skip4: bool, imms, r0: int = 0,
     ids1 = _ids(surv1)
     c16 = (g16x[ids1], g16y[ids1], g16z[ids1])
     counts = (int(ids0.shape[0]), int(ids1.shape[0]))
+    if stop == "B":
+        return Stages3d(*[None] * 10, counts=counts)
     if skip4:
         return Stages3d(cell64, surv0, cell16, surv1, h16, c16, None, None,
                         None, None, counts + (0,))
@@ -343,17 +353,21 @@ def _voxel_hits(f, mat, gx, gy, gz, size: int, imms):
 
 def voxel_launches(cells: int, k: int) -> int:
     """Float launches of the voxel stage over ``cells`` cells of ``k``^3
-    voxels (:func:`_voxel_stage`)."""
+    voxels (:func:`_voxel_stage`); with ``k = 2`` also the interval
+    launches of the 2^3 children of ``cells`` 4^3 cells
+    (:func:`_refine2`)."""
     step = max(1, VOXEL_LANES // k ** 3)
     return -(-cells // step)
 
 
-def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms, r0: int = 0):
+def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms, r0: int = 0,
+                 first_only: bool = False):
     """The voxel stage: every voxel of the ``k``^3 cells ``cells`` (gx,
     gy, gz in the grid of ``k``-voxel cells), a float launch for each
-    chunk of at most VOXEL_LANES lanes; the top filled voxel of each
-    column max-reduced into ``depth`` (rows*64*size,: the slab at tile row
-    ``r0``).  Returns the depth."""
+    chunk of at most VOXEL_LANES lanes (the first chunk alone under
+    ``first_only``); the top filled voxel of each column max-reduced into
+    ``depth`` (rows*64*size,: the slab at tile row ``r0``).  Returns the
+    depth."""
     cx, cy, cz = cells
     vv = torch.arange(k ** 3, dtype=torch.int64, device=depth.device)
     vx, vy, vz = vv % k, (vv // k) % k, vv // (k * k)
@@ -369,31 +383,156 @@ def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms, r0: int = 0):
                + gvx.reshape(-1, k, k * k)[:, 0])
         depth = depth.scatter_reduce(0, pix.reshape(-1), patch.reshape(-1),
                                      "amax")
+        if first_only:
+            break
     return depth
+
+
+def _take(cells, ids):
+    return tuple(g[ids] for g in cells)
+
+
+def _two_phase(f, mat, s: Stages3d, size: int, depth, imms, r0: int,
+               rows: int, stop: str):
+    """The two-phase voxel stage over the surviving 4^3 cells ``s.c4``,
+    front to back, onto ``depth`` (the filled cells' heightmap, a pixel
+    each).  Phase 1 evaluates each 4px column's top surviving cell.
+    Phase 2 evaluates the others, but for the cells whose top lies at or
+    behind the least depth phase 1 left in their column: every pixel of
+    such a cell's column already has a depth no voxel of the cell can
+    raise.  (The column's maximum would drop geometry where phase 1
+    covered the column in part; the minimum is the exact test.)  Returns
+    (depth, or None at ``stop`` "Bp" or "V", counts (n0, n1, n2, na[,
+    nb]))."""
+    n = size // 64
+    gx, gy, gz = s.c4
+    col = (gy - 16 * r0) * (16 * n) + gx
+    top = torch.zeros(256 * rows * n, dtype=torch.int64,
+                      device=gx.device).scatter_reduce(0, col, gz + 1,
+                                                       "amax")
+    is_top = gz + 1 == top[col]
+    ida = _ids(is_top)
+    counts = s.counts + (int(ida.shape[0]),)
+    if stop == "Bp":
+        return None, counts
+    depth = _voxel_stage(f, mat, _take(s.c4, ida), 4, size, depth, imms, r0)
+    if stop == "V":
+        return None, counts
+    least = depth.reshape(16 * rows, 4, 16 * n, 4).amin(dim=(1, 3))
+    idb = _ids(~is_top & ((gz + 1) * 4 > least.reshape(-1)[col]))
+    depth = _voxel_stage(f, mat, _take(s.c4, idb), 4, size, depth, imms, r0)
+    return depth, counts + (int(idb.shape[0]),)
+
+
+def _refine2(fi, f, mat, s: Stages3d, size: int, depth, imms, r0: int,
+             rows: int, stop: str):
+    """The 2^3 sub-refinement of the surviving 4^3 cells ``s.c4``: their
+    eight 2^3 children interval-classified (on the grid of 32n cells, an
+    interval launch for each chunk of at most VOXEL_LANES children), each
+    filled child's top, ``(g2z + 1) * 2``, composed over its 2x2 pixels,
+    and the 8 voxels of each ambiguous child evaluated (:func:`_voxel_stage`
+    with ``k = 2``) onto ``depth``.  No child is culled against the
+    heightmap, as in the JAX package.  Returns (depth, or None at
+    ``stop`` "Bp", "R" or "V", counts (n0, n1, n2[, m3, 0]))."""
+    if stop == "Bp":
+        return None, s.counts
+    n = size // 64
+    kk = torch.arange(8, dtype=torch.int64, device=depth.device)
+    kx, ky, kz = kk % 2, (kk // 2) % 2, kk // 4
+    top2 = torch.zeros(1024 * rows * n, dtype=torch.int64,
+                       device=depth.device)
+    amb = []
+    step = max(1, VOXEL_LANES // 8)
+    for c0 in range(0, int(s.c4[0].shape[0]), step):
+        bx, by, bz = (g[c0:c0 + step] for g in s.c4)
+        g2x = (bx[:, None] * 2 + kx[None, :]).reshape(-1)
+        g2y = (by[:, None] * 2 + ky[None, :]).reshape(-1)
+        g2z = (bz[:, None] * 2 + kz[None, :]).reshape(-1)
+        lo, hi = fi(*_cell_boxes_3d(mat, g2x, g2y, g2z, 32 * n), imms=imms)
+        st3 = _classify(lo, hi)
+        top2 = top2.scatter_reduce(
+            0, (g2y - 32 * r0) * (32 * n) + g2x,
+            torch.where(st3 == ST_FILLED, (g2z + 1) * 2, 0), "amax")
+        amb.append(_take((g2x, g2y, g2z), _ids(st3 == ST_AMBIG)))
+    if amb:
+        amb = tuple(torch.cat(g) for g in zip(*amb))
+    else:
+        amb = tuple(torch.zeros(0, dtype=torch.int64, device=depth.device)
+                    for _ in range(3))
+    counts = s.counts + (int(amb[0].shape[0]), 0)
+    if stop == "R":
+        return None, counts
+    depth = _voxel_stage(f, mat, amb, 2, size, depth, imms, r0,
+                         first_only=stop == "V")
+    if stop == "V":
+        return None, counts
+    depth = torch.maximum(depth, _up(top2.reshape(32 * rows, 32 * n),
+                                     2).reshape(-1))
+    return depth, counts
+
+
+# the stops of _render3d_impl's ``debug_stage``, in ladder order
+STOPS = ("A", "B", "Bp", "R", "V")
 
 
 def _render3d_impl(fi, f, fd, mat, size: int, with_normals: bool,
                    skip4: bool = False, imms=None, r0: int = 0,
-                   rows: Optional[int] = None):
+                   rows: Optional[int] = None, two_phase: bool = False,
+                   refine2: bool = False, debug_stage: str = ""):
     """The 3D ladder on the slab of screen tile rows ``[r0, r0 + rows)``
-    (default: the whole image): :func:`_stages3d`, then the voxels of the
-    surviving 4^3 cells (of the surviving 16^3 cells under ``skip4``:
-    interval-hostile models spend more on the 4^3 stage than it saves)
-    over the heightmap of the filled cells.  Returns (depth (rows*64,
-    size) int32, normals (rows*64, size, 3) f32 or None, counts (n0, n1,
-    n2, 0, 0, nN)): surviving 64^3 tiles, 16^3 cells and 4^3 cells (0
-    under ``skip4``), and screen tiles with content."""
+    (default: the whole image): :func:`_stages3d`, then the voxel stage
+    over the heightmap of the filled cells.  The voxel stage takes, in
+    this precedence: under ``skip4`` the voxels of the surviving 16^3
+    cells (interval-hostile models spend more on the 4^3 stage than it
+    saves); with ``two_phase`` the surviving 4^3 cells in two phases
+    (:func:`_two_phase`); with ``refine2`` their 2^3 children
+    (:func:`_refine2`); else every surviving 4^3 cell's voxels at once.
+
+    Returns (depth (rows*64, size) int32, normals (rows*64, size, 3) f32
+    or None, counts (n0, n1, n2, a, b, nN)): surviving 64^3 tiles, 16^3
+    cells and 4^3 cells (0 under ``skip4``); (a, b) = (na, nb), the cells
+    of phase 1 and phase 2, under ``two_phase`` (phase 2 culled n2 - na -
+    nb), (m3, 0), the ambiguous 2^3 children, under ``refine2``, else (0,
+    0); and nN the screen tiles with content.
+
+    ``debug_stage`` (one of STOPS) returns (None, None, counts) early, so
+    that a script can time a prefix of the ladder: after stage "A" (64^3),
+    "B" (16^3), "Bp" (the compaction before the voxels: phase 1's under
+    ``two_phase``), "R" (the children's classification, ``refine2``
+    only) or "V" (the voxel stage's first float launch; phase 1 under
+    ``two_phase``).  Its counts are the counts so far, real counts, with
+    0 in the slots of the stages not reached."""
+    if debug_stage and (debug_stage not in STOPS
+                        or (debug_stage == "Bp" and skip4)
+                        or (debug_stage == "R"
+                            and (skip4 or two_phase or not refine2))):
+        raise ValueError(f"debug_stage {debug_stage!r}: not a stop of this "
+                         "ladder")
     n = size // 64
     rows = n if rows is None else rows
-    s = _stages3d(fi, mat, size, skip4, imms, r0, rows)
-    if skip4:
+    s = _stages3d(fi, mat, size, skip4, imms, r0, rows, debug_stage)
+    counts = s.counts
+    if debug_stage in ("A", "B"):
+        depth = None
+    elif skip4:
         depth = _voxel_stage(f, mat, s.c16, 16, size, _up(
-            s.h16.reshape(4 * rows, 4 * n), 16).reshape(-1), imms, r0)
+            s.h16.reshape(4 * rows, 4 * n), 16).reshape(-1), imms, r0,
+            first_only=debug_stage == "V")
     else:
-        depth = _voxel_stage(f, mat, s.c4, 4, size, _up(
-            s.h4.reshape(16 * rows, 16 * n), 4).reshape(-1), imms, r0)
+        depth = _up(s.h4.reshape(16 * rows, 16 * n), 4).reshape(-1)
+        if two_phase:
+            depth, counts = _two_phase(f, mat, s, size, depth, imms, r0,
+                                       rows, debug_stage)
+        elif refine2:
+            depth, counts = _refine2(fi, f, mat, s, size, depth, imms, r0,
+                                     rows, debug_stage)
+        elif debug_stage != "Bp":
+            depth = _voxel_stage(f, mat, s.c4, 4, size, depth, imms, r0,
+                                 first_only=debug_stage == "V")
+    counts = list(counts) + [0] * (6 - len(counts))
+    if debug_stage:
+        return None, None, tuple(counts)
     depth = depth.reshape(rows * 64, size).to(torch.int32)
-    counts = list(s.counts) + [0, 0, 0]
     if not with_normals:
         return depth, None, tuple(counts)
     normals, counts[5] = _normals_pass(fd, mat, depth, size, imms, r0)
@@ -448,7 +587,11 @@ class UnrolledRenderer:
     constants (a slider, ``cli --set``, a fit step) builds nothing.  The
     kernels build at the first frame on a card, all of a frame's
     semantics in parallel nvcc processes.  The renderer keeps the last
-    counts of each frame kind, which the 3D ``skip4`` decision reads."""
+    counts of each frame kind, which the 3D ``skip4`` decision reads.
+
+    ``two_phase`` (default False, as in the JAX package) runs the 3D
+    frames' voxel stage front to back in two phases (:func:`_two_phase`)
+    wherever the 4^3 stage runs; the depth is the same either way."""
 
     def __init__(self, tape: Tape, imm_inputs: bool = False):
         self.tape = tape
@@ -460,6 +603,7 @@ class UnrolledRenderer:
         self._imms_t: Dict[str, torch.Tensor] = {}
         self._obs: Dict = {}
         self._skip4_age: Dict = {}
+        self.two_phase = False
 
     def _ready(self, dev, evals):
         if dev.type == "cuda":
@@ -532,29 +676,42 @@ class UnrolledRenderer:
         self._skip4_age[key] = age + 1
         return True
 
+    def _record3d(self, key, cnt, skip4: bool, two: bool,
+                  with_normals: bool) -> None:
+        """Keep a 3D frame's counts; a stage that did not run keeps the
+        count it had (the 4^3 cells under ``skip4``, the two phases'
+        cells when they did not run, the normals' tiles without
+        normals)."""
+        prev = self._obs.get(key)
+        if prev is None or len(prev) != 6:
+            prev = (0, 0, 0, 0, 0, 1)
+        a = list(cnt)
+        if skip4:
+            a[2] = prev[2]
+        if not two:
+            a[3], a[4] = prev[3], prev[4]
+        a[5] = max(a[5] if with_normals else prev[5], 1)
+        self._obs[key] = tuple(a)
+
     def frame3d(self, mat, size: int, with_normals: bool = True,
-                imms=None, skip4=None):
+                imms=None, skip4=None, two_phase=None):
         """One 3D frame on tensors: ``mat`` (4, 4) f32 on the device.
-        ``skip4``: None for the renderer's decision.  Returns (depth,
-        normals or None, counts) as tensors and a tuple."""
+        ``skip4``: None for the renderer's decision; ``two_phase``: None
+        for the renderer's ``two_phase`` (it applies where skip4 does
+        not).  Returns (depth, normals or None, counts) as tensors and a
+        tuple."""
         dev = mat.device
         key = ("3d", size)
         if skip4 is None:
             skip4 = self._skip4_decide(key)
+        two = (self.two_phase if two_phase is None else two_phase) \
+            and not skip4
         self._ready(dev, [self.fi, self.f] + ([self.fd] if with_normals
                                               else []))
         depth, normals, cnt = _render3d_impl(
             self.fi, self.f, self.fd, mat, size, with_normals, skip4,
-            self._imms_arg(imms, dev))
-        a0, a1, a2, aa, ab, aN = cnt
-        prev = self._obs.get(key)
-        if prev is None or len(prev) != 6:
-            prev = (0, 0, 0, 0, 0, 1)
-        if not with_normals:
-            aN = prev[5]
-        if skip4:
-            a2 = prev[2]
-        self._obs[key] = (a0, a1, a2, prev[3], prev[4], max(aN, 1))
+            self._imms_arg(imms, dev), two_phase=two)
+        self._record3d(key, cnt, skip4, two, with_normals)
         return depth, normals, cnt
 
     def render3d(self, mat=None, size: int = 256, with_normals: bool = True,
@@ -597,9 +754,10 @@ class UnrolledRenderer:
                          with_normals: bool = True, imms=None, device=None,
                          skip4=None):
         """:meth:`render3d` with each rank of ``mesh`` rendering a slab of
-        64px tile rows (whole z columns, so the occlusion culls stay
-        exact); every rank returns the whole (depth, normals or None).
-        The skip4 decision reads the most any rank counted."""
+        64px tile rows (whole z columns, so the occlusion culls and the
+        two phases' culls stay exact); every rank returns the whole
+        (depth, normals or None).  The skip4 decision reads the most any
+        rank counted."""
         import torch.distributed as dist
 
         from ..parallel.sharded import _all_gather, _all_reduce, make_mesh
@@ -615,18 +773,16 @@ class UnrolledRenderer:
         key = ("3ds", size, mesh.size)
         if skip4 is None:
             skip4 = self._skip4_decide(key)
+        two = self.two_phase and not skip4
         self._ready(dev, [self.fi, self.f] + ([self.fd] if with_normals
                                               else []))
         depth, normals, cnt = _render3d_impl(
             self.fi, self.f, self.fd, torch.as_tensor(mat, device=dev),
             size, with_normals, skip4, self._imms_arg(imms, dev),
-            mesh.rank * rows, rows)
+            mesh.rank * rows, rows, two_phase=two)
         cnt = _all_reduce(mesh, torch.tensor(cnt, device=dev),
                           dist.ReduceOp.MAX).tolist()
-        if skip4:
-            prev = self._obs.get(key)
-            cnt[2] = prev[2] if prev is not None else 0
-        self._obs[key] = tuple(cnt)
+        self._record3d(key, cnt, skip4, two, with_normals)
         depth = torch.cat(_all_gather(mesh, depth), 0).cpu().numpy()
         if not with_normals:
             return depth, None
@@ -636,15 +792,17 @@ class UnrolledRenderer:
                        device=None):
         """Benchmark helper: render once (so the counts the skip4
         decision reads exist), then return ``frame(mat) -> (depth,
-        normals)`` on tensors with that decision frozen — the closure the
-        3D tables time."""
+        normals)`` on tensors with that decision and ``two_phase``
+        frozen — the closure the 3D tables time."""
         dev = resolve_device(device)
         mat_t = torch.as_tensor(np.asarray(mat, np.float32), device=dev)
-        self.frame3d(mat_t, size, with_normals)
+        two = self.two_phase
+        self.frame3d(mat_t, size, with_normals, two_phase=two)
         skip4 = self._skip4_key(("3d", size))
 
         def frame(m):
-            d, nrm, _ = self.frame3d(m, size, with_normals, skip4=skip4)
+            d, nrm, _ = self.frame3d(m, size, with_normals, skip4=skip4,
+                                     two_phase=two)
             return d, nrm
         return frame
 

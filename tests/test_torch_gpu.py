@@ -1635,6 +1635,49 @@ def test_unrolled_render3d_on_card_equals_brute(cuda, name, skip4):
     assert float(np.abs(normals - inormals).max()) <= 1e-4
 
 
+@pytest.mark.parametrize("option", ["two_phase", "refine2"])
+def test_unrolled_option_on_card_equals_the_cpu_frame(cuda, option,
+                                                     monkeypatch):
+    """The two-phase voxel stage and the 2^3 sub-refinement on the card:
+    the generated kernels launch (no plain evaluator runs), and the frame
+    equals the same frame on the CPU (depth bit for bit, normals within
+    1e-4) and the card's single-phase frame (depth and normals bit for
+    bit)."""
+    tape = mpr_tpu_torch.compile_tree(shapes.two_spheres())
+    mat = camera.gui3d_view()
+    size = 256
+    r = unrolled.UnrolledRenderer(tape)
+    dev_mat = torch.as_tensor(mat, device=cuda)
+    d1, n1, _ = unrolled._render3d_impl(r.fi, r.f, r.fd, dev_mat, size, True)
+    calls = []
+    real = ue.UnrolledEval.plain
+    monkeypatch.setattr(ue.UnrolledEval, "plain",
+                        lambda self, *a, **k: calls.append(1) or real(
+                            self, *a, **k))
+    before = (ue.unrolled_interval.launches, ue.unrolled_float.launches,
+              ue.unrolled_deriv.launches)
+    depth, normals, cnt = unrolled._render3d_impl(
+        r.fi, r.f, r.fd, dev_mat, size, True, **{option: True})
+    torch.cuda.synchronize()
+    got = (ue.unrolled_interval.launches - before[0],
+           ue.unrolled_float.launches - before[1],
+           ue.unrolled_deriv.launches - before[2])
+    if option == "two_phase":
+        want = (3, unrolled.voxel_launches(cnt[3], 4)
+                + unrolled.voxel_launches(cnt[4], 4), 1)
+    else:
+        want = (3 + unrolled.voxel_launches(cnt[2], 2),
+                unrolled.voxel_launches(cnt[3], 2), 1)
+    assert got == want and not calls
+    monkeypatch.undo()
+    cd, cn, ccnt = unrolled._render3d_impl(
+        r.fi, r.f, r.fd, torch.as_tensor(mat), size, True, **{option: True})
+    assert cnt == ccnt
+    assert torch.equal(depth.cpu(), cd) and torch.equal(depth, d1)
+    assert torch.equal(normals, n1)
+    assert float((normals.cpu() - cn).abs().max()) <= 1e-4
+
+
 # ---- the viewer on the card --------------------------------------------------
 
 from mpr_tpu_torch import viewer  # noqa: E402

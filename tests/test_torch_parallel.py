@@ -99,7 +99,7 @@ import mpr_tpu_torch
 from mpr_tpu_torch.frontend import shapes
 from mpr_tpu_torch.ops.tape_data import TapeData
 from mpr_tpu_torch.parallel import distributed, sharded
-from mpr_tpu_torch.render import camera
+from mpr_tpu_torch.render import camera, unrolled
 rank = int(sys.argv[1])
 distributed.init({addr!r}, world_size=2, rank=rank)
 mesh = distributed.global_mesh()
@@ -116,6 +116,11 @@ for eng, fn in (("interp", sharded.render3d_sharded),
                 ("unrolled", sharded.render3d_sharded_unrolled)):
     d, n = fn(t3, m3, size=128, mesh=mesh, device="cpu")
     out["depth_" + eng], out["normals_" + eng] = d, n
+r3 = unrolled.get_renderer(t3)
+r3.two_phase = True
+out["depth_two_phase"], out["normals_two_phase"] = r3.render3d_sharded(
+    m3, size=128, mesh=mesh, device="cpu")
+r3.two_phase = False
 tg2 = np.load({targets!r})
 lr = {lr!r}
 steps = {{
@@ -196,6 +201,18 @@ def test_two_ranks_render_equal_one_device(two_ranks):
     d, n = unrolled.render3d(t3, m3, size=128, device="cpu")
     assert np.array_equal(got["depth_unrolled"], d)
     assert np.array_equal(got["normals_unrolled"], n)
+
+
+def test_two_ranks_two_phase_render_equals_one_device(two_ranks):
+    """The unrolled renderer's two-phase voxel stage on a slab a rank (its
+    culls stay within a slab's whole z columns) equals the one-device
+    single-phase render."""
+    got, _ = two_ranks
+    t3 = mpr_tpu_torch.compile_tree(shapes.two_spheres())
+    d, n = unrolled.render3d(t3, camera.gui3d_view(), size=128,
+                             device="cpu")
+    assert np.array_equal(got["depth_two_phase"], d)
+    assert np.array_equal(got["normals_two_phase"], n)
 
 
 @pytest.mark.parametrize("name", ["scan", "unrolled", "culled", "3d",

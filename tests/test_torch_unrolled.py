@@ -69,7 +69,7 @@ from mpr_tpu_torch.render import (brute, camera, pipeline2d, pipeline3d,
 from mpr_tpu_torch.tape.opcodes import Op
 from mpr_tpu_torch.tape.tape import Tape
 
-from torch_port_cases import (FILL_BAND, all_ops_clauses, assert_depth,
+from torch_port_cases import (FILL_BAND, R3, all_ops_clauses, assert_depth,
                               depth_field, one_torch_thread,  # noqa: F401
                               random_trees)
 
@@ -427,12 +427,6 @@ def test_render2d_of_a_parametric_scene_takes_the_imms_input():
     with pytest.raises(ValueError, match="imm_inputs"):
         unrolled.UnrolledRenderer(tape).render2d(size=64, imms=tape.imms,
                                                  device="cpu")
-
-
-R3 = {"spheres": (lambda S: S.union(S.sphere(0.6, cx=-0.2),
-                                    S.sphere(0.4, cx=0.5, cy=0.3)), 128),
-      "gyroid": (lambda S: S.intersection(S.gyroid(0.4, 0.08),
-                                          S.sphere(0.85)), 128)}
 
 
 @pytest.fixture(scope="module")

@@ -127,6 +127,13 @@ def unpack_codes(codes, length):
     return nib.reshape(c.shape[0], -1)[:, :length]
 
 
+# The 3D scenes of the unrolled engine's tests: name -> (tree builder over
+# a shapes module, size)
+R3 = {"spheres": (lambda S: S.union(S.sphere(0.6, cx=-0.2),
+                                    S.sphere(0.4, cx=0.5, cy=0.3)), 128),
+      "gyroid": (lambda S: S.intersection(S.gyroid(0.4, 0.08),
+                                          S.sphere(0.85)), 128)}
+
 FILL_BAND = 1e-5
 # sin, cos, exp, log: torch's CPU kernels round them an ulp apart from
 # XLA's and numpy's
