@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Frame times, cold first frames and fit steps of the port on one CUDA card.
 
-    python3 chip_frames.py [--what frames|cold|fits|unrolled|options]
-                           [--root DIR] [--label NAME]
+    python3 chip_frames.py [--what frames|cold|fits|unrolled|options|
+                                   builds|v1] [--root DIR] [--label NAME]
 
 Each mode runs the ``mpr_tpu_torch`` package found in DIR (default: this
 script's directory), so that two checkouts can be timed in turns on one
@@ -25,6 +25,21 @@ its generated kernels, as a user's first frame of a new tape: the 2D cell
 Host clock from making the renderer to the frame's end, the generated
 kernels' count and each one's nvcc seconds by semantics and form, and
 the second frame's host time.
+
+``builds``: the kernel libraries of ``ops/build.py`` (``main``, then
+``extra``) compiled as it compiles them, every source's nvcc started
+together, into a fresh directory: each library's seconds with its link
+and each source's nvcc seconds (host clock) and kernel count (ptxas
+entries).
+
+``v1``: kernels C1 and B1 as ``chip_smoke.py`` phase 9 calls them: C1 on
+the 1024^2 frame's ambiguous tiles at cap = Tcap, B1 on its tapes, and B1
+on the full tape of the 2048^2 cell on 8 tiles (the picked shape, and,
+where this checkout's ``pixel_v1_launch`` takes an int ``stage``, the
+whole tape staged, held against the picked shape bit for bit).  For each
+the time with CUDA events around a call (median of 30), the device time
+(torch.profiler) and the wrapper's host time a call (200 calls back to
+back).
 
 ``unrolled``: the unrolled engine's frames on chip_smoke.py phase 13's
 cells (``stress_2d(600)`` at 1024^2, the gyroid at 1024^3 and the
@@ -71,11 +86,11 @@ def _smoke():
     return mod
 
 
-def _recorded(tk, frame):
-    """Every launch of kernels A and C one frame makes: {name: [(args,
-    kwargs)]}."""
-    seen = {name: [] for name in KERNELS}
-    saved = {name: getattr(tk, name) for name in KERNELS}
+def _recorded(tk, frame, names=KERNELS):
+    """Every launch of the kernels ``names`` (A and C) one frame makes:
+    {name: [(args, kwargs)]}."""
+    seen = {name: [] for name in names}
+    saved = {name: getattr(tk, name) for name in names}
     for name, fn in saved.items():
         def rec(*a, _fn=fn, _name=name, **k):
             seen[_name].append((a, k))
@@ -298,11 +313,170 @@ def fit_steps(sm, card, label) -> dict:
     return out
 
 
+def library_builds(sm, card, label) -> dict:
+    """``--what builds``: see the module's docstring."""
+    import shutil
+    import subprocess
+    import tempfile
+    import time
+    from pathlib import Path
+    from mpr_tpu_torch.ops import build
+    nvcc = build._nvcc()
+    build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name in build.LIBRARIES:
+        cus, _ = build._sources(name)
+        flags = build.FLAGS + build.LIBRARIES[name][1]
+        tmp = Path(tempfile.mkdtemp(prefix="builds-",
+                                    dir=build.BUILD_ROOT.parent))
+        try:
+            logs = {src.stem: open(tmp / (src.stem + ".log"), "w")
+                    for src in cus}
+            t0 = time.perf_counter()
+            procs = {src.stem: subprocess.Popen(
+                [nvcc, *flags, "-I", str(build.CSRC), "-c", str(src), "-o",
+                 str(tmp / (src.stem + ".o"))], stdout=logs[src.stem],
+                stderr=subprocess.STDOUT) for src in cus}
+            done = {}
+            while len(done) < len(procs):
+                for stem, proc in procs.items():
+                    if stem not in done and proc.poll() is not None:
+                        done[stem] = time.perf_counter() - t0
+                time.sleep(0.02)
+            for f in logs.values():
+                f.close()
+            bad = [s for s, p in procs.items() if p.returncode]
+            if bad:
+                raise RuntimeError(f"nvcc failed on {bad}")
+            subprocess.run(
+                [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-o", str(tmp / "lib.so"),
+                 *[str(tmp / (s.stem + ".o")) for s in cus]], check=True,
+                capture_output=True)
+            total = time.perf_counter() - t0
+            entries = {s: (tmp / (s + ".log")).read_text().count(
+                "Compiling entry function") for s in procs}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out[name] = {"seconds": round(total, 2),
+                     "nvcc_s": {s: round(v, 2) for s, v in done.items()},
+                     "kernels": entries}
+        slow = sorted(done, key=done.get, reverse=True)[:4]
+        print(f"{label} build {name}: {total:.2f} s with its link (host "
+              f"clock, every source's nvcc started together); slowest "
+              + ", ".join(f"{s} {done[s]:.2f} s ({entries[s]} kernels)"
+                          for s in slow) + f"  [{card}]", flush=True)
+    return out
+
+
+def v1_kernels(sm, card, label) -> dict:
+    """``--what v1``: see the module's docstring."""
+    import time
+    import torch
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.ops import kernels as tk
+    from mpr_tpu_torch.ops import launch as ln
+    from mpr_tpu_torch.ops.tape_data import TapeData
+    from mpr_tpu_torch.render import pipeline2d
+    dev = torch.device("cuda")
+    recs = []
+    for n_blobs, size in sm.CASES:
+        td = TapeData.from_tape(mpr_tpu_torch.compile_tree(
+            shapes.stress_2d(n_blobs)), device=dev)
+        eye, z = torch.eye(3, device=dev), torch.tensor(0.0, device=dev)
+        recs.append(_recorded(
+            tk, lambda td=td, eye=eye, z=z, size=size:
+            pipeline2d.render_tile_block(td, eye, z, size),
+            ("interval_shorten", "pixel_eval_runs")))
+
+    def host_us(fn, reps=200):
+        # the wrapper's own time on the host: calls back to back, no sync
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return round((t1 - t0) / reps * 1e6, 2)
+
+    def timed(fn):
+        return {"ms": sm.cuda_ms(fn, 30, 3), "device_ms":
+                sm.device_ms(fn, tries=3), "host_us": host_us(fn)}
+
+    out = {}
+    # C1 on the 1024^2 frame's ambiguous tiles at cap = Tcap, then B1 on
+    # its tapes in TILE order, as chip_smoke.py phase 9 runs them
+    a_a, k_a = recs[0]["interval_shorten"][0]
+    a_b, k_b = recs[0]["pixel_eval_runs"][0]
+    meta, words, imms = a_a[0], a_a[1], a_a[2]
+    status, codes = tk.interval_shorten(*a_a, **k_a)
+    n_tiles, tcap = codes.shape[0], words.shape[0]
+    amb = status == tk.ST_AMBIG
+    n = int(amb.sum())
+    order = torch.argsort((~amb).to(torch.int32), stable=True).to(
+        torch.int32)
+    remap = torch.as_tensor(tk.build_remap(tuple(range(2, 32)))[1],
+                            dtype=torch.int32, device=dev)
+    cmeta = torch.zeros(8, dtype=torch.int32, device=dev)
+    cmeta[:3] = torch.tensor([n, tcap // 8, tcap], dtype=torch.int32)
+    c1_args = (cmeta, words, imms, order, remap, codes, n_tiles, tcap, tcap)
+    out["compact_runs"] = timed(lambda: tk.compact_runs(*c1_args))
+    tw, ti, _, gmeta = tk.compact_runs(*c1_args)
+    tiles = order[:n].long()
+    w_t, i_t = torch.zeros_like(tw), torch.zeros_like(ti)
+    l_t = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    w_t[tiles], i_t[tiles], l_t[tiles] = tw[:n], ti[:n], gmeta[:n, 0]
+    nm = a_b[0].clone()
+    nm[0] = n
+    nm[6] = 0
+    b1_args = (nm, order, l_t, w_t, i_t, a_b[11])
+    out["pixel_eval"] = timed(
+        lambda: tk.pixel_eval(*b1_args, s_cap=k_b["s_cap"]))
+    # B1 on the full tape of the 2048^2 cell, longer than B1_STAGE, on 8
+    # tiles: the picked shape, and (where this checkout takes an int stage)
+    # the whole tape staged
+    a_a2, _ = recs[1]["interval_shorten"][0]
+    a_b2, k_b2 = recs[1]["pixel_eval_runs"][0]
+    length, nt = int(a_a2[0][0]), 8
+    nm2 = a_b2[0].clone()
+    nm2[0] = nt
+    nm2[6] = 0
+    long_args = (nm2, torch.arange(nt, dtype=torch.int32, device=dev),
+                 torch.full((nt,), length, dtype=torch.int32, device=dev),
+                 a_a2[1][None].expand(nt, -1).contiguous(),
+                 a_a2[2][None].expand(nt, -1).contiguous(),
+                 a_b2[11][:nt].contiguous())
+    sc2 = k_b2["s_cap"]
+    out["pixel_eval_long"] = {"clauses": length, "picked": timed(
+        lambda: tk.pixel_eval(*long_args, s_cap=sc2))}
+    try:
+        whole = ln.pixel_v1_launch(sc2, long_args[3].shape[1], nt,
+                                   long_args[5].shape[2], home="local",
+                                   stage=length)
+    except (AttributeError, TypeError):
+        whole = None                       # a checkout without the option
+    if whole is not None:
+        want = tk.pixel_eval(*long_args, s_cap=sc2)
+        got = tk.pixel_eval(*long_args, s_cap=sc2, launch=whole)
+        torch.cuda.synchronize()
+        out["pixel_eval_long"]["whole_staged"] = dict(
+            timed(lambda: tk.pixel_eval(*long_args, s_cap=sc2,
+                                        launch=whole)),
+            equal=bool(torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))),
+            staged=whole.staged, smem=whole.smem)
+    for k, v in out.items():
+        print(f"{label} {k}: {json.dumps(v)}  [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--what", default="frames",
                    choices=("frames", "cold", "fits", "unrolled",
-                            "options"),
+                            "options", "builds", "v1"),
                    help="what to time (see the module's docstring)")
     p.add_argument("--root", default=HERE,
                    help="directory that holds the mpr_tpu_torch to time")
@@ -328,7 +502,8 @@ def main() -> int:
     if args.what != "frames":
         what = {"cold": cold_frames, "fits": fit_steps,
                 "unrolled": unrolled_frames,
-                "options": option_frames}[args.what]
+                "options": option_frames, "builds": library_builds,
+                "v1": v1_kernels}[args.what]
         print(json.dumps({"label": args.label, "root": root, "card": card,
                           args.what: what(sm, card, args.label)}))
         return 0

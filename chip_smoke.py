@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the final line):
+Phases (any failure exits non-zero before the final line; each phase's
+seconds on the host clock are printed after it):
 
   1. print the card (``nvidia-smi`` name and power limit) and build the
      CUDA kernels from ``mpr_tpu_torch/ops/csrc`` (nvcc, first use): the
-     main library (every kernel, B, V and D at the shapes the render path
-     picks; its seconds are the render path's first-use build) and then
-     the extra one (B, V, D and K2 at the other shapes, for phase 8b's
-     and 14's forced shapes, and K2f's first design), with
-     ptxas's registers, stack frame and spills for every instantiation of
-     A, B, C, C2, V, D, K2f (the walk at every K of ``SCAN_SWEEP``,
-     storing or not, and its first design) and K2 (a spill fails the run
-     at its end);
+     main library (every kernel, B, B1, V and D at the shapes their
+     pickers take; its seconds are the render path's first-use build) and
+     then the extra one (B, B1, V, D and K2 at the other shapes, for
+     phases 8b's, 9's and 14's forced shapes, and K2f's first design),
+     with ptxas's registers, stack frame and spills for every
+     instantiation of A, B, B1, C, C2, C1, V, D, K2f (the walk at every K
+     of ``SCAN_SWEEP``, storing or not, and its first design) and K2, each
+     with its shape and library (a spill fails the run at its end);
   2. the 2D path: with every launch count set to 0, render the
      ``stress_2d(600)`` model at 1024^2 and ``stress_2d(1500)`` at 2048^2
      through ``mpr_tpu_torch.render.render2d``, recording each kernel's
@@ -64,8 +65,20 @@ Phases (any failure exits non-zero before the final line):
      no render path calls) on the recorded data of the 1024^2 frame: with
      every launch count set to 0, C1 on every ambiguous tile at ``cap =
      Tcap``, ``Tcap/8`` and ``Tcap/16`` (some tapes overflow the last), B1
-     on C1's tapes, C2 on the prepass planes in tile order; then each against its plain version, B1's signs against
-     the frame's fill, C2's outputs against kernel C's; each timed;
+     on C1's tapes, C2 on the prepass planes in tile order; then each
+     against its plain version, C1's lengths and run headers against the
+     prepass's and kernel C's, B1's signs against the frame's fill, C2's
+     outputs against kernel C's; each timed, B1's and C1's device time
+     beside kernel B's and C's (aim: at most ``V1_AIM`` times theirs,
+     printed held or missed) and the prepass plus C's; then B1 at the
+     forced shapes of ``EDGE_B1`` (each home, K = 1, 2, 4, P = 1, 4, 16
+     and 64, no tape staged) and with all ``cap`` clauses staged, at a
+     ragged P (the first 1000 pixels of each tile) and
+     on the full ``stress_2d(1500)`` tape (longer than it stages: read
+     from global memory; and, forced, the whole tape staged), C1 at those of ``EDGE_C1`` (a warp a row, a
+     block a row) on the frame and on the gyroid 3D frame's 16^3 stage
+     (short planes, a warp a row), each bit for bit against its plain
+     version and timed (rows of the ``launch_sweep`` line);
  10. the command line: ``python -m mpr_tpu_torch.cli`` as a subprocess from
      a temporary directory (``render2d stress:600 --size 1024 --check``,
      ``render3d`` of a ``.frep`` scene at 512^3 ``--mode all``, ``render2d
@@ -343,6 +356,12 @@ PREVIOUS_DESIGN_MS = {"voxel_eval_3d": {"gyroid_sphere": 15.221,
                           "gyroid_sphere": 0.2902,
                           "extruded_stress": 0.3162},
                       "compact_bitshift": {"stress_2d(600) 1024^2": 0.0438},
+                      # B1 and C1 before their redesign (a block a tile and
+                      # a thread a pixel on a 256-slot local array; a block
+                      # a row and a thread a code word), device time in
+                      # phase 9 of the run before it
+                      "pixel_eval": {"stress_2d(600) 1024^2": 1.2391},
+                      "compact_runs": {"stress_2d(600) 1024^2": 0.0109},
                       # K1 and K2 before their redesign (the clause values
                       # all stored, adjoints handed over in a zero-filled
                       # plane; K2's file in local memory, a lane a thread),
@@ -670,24 +689,26 @@ def print_c_share(label, r, card):
              else "share not measured") + f"  [{card}]")
 
 
-def time_prepass(fn_frame, card, label):
-    """Device time of the prepass (``pipeline3d._shorten_prepass``, the
-    plain PyTorch that feeds kernel C) over one 3D frame: its calls are
-    recorded in a frame, then replayed and profiled (the sum of its
-    kernels' device time) and timed with events."""
+def time_prepass(fn_frame, card, label, module=None):
+    """Device time of the prepass (``_shorten_prepass``, the plain PyTorch
+    that feeds kernel C) over one frame of ``module`` (``pipeline3d``; or
+    ``pipeline2d`` for a 2D frame): its calls are recorded in a frame,
+    then replayed and profiled (the sum of its kernels' device time) and
+    timed with events."""
     import torch
-    from mpr_tpu_torch.render import pipeline3d
+    if module is None:
+        from mpr_tpu_torch.render import pipeline3d as module
     calls = []
-    orig = pipeline3d._shorten_prepass
+    orig = module._shorten_prepass
 
     def rec(*a, **k):
         calls.append((a, k))
         return orig(*a, **k)
-    pipeline3d._shorten_prepass = rec
+    module._shorten_prepass = rec
     try:
         fn_frame()
     finally:
-        pipeline3d._shorten_prepass = orig
+        module._shorten_prepass = orig
     torch.cuda.synchronize()
 
     def replay():
@@ -1200,10 +1221,58 @@ def masked_same(a, b, lens):
     return int(((a != b) & m).sum())
 
 
+def c1_mismatches(got, want, n):
+    """Kernel C1's mismatches against the plain output over what it
+    specifies, rows below ``n``: gmeta's [len, n_runs, overflow], each tape
+    over [0, len) and the headers over [0, n_runs)."""
+    import torch
+    gm = got[3][:n]
+    ln, nr = gm[:, 0], torch.clamp(gm[:, 1], max=got[2].shape[1])
+    return dict(gmeta=same(gm[:, :3], want[3][:n, :3])[0],
+                tw=masked_same(got[0][:n], want[0][:n], ln),
+                ti=masked_same(got[1][:n], want[1][:n], ln),
+                runs=masked_same(got[2][:n], want[2][:n], nr))
+
+
+# Forced launch shapes of phase 9, as keyword arguments of pixel_v1_launch
+# (B1: each home at K = 1, 2, 4, P = 1, 4, 16 and 64, no tape staged) and
+# compact_runs_launch (C1: a warp a row at 1, 8 and 32 rows a block, a
+# block a row at 128 to 1024 threads); the ragged and long-tape cases take
+# a few of B1's.  Shapes that do not fit are printed as refused.
+EDGE_B1 = ([dict(home=h, k=kk) for h in ("shared", "local")
+            for kk in (1, 2, 4)]
+           + [dict(home="local", k=2, parts=p) for p in (1, 4, 64)]
+           + [dict(home="local", k=2, threads=128, parts=16)]
+           + [dict(home="local", stage=False),
+              dict(home="shared", k=4, stage=False)])
+EDGE_B1_FEW = [dict(home="local", k=kk) for kk in (1, 2, 4)] + [
+    dict(home="shared", k=4)]
+EDGE_C1 = ([dict(warp=True, threads=t) for t in (32, 256, 1024)]
+           + [dict(warp=False, threads=t) for t in (128, 256, 512, 1024)])
+# B1's ragged case: the first V1_RAGGED pixels of each tile; its long-tape
+# case: the full stress_2d(1500) tape on V1_LONG_TILES tiles of the 2048^2
+# frame, longer than the B1_STAGE clauses B1 stages (run also with the
+# whole tape staged, a forced stage size)
+V1_RAGGED = 1000
+V1_LONG_TILES = 8
+# Phase 9's aim: B1's and C1's device time at most this many times kernel
+# B's and C's in the same run (printed as held or missed)
+V1_AIM = 1.15
+
+
+def b1_label(launch):
+    return shape_label(launch) + f" staged={launch.staged}"
+
+
 def run_v1(ctx, results, launches):
-    """Phase 9: kernels B1, C1 and C2 on the recorded 1024^2 frame."""
+    """Phase 9: kernels B1, C1 and C2 on the recorded 1024^2 frame, B1 and
+    C1 at forced shapes, B1 at a ragged P and on a tape too long to stage,
+    C1 on the gyroid's short planes."""
     import numpy as np
     import torch
+    from mpr_tpu_torch.ops import launch as ln
+    from mpr_tpu_torch.ops.tape_data import TapeData
+    from mpr_tpu_torch.render import pipeline2d
     tk, card, recorder = ctx["tk"], ctx["card"], ctx["rec"]
     f = ctx["frame2d"]
     rec, tape, size = f["rec"], f["tape"], f["size"]
@@ -1272,22 +1341,25 @@ def run_v1(ctx, results, launches):
     for name in KERNELS_V1:
         check(counts[name] >= 1, f"kernel {name} was not launched by the "
               "kernel phase")
+    c1_shape = ln.compact_runs_launch(tcap, tcap, n_tiles)
+    b1_shape = ln.pixel_v1_launch(s_cap, tcap, n_tiles, P)
+    print(f"  launch shapes: C1 {c_label(c1_shape)} at cap {tcap}; B1 "
+          f"{b1_label(b1_shape)}")
 
     res = results["v1"] = {}
     # ---- C1 against its plain version ---------------------------------------
-    mism, kept = 0, {}
+    mism, kept, plain_c1 = 0, {}, {}
     for cap in caps:
-        got, want = c1[cap], tk.compact_runs_plain(*c1_args[cap])
+        got = c1[cap]
+        want = plain_c1[cap] = tk.compact_runs_plain(*c1_args[cap])
         gm = got[3][:n]
-        ln, nr = gm[:, 0], torch.clamp(gm[:, 1], max=cap)
-        m = dict(gmeta=same(gm[:, :3], want[3][:n, :3])[0],
-                 tw=masked_same(got[0][:n], want[0][:n], ln),
-                 ti=masked_same(got[1][:n], want[1][:n], ln),
-                 runs=masked_same(got[2][:n], want[2][:n], nr))
-        kept[cap] = (int(ln.sum()), int(nr.sum()))
+        m = c1_mismatches(got, want, n)
+        kept[cap] = (int(gm[:, 0].sum()),
+                     int(torch.clamp(gm[:, 1], max=cap).sum()))
         print(f"  C1 compact_runs cap {cap}: {n} groups, mean len "
-              f"{kept[cap][0] / max(n, 1):.1f} of {tape.length}, "
-              f"{int(gm[:, 2].sum())} flagged; mismatches {m}")
+              f"{kept[cap][0] / max(n, 1):.1f} of {tape.length}, longest "
+              f"{int(gm[:, 0].max())}, {int(gm[:, 2].sum())} flagged; "
+              f"mismatches {m}")
         mism += sum(m.values())
     # and against the frame: at cap = Tcap the lengths are the prepass's
     # (kernel A's codes are zero past the tape) and the run headers kernel
@@ -1301,6 +1373,9 @@ def run_v1(ctx, results, launches):
           and masked_same(c1[tcap][2][:n][fits][:, :cap8],
                           out_c[2][:n][fits], gm_c[fits][:, 1]) == 0,
           "C1's run headers differ from kernel C's")
+    print(f"  C1 at cap {tcap} against the frame: lengths equal to the "
+          f"prepass's on {n} rows, run headers equal to kernel C's on "
+          f"{int(fits.sum())} unflagged rows")
     for cap in caps[1:]:
         gm = c1[cap][3][:n]
         check(bool(((lens_c[:n] >= cap) == (gm[:, 2] == 1)).all())
@@ -1362,13 +1437,29 @@ def run_v1(ctx, results, launches):
               lambda: tk.compact_bitshift_plain(*c2_args)))
     for name, fn, plain in timed:
         res[name]["ms"] = cuda_ms(fn, 30, 3)
-        res[name]["device_ms"] = device_ms(fn)
+        res[name]["device_ms"] = device_ms(fn, tries=3)
         res[name]["plain_ms"] = plain_ms(plain)
     res["compact_runs"]["ms_cap8"] = cuda_ms(
         lambda: tk.compact_runs(*c1_args[cap8]), 30, 3)
-    c_ms = cuda_ms(lambda: tk.compact_bitshift_batched(
-        cmeta_c, lens_c, wrw_r, irw_r, rem_r, **kc), 30, 3)
-    b_ms = cuda_ms(lambda: tk.pixel_eval_runs(*a_b, **k_b), 30, 3)
+
+    def frame_c():
+        return tk.compact_bitshift_batched(cmeta_c, lens_c, wrw_r, irw_r,
+                                           rem_r, **kc)
+
+    def frame_b():
+        return tk.pixel_eval_runs(*a_b, **k_b)
+    c_ms, b_ms = cuda_ms(frame_c, 30, 3), cuda_ms(frame_b, 30, 3)
+    c_dev = device_ms(frame_c, tries=3)
+    b_dev = device_ms(frame_b, tries=3)
+    td = TapeData.from_tape(tape, device=dev)
+    eye = torch.eye(3, device=dev)
+    z = torch.tensor(0.0, device=dev)
+    pre = time_prepass(
+        lambda: pipeline2d.render_tile_block(td, eye, z, size), card,
+        f"@{size}^2", pipeline2d)
+    res["compact_runs"]["kernel_c_device_ms"] = c_dev
+    res["compact_runs"]["prepass"] = pre
+    res["pixel_eval"]["kernel_b_device_ms"] = b_dev
     print(f"kernel phase @{size}^2: C1 {res['compact_runs']['ms']:.4f} ms at "
           f"cap {tcap}, {res['compact_runs']['ms_cap8']:.4f} ms at cap "
           f"{cap8}; B1 {res['pixel_eval']['ms']:.4f} ms (kernel B beside it "
@@ -1380,6 +1471,122 @@ def run_v1(ctx, results, launches):
           + ", ".join(f"{res[k]['plain_ms']:.1f}" for k in
                       ("compact_runs", "pixel_eval", "compact_bitshift"))
           + f" ms  [{card}]")
+    for name, kname, other in (("compact_runs", "C", c_dev),
+                               ("pixel_eval", "B", b_dev)):
+        d = res[name]["device_ms"]
+        ratio = d / other if d and other else None
+        first = PREVIOUS_DESIGN_MS[name][f"stress_2d({CASES[0][0]}) "
+                                         f"{size}^2"]
+        res[name]["vs_kernel"] = ratio
+        print(f"  {name} device {d} ms against kernel {kname}'s {other} ms "
+              f"in this run: "
+              + (f"{ratio:.3f}x, aim <= {V1_AIM}x: "
+                 + ("held" if ratio <= V1_AIM else "MISSED")
+                 if ratio is not None else "not measured")
+              + f"; first design {first} ms (recorded); bound "
+              f"{bound(res[name])[0]:.5f} ms ({bound(res[name])[1]})"
+              f"  [{card}]")
+    pdev = pre["device_ms"]
+    print(f"  prepass + C @{size}^2: "
+          + (f"{pdev:.4f} + {c_dev} = {pdev + c_dev:.4f} ms device"
+             if pdev is not None and c_dev is not None else "not measured")
+          + f" against C1's {res['compact_runs']['device_ms']} ms (C1 needs "
+          f"no prepass)  [{card}]")
+
+    # ---- B1 and C1 at forced shapes, B1 ragged and unstaged ----------------
+    sweep = results["v1_sweep"] = []
+    cell = f"stress_2d({CASES[0][0]}) {size}^2 kernel phase"
+
+    def b1_sweep(label, args, sc, kws, want=None):
+        gcap, cap, pix = args[1].shape[0], args[3].shape[1], args[5].shape[2]
+        nr = int(args[0][0])
+        if want is None:
+            want = tk.pixel_eval_plain(*args, s_cap=sc)
+        shapes = forced(lambda: ln.pixel_v1_launch(sc, cap, gcap, pix),
+                        lambda **kw: ln.pixel_v1_launch(sc, cap, gcap, pix,
+                                                        **kw), kws)
+        sweep_one(label, "pixel_eval", tk.pixel_eval, args, {"s_cap": sc},
+                  shapes, lambda out: bit_mismatches(out[:nr], want[:nr]),
+                  b1_label, sweep, card)
+        return shapes
+
+    # and the frame's tapes with all cap clauses staged (a forced stage
+    # size): the shared memory that a long tape staged whole asks for
+    b1_sweep(cell, args_b1, s_cap, EDGE_B1 + [dict(home="local", stage=tcap)],
+             pvals)
+    ragged = args_b1[:5] + (coords[:, :, :V1_RAGGED].contiguous(),)
+    b1_sweep(f"{cell}, P={V1_RAGGED}", ragged, s_cap, EDGE_B1_FEW)
+    # a tape past B1_STAGE: the full stress_2d(1500) tape on tiles of the
+    # 2048^2 frame
+    rec2 = ctx["recs2d"][CASES[1][1]]
+    (meta2, words2, imms2, _), _, _ = rec2["interval_shorten"][0]
+    a_b2, k_b2, _ = rec2["pixel_eval_runs"][0]
+    length2, nt = int(meta2[0]), V1_LONG_TILES
+    nm_l = a_b2[0].clone()
+    nm_l[0] = nt
+    nm_l[6] = 0
+    long_args = (nm_l, torch.arange(nt, dtype=torch.int32, device=dev),
+                 torch.full((nt,), length2, dtype=torch.int32, device=dev),
+                 words2[None].expand(nt, -1).contiguous(),
+                 imms2[None].expand(nt, -1).contiguous(),
+                 a_b2[11][:nt].contiguous())
+    check(length2 > ln.B1_STAGE, "the long tape fits B1's staging")
+    # and the whole tape staged (a forced stage size past B1_STAGE), timed
+    # beside the global-memory walk
+    long_cell = f"stress_2d({CASES[1][0]}) full tape, {nt} tiles"
+    shapes = b1_sweep(long_cell, long_args, k_b2["s_cap"],
+                      EDGE_B1_FEW[:2] + [dict(home="local", stage=length2)])
+    ran = [sh for _, sh in shapes if not isinstance(sh, str)]
+    check(all(sh.staged < length2 for sh in ran[:-1])
+          and ran[-1].staged == length2,
+          "the long tape was staged, or its forced staging was refused")
+    # sweep_one added a row for each shape that ran, the picked one first
+    long_ms = res["pixel_eval"]["long_tape_device_ms"] = {
+        "global": sweep[-len(ran)]["device_ms"],
+        "staged": sweep[-1]["device_ms"]}
+    print(f"  B1 on the full {length2}-clause tape (past its "
+          f"{ln.B1_STAGE} staged clauses): read from global memory at "
+          f"{len(ran) - 1} shapes; device ms, picked (global memory) "
+          f"{long_ms['global']} against the whole tape staged "
+          f"{long_ms['staged']}  [{card}]")
+    # C1 at forced shapes on the frame, cap = Tcap
+    shapes = forced(lambda: c1_shape,
+                    lambda **kw: ln.compact_runs_launch(tcap, tcap, n_tiles,
+                                                        **kw), EDGE_C1)
+    sweep_one(cell, "compact_runs", tk.compact_runs, c1_args[tcap], {},
+              shapes,
+              lambda out: sum(c1_mismatches(out, plain_c1[tcap], n).values()),
+              c_label, sweep, card)
+    # C1 on short planes: kernel A's codes of the gyroid frame's 16^3 stage
+    name3 = CASES_3D[0][0]
+    (meta3, words3, imms3, _), _, (st3, codes3) = \
+        ctx["recs3d"][name3]["interval_shorten"][1]
+    tcap3 = words3.shape[0]
+    amb3 = st3 == tk.ST_AMBIG
+    n3 = int(amb3.sum())
+    order3 = torch.argsort((~amb3).to(torch.int32), stable=True).to(
+        torch.int32)
+    _, remap3 = tk.build_remap(tuple(range(2, 32)))
+    c1_short = (cmeta(n3, tcap3 // 8, tcap3), words3, imms3, order3,
+                torch.as_tensor(remap3, device=dev), codes3, codes3.shape[0],
+                tcap3, tcap3)
+    want3 = tk.compact_runs_plain(*c1_short)
+    short = ln.compact_runs_launch(tcap3, tcap3, codes3.shape[0])
+    check(short.group == 32 and tcap3 <= ln.C_WARP_TCAP,
+          f"the gyroid's {tcap3}-clause planes did not take a warp a row")
+    gm3 = want3[3][:n3]
+    print(f"  C1 on {name3}'s 16^3 stage: {n3} ambiguous of "
+          f"{codes3.shape[0]} cells, {tcap3}-clause planes, mean len "
+          f"{float(gm3[:, 0].float().mean()):.1f} of {int(meta3[0])}")
+    shapes = forced(lambda: short,
+                    lambda **kw: ln.compact_runs_launch(
+                        tcap3, tcap3, codes3.shape[0], **kw), EDGE_C1)
+    sweep_one(f"{name3} 16^3 cells", "compact_runs", tk.compact_runs,
+              c1_short, {}, shapes,
+              lambda out: sum(c1_mismatches(out, want3, n3).values()),
+              c_label, sweep, card)
+    del want3
+    torch.cuda.synchronize()
 
 
 def run_cli(ctx, launches):
@@ -1515,10 +1722,10 @@ def bound(r):
 
 def ptxas_rows(log):
     """(kernel, K, bucket, registers, stack bytes, spill stores, spill
-    loads) for each instantiation of kernels B, V, D and K2 in nvcc's
+    loads) for each instantiation of kernels B, B1, V, D and K2 in nvcc's
     -Xptxas -v output (bucket 0 is the shared home), of kernel A (K is 1
-    with widening, 0 without; bucket 0), of kernels C and C2 (K is 1 for a
-    warp a row, 0 for a block a row; bucket 0) and of K2f (the walk
+    with widening, 0 without; bucket 0), of kernels C, C2 and C1 (K is 1
+    for a warp a row, 0 for a block a row; bucket 0) and of K2f (the walk
     ``scan_walk_kernel``: K its lanes a thread, bucket 1 where it stores
     the plan for K2, 0 for the plain walk; its first design
     ``scan_eval_first_kernel``: K 1 storing, 0 not; bucket 0)."""
@@ -1526,8 +1733,8 @@ def ptxas_rows(log):
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?(voxel_eval_kernel|"
-                      r"deriv_eval_kernel|pixel_eval_kernel)ILi(\d+)ELi(\d+)E",
-                      line)
+                      r"deriv_eval_kernel|pixel_eval_kernel|"
+                      r"pixel_eval_v1_kernel)ILi(\d+)ELi(\d+)E", line)
         if m:
             cur = [m.group(1), int(m.group(2)), int(m.group(3))]
             continue
@@ -1543,7 +1750,8 @@ def ptxas_rows(log):
             continue
         m = re.search(r"Function properties for \S*?(interval_shorten_kernel|"
                       r"compact_kernel|compact_order_kernel|"
-                      r"scan_eval_first_kernel)ILb(\d)E", line)
+                      r"compact_runs_kernel|scan_eval_first_kernel)ILb(\d)E",
+                      line)
         if m:
             cur = [m.group(1), int(m.group(2)), 0]
             continue
@@ -1565,17 +1773,19 @@ def ptxas_rows(log):
 
 def print_ptxas(tk3, logs):
     """Registers, stack frame and spills of every instantiation of A, B,
-    C, C2, V, D, K2f and K2 in the libraries' nvcc logs (``{library:
-    log}``; bucket 0: the files in shared memory; else local, or for D
-    split by warps).  Every (kernel, K, bucket) of B, V, D and K2 must be
-    built, those of ``tk3.MAIN_K`` in the main library, and both of A's
-    (with and without widening), C's and C2's (a warp or a block a row)
+    B1, C, C2, C1, V, D, K2f and K2 in the libraries' nvcc logs
+    (``{library: log}``; bucket 0: the files in shared memory; else local,
+    or for D split by warps), each named with its shape and library.
+    Every (kernel, K, bucket) of B, B1, V, D and K2 must be built, those
+    of ``tk3.MAIN_K`` in the main library, and both of A's (with and
+    without widening), C's, C2's and C1's (a warp or a block a row)
     and K2f's walk at every K of ``launch.SCAN_SWEEP``, storing the plan
     or not, in the main library (its first design, both ways, in the
     extra one).
     Returns the instantiations that spill: the run fails on them once every
     phase has run."""
     names = {"pixel_eval_kernel": "pixel_eval_runs",
+             "pixel_eval_v1_kernel": "pixel_eval",
              "voxel_eval_kernel": "voxel_eval_3d",
              "deriv_eval_kernel": "deriv_eval_3d",
              "scan_adjoint_kernel": "scan_adjoint"}
@@ -1614,7 +1824,8 @@ def print_ptxas(tk3, logs):
     for widen in (0, 1):
         check("main" in built.get(("interval_shorten_kernel", widen, 0), ()),
               f"kernel A (widen {widen}) is not in the main library")
-    for kern in ("compact_kernel", "compact_order_kernel"):
+    for kern in ("compact_kernel", "compact_order_kernel",
+                 "compact_runs_kernel"):
         for warp in (0, 1):
             check("main" in built.get((kern, warp, 0), ()),
                   f"{kern} (warp a row {warp}) is not in the main library")
@@ -4193,6 +4404,7 @@ def main() -> int:
               "run from the repository root", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
@@ -4213,9 +4425,9 @@ def main() -> int:
             print("  " + line.strip())
         elif ("registers" in line or "spill" in line) and not any(
                 n in source for n in ("voxel_eval", "deriv_eval",
-                                      "pixel_eval.cu", "interval_shorten",
-                                      "compact.cu", "compact_order.cu",
-                                      "scan_adjoint", "scan_eval")):
+                                      "pixel_eval", "interval_shorten",
+                                      "compact", "scan_adjoint",
+                                      "scan_eval")):
             print("  " + line.strip())
     spills = print_ptxas(tk3, build.BuildStats.log)
 
@@ -4223,34 +4435,26 @@ def main() -> int:
            "rec": Recorder({"kernels": tk, "kernels3d": tk3}),
            "builds": (build.BuildStats.loads, build.BuildStats.compiles)}
     results, launches = {}, {}
-    run_2d(ctx, results, launches)
-    sys.stdout.flush()
-    run_stale_imms(ctx)
-    sys.stdout.flush()
-    run_3d(ctx, results, launches)
-    sys.stdout.flush()
-    run_k2f(ctx, results)
-    sys.stdout.flush()
-    run_edges(ctx, results)
-    sys.stdout.flush()
-    run_v1(ctx, results, launches)
-    sys.stdout.flush()
-    run_cli(ctx, launches)
-    sys.stdout.flush()
-    effect_rows = run_effects(ctx)
-    sys.stdout.flush()
-    run_unrolled(ctx, results, launches, pre)
-    sys.stdout.flush()
-    run_options(ctx, results, launches)
-    sys.stdout.flush()
-    run_native(ctx, results)
-    sys.stdout.flush()
-    run_viewer(ctx, results, launches)
-    sys.stdout.flush()
-    run_fit(ctx, results, launches, pre14)
-    sys.stdout.flush()
+    print(f"phase 1 (build): {time.perf_counter() - t_start:.1f} s since "
+          "the start", flush=True)
+    phases = (("2d", run_2d, (results, launches)), ("stale imms",
+              run_stale_imms, ()), ("3d", run_3d, (results, launches)),
+              ("k2f", run_k2f, (results,)), ("edges", run_edges, (results,)),
+              ("v1", run_v1, (results, launches)),
+              ("cli", run_cli, (launches,)), ("effects", run_effects, ()),
+              ("unrolled", run_unrolled, (results, launches, pre)),
+              ("options", run_options, (results, launches)),
+              ("native", run_native, (results,)),
+              ("viewer", run_viewer, (results, launches)),
+              ("fit", run_fit, (results, launches, pre14)))
+    for name, fn, args in phases:
+        t0 = time.perf_counter()
+        got = fn(ctx, *args)
+        if name == "effects":
+            effect_rows = got
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    check(not spills, f"kernel A, B, C, C2, V, D, K2f or K2 spills "
+    check(not spills, f"kernel A, B, B1, C, C2, C1, V, D, K2f or K2 spills "
           f"registers: {spills}")
     check(not results["k1_spills"], f"kernel K1 spills registers: "
           f"{results['k1_spills']}")
@@ -4286,6 +4490,10 @@ def main() -> int:
                      "launched_by": "kernel phase (no render path calls it)"}
             if "ms_cap8" in r:
                 extra["ms_cap8"] = r["ms_cap8"]
+            for key in ("kernel_b_device_ms", "kernel_c_device_ms",
+                        "vs_kernel", "prepass", "long_tape_device_ms"):
+                if key in r:
+                    extra[key] = r[key]
         elif name in KERNELS_2D:
             # timed at the 2D cell, as before; the 3D launches ride along
             r = results[size][name]
@@ -4378,6 +4586,7 @@ def main() -> int:
     sweeps = {f"stress_2d({nb}) {sz}^2": results[sz]["sweep"]
               for nb, sz in CASES}
     sweeps.update({c: results[c]["sweep"] for c, *_ in CASES_3D})
+    sweeps["kernel phase"] = results["v1_sweep"]
     print(json.dumps({"launch_sweep": sweeps}))
     print(json.dumps({"unrolled_options": results["unrolled_options"],
                       "card": card}))

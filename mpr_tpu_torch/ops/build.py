@@ -11,14 +11,14 @@ load it.  The interpreter kernels read the tape at run time, so no new
 tape, capacity or op set ever needs a new build.
 
 There are two libraries (``LIBRARIES``).  ``main`` holds every kernel,
-kernels B, V and D at the launch shapes the render path picks; ``extra``
-holds B, V, D and K2 at the other shapes (``-DMPR_EXTRA_SHAPES``), which
-only a forced launch shape reaches, and K2f's first design, which the
+kernels B, B1, V and D at the launch shapes their pickers take; ``extra``
+holds B, B1, V, D and K2 at the other shapes (``-DMPR_EXTRA_SHAPES``),
+which only a forced launch shape reaches, and K2f's first design, which the
 card's runs time beside K2f, so the render path's first use does not
 compile them.  Kernel A takes every launch shape at run time: both its
 instantiations (with and without widening) are in ``main``; so do kernels
-C and C2, whose two instantiations each (a warp a row, a block a row) the
-render path picks by the plane's length.
+C, C2 and C1, whose two instantiations each (a warp a row, a block a row)
+their pickers take by the plane's length.
 
 Numerics: ``--fmad=false`` and no ``--use_fast_math``, with nvcc's IEEE
 defaults for division, square root and denormals kept, so the kernels
@@ -42,8 +42,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library -> (its sources, None for every .cu in csrc/; extra nvcc flags)
 LIBRARIES = {"main": (None, ()),
-             "extra": (("deriv_eval.cu", "pixel_eval.cu", "scan_adjoint.cu",
-                        "scan_eval.cu", "voxel_eval.cu"),
+             "extra": (("deriv_eval.cu", "pixel_eval.cu", "pixel_eval_v1.cu",
+                        "scan_adjoint.cu", "scan_eval.cu", "voxel_eval.cu"),
                        ("-DMPR_EXTRA_SHAPES",))}
 
 _P = ctypes.c_void_p
@@ -56,8 +56,8 @@ SIGNATURES = {
     "mpr_pixel_eval": [_P] * 13 + [_I] * 10 + [_P],
     "mpr_voxel_eval": [_P] * 13 + [_I] * 9 + [_P],
     "mpr_deriv_eval": [_P] * 13 + [_I] * 12 + [_P],
-    "mpr_pixel_eval_v1": [_P] * 7 + [_I] * 4 + [_P],
-    "mpr_compact_runs": [_P] * 10 + [_I] * 6 + [_P],
+    "mpr_pixel_eval_v1": [_P] * 7 + [_I] * 11 + [_P],
+    "mpr_compact_runs": [_P] * 10 + [_I] * 9 + [_P],
     "mpr_compact_order": [_P] * 10 + [_I] * 7 + [_P],
     "mpr_scan_adjoint": [_P] * 9 + [_I] * 14 + [_P],
     "mpr_scan_eval": [_P] * 7 + [_I] * 14 + [_P],

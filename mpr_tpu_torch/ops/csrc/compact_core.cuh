@@ -3,84 +3,19 @@
 // Kernels C and C2 (compact.cu, compact_order.cu) run compact_row: one
 // tile row's compaction by a group of threads that is either one warp (a
 // warp a row, several rows a block: short planes) or a whole block (a
-// block a row: long planes).  Kernel C1 (compact_runs.cu) keeps the first
-// design's block-wide prefix sum and run numbering (block_exclusive_sum,
-// emit_runs).
+// block a row: long planes).  Kernel C1 (compact_runs.cu) takes a row with
+// the same groups and numbers its runs with the same number_runs.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "block_scan.cuh"
+
 namespace mpr {
 
-// Exclusive prefix sum of one int per thread over the block; *total gets
-// the block sum.  blockDim.x must be a multiple of 32.
-__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sums,
-                                                   int* total) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(full, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int s = lane < nwarps ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(full, s, o);
-      if (lane >= o) s += y;
-    }
-    warp_sums[lane] = s;  // inclusive sums of the warps
-  }
-  __syncthreads();
-  const int before = (wid > 0 ? warp_sums[wid - 1] : 0) + x - v;
-  *total = warp_sums[nwarps - 1];
-  __syncthreads();
-  return before;
-}
-
-// Number the opcode runs of the compacted branch ids sbid[0, n) (shared
-// memory, complete before the call) and write the headers
-// `bid | count << 8` to runs_g[0, rcap), zero past the last run.  Position
-// k starts a run when its bid differs from position k-1's; the last run
-// ends at n.  Threads split [0, span) (span >= n) into contiguous pieces.
-// sstart: rcap + 1 ints of shared memory.  Returns the run count, which
-// may exceed rcap (only the first rcap headers are written).
-__device__ __forceinline__ int emit_runs(const unsigned char* sbid, int n,
-                                         int span, int rcap, int* sstart,
-                                         int* warp_sums,
-                                         int* __restrict__ runs_g) {
-  const int per = (span + blockDim.x - 1) / blockDim.x;
-  const int k0 = threadIdx.x * per;
-  const int k1 = min(k0 + per, n);
-  int heads = 0;
-  for (int k = k0; k < k1; ++k) heads += (k == 0 || sbid[k] != sbid[k - 1]);
-  int n_runs;
-  int r = block_exclusive_sum(heads, warp_sums, &n_runs);
-  for (int k = k0; k < k1; ++k) {
-    if (k == 0 || sbid[k] != sbid[k - 1]) {
-      if (r <= rcap) sstart[r] = k;
-      ++r;
-    }
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < rcap; q += blockDim.x) {
-    int h = 0;
-    if (q < n_runs) {
-      const int s = sstart[q];
-      const int e = q + 1 < n_runs ? sstart[q + 1] : n;
-      h = (int)sbid[s] | ((e - s) << 8);
-    }
-    runs_g[q] = h;
-  }
-  return n_runs;
-}
-
 // ---------------------------------------------------------------------------
-// Kernels C and C2: one row's compaction by a warp or by a block
+// One row's compaction by a warp or by a block
 // ---------------------------------------------------------------------------
 
 // The threads that take one row.  Group<true>: a warp (barrier __syncwarp,
@@ -118,29 +53,53 @@ struct Group<false> {
   // Exclusive prefix sum of v over the block (two barriers; the scratch is
   // not reused within a row, so no third one guards it).
   __device__ int exclusive_sum(int v, int* total) const {
-    const int lane = rank & 31, wid = rank >> 5, nw = blockDim.x >> 5;
-    int x = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) scratch[wid] = x;
-    __syncthreads();
-    if (wid == 0) {
-      int s = lane < nw ? scratch[lane] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, s, o);
-        if (lane >= o) s += y;
-      }
-      scratch[lane] = s;  // inclusive sums of the warps
-    }
-    __syncthreads();
-    *total = scratch[nw - 1];
-    return (wid > 0 ? scratch[wid - 1] : 0) + x - v;
+    return block_scan(v, scratch, total);
   }
 };
+
+// Number the runs of the branch ids sbid[0, nn) (shared memory, complete
+// before the call): each thread counts the run heads (an id unlike the one
+// before) over a contiguous piece of [0, nn), read four ids a load; the
+// group's exclusive sum numbers them, and each head stores its start in
+// sstart[r] for r <= limit.  Returns the run count.  sbid must be readable
+// up to nn rounded up to 4.
+template <bool WARP>
+__device__ __forceinline__ int number_runs(const Group<WARP>& grp,
+                                           const unsigned char* sbid, int nn,
+                                           int* sstart, int limit) {
+  const int me = grp.rank, P = grp.size();
+  const int per = (((nn + P - 1) / P) + 3) & ~3;   // a multiple of 4
+  const int k0 = min(me * per, nn), k1 = min(k0 + per, nn);
+  const int first = k0 > 0 ? (int)sbid[k0 - 1] : -1;
+  int heads = 0, prev = first;
+  for (int k = k0; k < k1; k += 4) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(sbid + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = (x >> (8 * j)) & 0xFF;
+      if (k + j < k1) {
+        heads += b != prev;
+        prev = b;
+      }
+    }
+  }
+  int n_runs;
+  int r = grp.exclusive_sum(heads, &n_runs);
+  prev = first;
+  for (int k = k0; k < k1; k += 4) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(sbid + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = (x >> (8 * j)) & 0xFF;
+      if (k + j < k1 && b != prev) {
+        if (r <= limit) sstart[r] = k + j;
+        ++r;
+      }
+      if (k + j < k1) prev = b;
+    }
+  }
+  return n_runs;
+}
 
 // Shared bytes of one row in compact_row: the kept words and immediates
 // staged (cap rounded up to 4, each), the run starts (cap + 1 ints, in
@@ -172,10 +131,8 @@ constexpr int ROW_QUADS = 2;
 //      immediate (predicated loads, all issued before the stores); each
 //      kept clause's word, immediate and branch id go to shared memory at
 //      its place;
-//   2. each thread counts the run heads (a branch id unlike the one
-//      before) over a contiguous piece of [0, n), read four ids a load;
-//      the group's exclusive sum numbers them, and each head stores its
-//      start;
+//   2. number_runs over [0, n): the group's exclusive sum of each
+//      thread's run heads numbers them, and each head stores its start;
 //   3. the outputs in 16-byte stores over [0, cap) (4-byte ones when cap
 //      is not a multiple of 4): staged words and immediates below n, zero
 //      past it; headers from the run starts below n_runs, zero past it.
@@ -231,37 +188,8 @@ __device__ __forceinline__ void compact_row(
   grp.sync();
 
   // ---- 2. run heads and their starts ---------------------------------------
-  const int nn = min(max(n, 0), tcap);
-  const int per = (((nn + P - 1) / P) + 3) & ~3;   // a multiple of 4
-  const int k0 = min(me * per, nn), k1 = min(k0 + per, nn);
-  const int first = k0 > 0 ? (int)sbid[k0 - 1] : -1;
-  int heads = 0, prev = first;
-  for (int k = k0; k < k1; k += 4) {
-    const uint32_t x = *reinterpret_cast<const uint32_t*>(sbid + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = (x >> (8 * j)) & 0xFF;
-      if (k + j < k1) {
-        heads += b != prev;
-        prev = b;
-      }
-    }
-  }
-  int n_runs;
-  int r = grp.exclusive_sum(heads, &n_runs);
-  prev = first;
-  for (int k = k0; k < k1; k += 4) {
-    const uint32_t x = *reinterpret_cast<const uint32_t*>(sbid + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = (x >> (8 * j)) & 0xFF;
-      if (k + j < k1 && b != prev) {
-        if (r <= cap) sstart[r] = k + j;
-        ++r;
-      }
-      if (k + j < k1) prev = b;
-    }
-  }
+  const int n_runs = number_runs(grp, sbid, min(max(n, 0), tcap), sstart,
+                                 cap);
   grp.sync();
 
   // ---- 3. outputs ----------------------------------------------------------

@@ -1,9 +1,9 @@
 // The interpreter's register file, sized by the tape's slot bucket s_cap,
 // and the walk of a tape's opcode runs over it.
 //
-// Users: kernels B (pixel_eval.cu) and V (voxel_eval.cu), a float a slot,
-// and kernel D (deriv_eval.cu), a dual number a slot.  Their head comments
-// say why each needs it.
+// Users: kernels B (pixel_eval.cu), B1 (pixel_eval_v1.cu) and V
+// (voxel_eval.cu), a float a slot, and kernel D (deriv_eval.cu), a dual
+// number a slot.  Their head comments say why each needs it.
 //
 // A thread interprets K items (voxels, pixels) at once: each clause word
 // and immediate is read from shared memory and decoded once for K items,
@@ -173,6 +173,37 @@ __device__ __forceinline__ void run_clauses(File& f, const uint32_t* words,
   }
 }
 
+// One run of cnt clauses of opcode op: one switch for the run.  ALL
+// false (kernels B, V, D): op is an opcode a branch table gives, and 0, 1
+// and unknown ops are no-op runs (branch id 0).  ALL true (kernel B1's full
+// branch list): opcodes 0 and 1 are real clauses (a * 0) and an opcode
+// past 31 runs the last branch.
+template <class C, int K, bool ALL, class File>
+__device__ __forceinline__ void run_op(File& f, int op,
+                                       const uint32_t* words,
+                                       const float* imms, int t0, int cnt,
+                                       Word w0) {
+  switch (op) {
+#define MPR_CASE(o) \
+  case o: run_clauses<C, o, K>(f, words, imms, t0, cnt, w0); break;
+    MPR_CASE(2) MPR_CASE(3) MPR_CASE(4) MPR_CASE(5) MPR_CASE(6) MPR_CASE(7)
+    MPR_CASE(8) MPR_CASE(9) MPR_CASE(10) MPR_CASE(11) MPR_CASE(12)
+    MPR_CASE(13) MPR_CASE(14) MPR_CASE(15) MPR_CASE(16) MPR_CASE(17)
+    MPR_CASE(18) MPR_CASE(19) MPR_CASE(20) MPR_CASE(21) MPR_CASE(22)
+    MPR_CASE(23) MPR_CASE(24) MPR_CASE(25) MPR_CASE(26) MPR_CASE(27)
+    MPR_CASE(28) MPR_CASE(29) MPR_CASE(30) MPR_CASE(31)
+#undef MPR_CASE
+    default:
+      if constexpr (ALL) {
+        if (op <= OP_JUMP)
+          run_clauses<C, OP_INVALID, K>(f, words, imms, t0, cnt, w0);
+        else
+          run_clauses<C, NUM_OPS - 1, K>(f, words, imms, t0, cnt, w0);
+      }
+      break;
+  }
+}
+
 // Walk a tape run by run: one switch per opcode run (sop maps the run
 // header's branch id to its opcode; id 0 and unknown ops are no-op runs).
 // The next run's header, opcode and first clause are read during this run.
@@ -195,18 +226,7 @@ __device__ __forceinline__ void run_tape(File& f, const int* sop,
       op_n = sop[hdr_n & 0xFF];
       w0_n = {words[t0 + cnt], imms[t0 + cnt]};
     }
-    switch (op) {
-#define MPR_CASE(o) \
-  case o: run_clauses<C, o, K>(f, words, imms, t0, cnt, w0); break;
-      MPR_CASE(2) MPR_CASE(3) MPR_CASE(4) MPR_CASE(5) MPR_CASE(6) MPR_CASE(7)
-      MPR_CASE(8) MPR_CASE(9) MPR_CASE(10) MPR_CASE(11) MPR_CASE(12)
-      MPR_CASE(13) MPR_CASE(14) MPR_CASE(15) MPR_CASE(16) MPR_CASE(17)
-      MPR_CASE(18) MPR_CASE(19) MPR_CASE(20) MPR_CASE(21) MPR_CASE(22)
-      MPR_CASE(23) MPR_CASE(24) MPR_CASE(25) MPR_CASE(26) MPR_CASE(27)
-      MPR_CASE(28) MPR_CASE(29) MPR_CASE(30) MPR_CASE(31)
-#undef MPR_CASE
-      default: break;
-    }
+    run_op<C, K, false>(f, op, words, imms, t0, cnt, w0);
     t0 += cnt;
     hdr = hdr_n;
     op = op_n;

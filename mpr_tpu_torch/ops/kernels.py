@@ -17,9 +17,11 @@ render path calls any more; they are public functions here as they are in
 ``mpr_tpu.ops.kernels``:
 
   * kernel B1, :func:`pixel_eval` — the values of each group's pixels on
-    its tile's own tape, one opcode dispatch per clause;
+    its tile's own tape, whose opcode runs it finds itself (kernel B's
+    register file and run walk; launch shape ``launch.pixel_v1_launch``);
   * kernel C1, :func:`compact_runs` — compaction straight from kernel A's
-    codes (no prepass), opcodes kept in the words, run headers;
+    codes (no prepass), opcodes kept in the words, run headers (kernel C's
+    row groups; launch shape ``launch.compact_runs_launch``);
   * kernel C2, :func:`compact_bitshift` — kernel C with order indirection.
 
 Each wrapper launches its kernel for CUDA tensors (and raises if it
@@ -1010,7 +1012,7 @@ def pixel_eval_plain(nmeta, order, lens, tape_words, tape_imms, coords,
 
 
 def pixel_eval(nmeta, order, lens, tape_words, tape_imms, coords,
-               s_cap: int = SLOT_CAP):
+               s_cap: int = SLOT_CAP, launch=None):
     """Kernel B1: evaluate each group's pixels with its tile's own tape.
 
     Args:
@@ -1020,7 +1022,10 @@ def pixel_eval(nmeta, order, lens, tape_words, tape_imms, coords,
       tape_words: (n_tiles, cap) int32, the opcode in the low byte;
       tape_imms: (n_tiles, cap) f32 (kernel C1's outputs when gcap ==
       n_tiles and order is the identity, else rows gathered by the caller)
-      coords: (n_tiles, 3, P) f32 pixel x/y/z per tile
+      coords: (n_tiles, 3, P) f32 pixel x/y/z per tile, any P >= 1
+      s_cap: the register file's slots (the tape's slot count at most)
+      launch: a forced launch shape (:func:`launch.pixel_v1_launch`;
+        default: the one it picks); ignored on the CPU
 
     Returns vals: (gcap, P) f32 pixel values of tile ``order[g]`` in row
     ``g``; rows ``g >= n_groups`` are unspecified.
@@ -1037,15 +1042,22 @@ def pixel_eval(nmeta, order, lens, tape_words, tape_imms, coords,
     _check(tape_words, "tape_words", torch.int32, (n_tiles, cap))
     _check(tape_imms, "tape_imms", torch.float32, (n_tiles, cap))
     _check(coords, "coords", torch.float32, (n_tiles, 3, P))
-    if not 8 <= s_cap <= REG_CAP or cap < 1:
-        raise ValueError(f"bad s_cap {s_cap} or cap {cap}")
+    if not 8 <= s_cap <= REG_CAP or cap < 1 or P < 1:
+        raise ValueError(f"bad s_cap {s_cap}, cap {cap} or {P} pixels")
+    if launch is None:
+        launch = ln.pixel_v1_launch(s_cap, cap, gcap, P)
+    else:
+        ln.check_pixel_v1_launch(launch, s_cap, cap)
     vals = torch.empty(gcap, P, dtype=torch.float32, device=coords.device)
     if gcap:
+        fn = build.lib(ln.library("pixel_eval", launch)).mpr_pixel_eval_v1
         with torch.cuda.device(coords.device):
-            _launch(build.lib().mpr_pixel_eval_v1, nmeta.data_ptr(),
-                    order.data_ptr(), lens.data_ptr(), tape_words.data_ptr(),
-                    tape_imms.data_ptr(), coords.data_ptr(), vals.data_ptr(),
-                    gcap, n_tiles, cap, P, _stream())
+            _launch(fn, nmeta.data_ptr(), order.data_ptr(), lens.data_ptr(),
+                    tape_words.data_ptr(), tape_imms.data_ptr(),
+                    coords.data_ptr(), vals.data_ptr(), gcap, n_tiles, cap,
+                    P, s_cap, launch.bucket, launch.threads, launch.k,
+                    launch.blocks_per_row, launch.staged, launch.smem,
+                    _stream())
         _pixel_eval.launches += 1
     return vals
 
@@ -1060,10 +1072,11 @@ _pixel_eval = pixel_eval
 # ---------------------------------------------------------------------------
 
 def compact_runs_plain(cmeta, words, imms, order, remap, codes, gcap: int,
-                       cap: int, rcap: int):
+                       cap: int, rcap: int, launch=None):
     """Plain PyTorch kernel C1, vectorized over groups.  Same signature and
-    outputs as :func:`compact_runs`; rows at or past ``cmeta[0]``, tape
-    slots past ``len`` and headers past ``n_runs`` come back zero."""
+    outputs as :func:`compact_runs` (``launch`` is the kernel's and ignored
+    here); rows at or past ``cmeta[0]``, tape slots past ``len`` and
+    headers past ``n_runs`` come back zero."""
     n_tiles, tw_words = codes.shape
     tcap = words.shape[0]
     dev = codes.device
@@ -1106,18 +1119,21 @@ def compact_runs_plain(cmeta, words, imms, order, remap, codes, gcap: int,
 
 
 def compact_runs(cmeta, words, imms, order, remap, codes, gcap: int,
-                 cap: int, rcap: int):
+                 cap: int, rcap: int, launch=None):
     """Kernel C1: compact each group's tape from kernel A's codes.
 
     Args:
       cmeta: (8,) int32 [n_groups, n_words, cap, ..]: groups to compact,
         code words to walk per tile (8 clauses each; the codes are not
         masked by the tape's length), and the capacity (<= ``cap``)
-      words: (Tcap,) int32; imms: (Tcap,) f32, the shared tape
+      words: (Tcap,) int32; imms: (Tcap,) f32, the shared tape (Tcap <=
+        65536: the kernel keeps a clause's index in 16 bits)
       order: (Gcap >= gcap,) int32 tile index of each group
       remap: (32,) int32 opcode -> branch id (build_remap)
       codes: (n_tiles, Tcap/8) int32 from kernel A
       gcap, cap, rcap: rows, tape slots and run-header slots of the outputs
+      launch: a forced launch shape (:func:`launch.compact_runs_launch`;
+        default: the one it picks); ignored on the CPU
 
     Returns (tw (gcap, cap) i32 with the OPCODE in the low byte, ti (gcap,
     cap) f32, runs (gcap, rcap) i32 headers ``branch id | count << 8``,
@@ -1136,10 +1152,15 @@ def compact_runs(cmeta, words, imms, order, remap, codes, gcap: int,
     _check(order, "order", torch.int32, (order.shape[0],))
     _check(remap, "remap", torch.int32, (NUM_OPS,))
     _check(codes, "codes", torch.int32, (n_tiles, tw_words))
-    if (order.shape[0] < gcap or not 1 <= cap <= 16384
-            or not 1 <= rcap <= 16384):
+    if (order.shape[0] < gcap or not 1 <= tcap <= 65536
+            or not 1 <= cap <= 16384 or not 1 <= rcap <= 16384):
         raise ValueError(f"bad shapes: {order.shape[0]} order rows for gcap "
-                         f"{gcap}, cap {cap}, rcap {rcap}")
+                         f"{gcap}, a {tcap}-clause tape, cap {cap}, rcap "
+                         f"{rcap}")
+    if launch is None:
+        launch = ln.compact_runs_launch(tcap, cap, gcap)
+    else:
+        ln.check_compact_runs_launch(launch, tcap, cap)
     dev = codes.device
     tw = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
     ti = torch.empty(gcap, cap, dtype=torch.int32, device=dev)
@@ -1151,7 +1172,8 @@ def compact_runs(cmeta, words, imms, order, remap, codes, gcap: int,
                     words.data_ptr(), imms.data_ptr(), order.data_ptr(),
                     remap.data_ptr(), codes.data_ptr(), tw.data_ptr(),
                     ti.data_ptr(), runs.data_ptr(), gmeta.data_ptr(), gcap,
-                    n_tiles, tw_words, tcap, cap, rcap, _stream())
+                    n_tiles, tw_words, tcap, cap, rcap, launch.threads,
+                    launch.group, launch.smem, _stream())
         _compact_runs.launches += 1
     return tw, ti.view(torch.float32), runs, gmeta
 

@@ -1,16 +1,16 @@
 """Launch shapes of the interpreter kernels, picked on the host.
 
-Kernels B, V and D (``csrc/pixel_eval.cu``, ``voxel_eval.cu``,
-``deriv_eval.cu``) share the register file of ``csrc/regfile.cuh``: where
-it lives (shared or local memory, or for D split by warps), threads a
-block, items a thread (K), blocks a row (P) and dynamic shared memory make
-a :class:`Launch`.  Kernel A (``csrc/interval_shorten.cu``) walks a tape's
+Kernels B, B1, V and D (``csrc/pixel_eval.cu``, ``pixel_eval_v1.cu``,
+``voxel_eval.cu``, ``deriv_eval.cu``) share the register file of
+``csrc/regfile.cuh``: where it lives (shared or local memory, or for D
+split by warps), threads a block, items a thread (K), blocks a row (P) and
+dynamic shared memory make a :class:`Launch`.  Kernel A (``csrc/interval_shorten.cu``) walks a tape's
 dependency levels with a block or a thread a tile: threads a block, tiles
 a block and whether the schedule's planes are staged in shared memory make
-an :class:`IntervalLaunch`.  Kernels C and C2 (``csrc/compact.cu``,
-``compact_order.cu``) take a row with a warp or with the whole block: threads
-a block, threads a row and dynamic shared memory make a
-:class:`CompactLaunch`.
+an :class:`IntervalLaunch`.  Kernels C, C2 and C1 (``csrc/compact.cu``,
+``compact_order.cu``, ``compact_runs.cu``) take a row with a warp or with
+the whole block: threads a block, threads a row and dynamic shared memory
+make a :class:`CompactLaunch`.
 
 Kernel K2 (``csrc/scan_adjoint.cu``, the interpreter's adjoint) keeps an
 adjoint file a lane in one of the two homes: home, threads, lanes a thread
@@ -22,9 +22,10 @@ its re-slotted walk in shared memory: threads and K make a
 :class:`UnrolledLaunch`.
 
 Every function here is pure host code; the pickers are
-:func:`interval_launch`, :func:`pixel_launch`, :func:`compact_launch`,
-:func:`adjoint_launch` and :func:`scan_launch` (kernels A, B, C and C2,
-K2 and K2f),
+:func:`interval_launch`, :func:`pixel_launch`, :func:`pixel_v1_launch`,
+:func:`compact_launch`, :func:`compact_runs_launch`,
+:func:`adjoint_launch` and :func:`scan_launch` (kernels A, B, B1, C and
+C2, C1, K2 and K2f),
 :func:`unrolled_launch` (the generated evaluators) and
 ``kernels3d.voxel_launch`` / ``deriv_launch`` (V and D).  A caller may force another shape (``launch=``
 of a wrapper), which the wrapper checks.
@@ -59,9 +60,10 @@ B_WAVES = 4
 # K of the instantiations in the main library, by kernel, for the shared
 # home (bucket 0) and for local files (a bucket): the shapes the launch
 # functions pick.  The extra library holds the other K (ops/build.py;
-# csrc/pixel_eval.cu, voxel_eval.cu, deriv_eval.cu, scan_adjoint.cu:
-# kernel<K, N>()).
+# csrc/pixel_eval.cu, pixel_eval_v1.cu, voxel_eval.cu, deriv_eval.cu,
+# scan_adjoint.cu: kernel<K, N>()).
 MAIN_K = {"pixel_eval_runs": (B_SHARED[1], B_LOCAL[1]),
+          "pixel_eval": (B_SHARED[1], B_LOCAL[1]),
           "voxel_eval_3d": (4, 2),
           "deriv_eval_3d": (1, 1),
           "scan_adjoint": (ADJ_SHARED[1], ADJ_LOCAL[1])}
@@ -78,7 +80,9 @@ class Launch:
     voxels) a thread runs at once; ``blocks_per_row`` (P; 1 for V) blocks
     share a row's 4096 items; ``smem`` dynamic shared bytes; ``bucket`` the
     local files' slots (0 when no warp has one); ``stage_full``: B and D
-    stage an overflowed row's full tape in shared memory."""
+    stage an overflowed row's full tape in shared memory; ``staged``: B1
+    stages a tile's tape of at most that many clauses in shared memory
+    (longer ones are read from global memory)."""
     home: str
     threads: int
     k: int
@@ -87,6 +91,7 @@ class Launch:
     bucket: int = 0
     stage_full: bool = False
     shared_warps: int = 0
+    staged: int = 0
 
 
 def local_bucket(s_cap: int) -> int:
@@ -156,13 +161,14 @@ def _check_shape(launch: Launch, smem_limit: int, max_threads: int = 512,
     return launch
 
 
-def _fill_parts(launch: Launch, n_rows: int, waves: int = 1) -> int:
-    """P for ``n_rows`` rows: the smallest power of two that gives the grid
-    at least ``waves`` times as many blocks as the card holds at once (and
-    at least two an SM), at most one chunk a thread."""
+def _fill_parts(launch: Launch, n_rows: int, waves: int = 1,
+                items: int = 4096) -> int:
+    """P for ``n_rows`` rows of ``items`` items: the smallest power of two
+    that gives the grid at least ``waves`` times as many blocks as the card
+    holds at once (and at least two an SM), at most one chunk a thread."""
     target = max(2 * SM_COUNT,
                  waves * SM_COUNT * _resident(launch.smem, launch.threads))
-    most = 4096 // (launch.threads * launch.k)
+    most = -(-items // (launch.threads * launch.k))
     parts = 1
     while parts < most and 0 < n_rows * parts < target:
         parts *= 2
@@ -177,6 +183,32 @@ def _pixel_fixed(cap, tcap, stage_full):
     return SMEM_HEADER + _tape_bytes(max(cap, tcap) if stage_full else cap)
 
 
+def _pick_file(shape, smem_limit, home, threads, k, items=None) -> Launch:
+    """Home, threads and K of kernel B or B1 (``shape(home, threads, k)``
+    makes the Launch).  Unforced: ``B_SHARED``'s (threads, K) where their
+    files fit in shared memory and leave an SM two blocks (a short tape),
+    else ``B_LOCAL``'s in local memory (a long tape: the shared home holds
+    too few pixels an SM to hide its latency).  Forced: ``home`` (shared
+    by default) at ``k`` (the home's K by default) and ``threads`` (by
+    default the most whose files fit, at most ``items`` items a block, in
+    the shared home; ``B_LOCAL``'s items a block in the local one)."""
+    if home is None and threads is None and k is None:
+        launch = shape("shared", *B_SHARED)
+        if launch.smem > min(smem_limit, SM_SHARED // 2 - 1024):
+            launch = shape("local", *B_LOCAL)
+        return launch
+    home = home or "shared"
+    k = k or (B_SHARED if home == "shared" else B_LOCAL)[1]
+    if threads is None:
+        if home == "shared":
+            fits = [t for t in THREADS if (items is None or t * k <= items)
+                    and shape(home, t, k).smem <= smem_limit]
+            threads = fits[0] if fits else THREADS[-1]
+        else:
+            threads = B_LOCAL[0] * B_LOCAL[1] // k
+    return shape(home, threads, k)
+
+
 @functools.lru_cache(maxsize=256)
 def pixel_launch(s_cap: int, cap: int, n_rows: int, tcap: int,
                  smem_limit: int = SMEM_LIMIT, *, home: str = None,
@@ -186,10 +218,7 @@ def pixel_launch(s_cap: int, cap: int, n_rows: int, tcap: int,
     ``cap``, ``n_rows`` rows (every tile: the ambiguous count stays on the
     card) and a full tape of ``tcap`` clauses.
 
-    Where the files of ``B_SHARED`` (threads, K) fit in shared memory and
-    leave an SM two blocks, they live there (a short tape); otherwise in
-    local memory, ``B_LOCAL`` (threads, K) (a long tape: the shared home
-    holds too few pixels an SM to hide its latency).  An overflowed row's
+    Home, threads and K as :func:`_pick_file` says.  An overflowed row's
     full tape is staged in shared memory where it takes at most
     ``STAGE_MAX`` bytes and fits.  P, the blocks a tile, is the smallest
     power of two that gives the grid ``B_WAVES`` waves of blocks
@@ -206,21 +235,7 @@ def pixel_launch(s_cap: int, cap: int, n_rows: int, tcap: int,
         return _shape(h, t, kk, s_cap, 4, _pixel_fixed(cap, tcap, stage), 0,
                       stage)
 
-    if home is None and threads is None and k is None:
-        launch = shape("shared", *B_SHARED)
-        if launch.smem > min(smem_limit, SM_SHARED // 2 - 1024):
-            launch = shape("local", *B_LOCAL)
-    else:
-        home = home or "shared"
-        k = k or (B_SHARED if home == "shared" else B_LOCAL)[1]
-        if threads is None:
-            if home == "shared":
-                fits = [t for t in THREADS if t * k <= 4096
-                        and shape(home, t, k).smem <= smem_limit]
-                threads = fits[0] if fits else THREADS[-1]
-            else:
-                threads = B_LOCAL[0] * B_LOCAL[1] // k
-        launch = shape(home, threads, k)
+    launch = _pick_file(shape, smem_limit, home, threads, k, 4096)
     if parts is None:
         parts = _fill_parts(launch, n_rows, B_WAVES)
     return _check_shape(replace(launch, blocks_per_row=parts), smem_limit,
@@ -239,6 +254,83 @@ def check_pixel_launch(launch: Launch, s_cap: int, cap: int,
     if launch != want:
         raise ValueError(f"launch shape {launch} is not {want}")
     return launch
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1
+# ---------------------------------------------------------------------------
+
+# B1: clauses of a tile's tape it stages in shared memory at the most (the
+# tape and the run headers it builds there, 12 bytes a clause); a longer
+# tape is read from global memory.  At 2048 a block of B_LOCAL takes 25.9
+# KB, so an SM still holds eight (its 2048 threads).  A longer tape staged
+# whole (a forced ``stage``) runs faster on a few tiles, but it asks for up
+# to 160 KB, one block an SM, and the host cannot see the tapes' lengths:
+# the same request would hold every launch at that cap, short tapes too,
+# to one block an SM.
+B1_STAGE = 2048
+
+
+def _v1_shape(home, threads, k, s_cap, staged, parts=1) -> Launch:
+    return replace(_shape(home, threads, k, s_cap, 4,
+                          SMEM_HEADER + _tape_bytes(staged), parts=parts),
+                   staged=staged)
+
+
+def _check_v1(launch: Launch, s_cap: int, cap: int, smem_limit: int):
+    """Raise unless ``launch`` is a shape kernel B1 can run: shared or local
+    home, threads, K and P in their sets, at most ``cap`` clauses staged,
+    and the shared bytes its home, threads, K and staging give, within the
+    limit."""
+    ok = (launch.home in ("shared", "local") and launch.k in KS
+          and launch.threads in THREADS
+          and launch.blocks_per_row in PARTS
+          and 0 <= launch.staged <= cap
+          and launch == _v1_shape(launch.home, launch.threads, launch.k,
+                                  s_cap, launch.staged,
+                                  launch.blocks_per_row)
+          and launch.smem <= smem_limit)
+    if not ok:
+        raise ValueError(f"kernel B1 launch shape {launch} does not fit "
+                         f"({smem_limit} shared bytes, cap {cap})")
+    return launch
+
+
+@functools.lru_cache(maxsize=256)
+def pixel_v1_launch(s_cap: int, cap: int, n_rows: int, pixels: int,
+                    smem_limit: int = SMEM_LIMIT, *, home: str = None,
+                    threads: int = None, k: int = None, parts: int = None,
+                    stage=True) -> Launch:
+    """Kernel B1's launch shape for slot bucket ``s_cap``, tape capacity
+    ``cap``, ``n_rows`` rows and ``pixels`` pixels a row.
+
+    As kernel B's (:func:`pixel_launch`): home, threads and K as
+    :func:`_pick_file` says; P the smallest power of two that gives the
+    grid ``B_WAVES`` waves of blocks, at most one chunk of 32 K pixels a
+    thread.  A tile's tape of at most ``min(cap, B1_STAGE)``
+    clauses is staged in shared memory (``stage=False``: none is; an int:
+    a tape of at most that many clauses, at most ``cap``).
+    ``home``, ``threads``, ``k``, ``parts`` and an int ``stage`` force a
+    shape; a forced shape that does not fit raises.  (Kept: the wrapper
+    asks at every launch.)"""
+    if isinstance(stage, bool):
+        staged = min(cap, B1_STAGE) if stage else 0
+    else:
+        staged = int(stage)
+
+    def shape(h, t, kk):
+        return _v1_shape(h, t, kk, s_cap, staged)
+
+    launch = _pick_file(shape, smem_limit, home, threads, k)
+    if parts is None:
+        parts = _fill_parts(launch, n_rows, B_WAVES, pixels)
+    return _check_v1(replace(launch, blocks_per_row=parts), s_cap, cap,
+                     smem_limit)
+
+
+def check_pixel_v1_launch(launch: Launch, s_cap: int, cap: int) -> Launch:
+    """A caller's ``launch`` of kernel B1, checked (:func:`_check_v1`)."""
+    return _check_v1(launch, s_cap, cap, SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +495,7 @@ def check_interval_launch(launch: IntervalLaunch,
 
 
 # ---------------------------------------------------------------------------
-# Kernels C and C2
+# Kernels C and C2, and C1
 # ---------------------------------------------------------------------------
 
 C_THREADS = (32, 64, 128, 256, 512, 1024)
@@ -462,6 +554,17 @@ def _check_c(launch: CompactLaunch, tcap: int, cap: int, smem_limit: int):
     return launch
 
 
+def _warp_rows_threads(n_rows: int, row_bytes: int, smem_limit: int) -> int:
+    """Threads a block of kernel C, C2 or C1 a warp a row: up to
+    ``C_WARP_ROWS`` rows, fewer where the grid would then leave SMs idle
+    or the rows' shared memory would not fit."""
+    rows = C_WARP_ROWS
+    while rows > 1 and (-(-n_rows // rows) < SM_COUNT
+                        or rows * row_bytes > smem_limit):
+        rows //= 2
+    return 32 * rows
+
+
 @functools.lru_cache(maxsize=256)
 def compact_launch(tcap: int, cap: int, n_rows: int,
                    smem_limit: int = SMEM_LIMIT, *, warp: bool = None,
@@ -481,12 +584,8 @@ def compact_launch(tcap: int, cap: int, n_rows: int,
         warp = tcap <= C_WARP_TCAP
     if threads is None:
         if warp:
-            rows = C_WARP_ROWS
-            while rows > 1 and (-(-n_rows // rows) < SM_COUNT
-                                or rows * c_row_bytes(tcap, cap)
-                                > smem_limit):
-                rows //= 2
-            threads = 32 * rows
+            threads = _warp_rows_threads(n_rows, c_row_bytes(tcap, cap),
+                                         smem_limit)
         else:
             threads = min(C_BLOCK_THREADS, max(128, tcap // C_WORDS))
     return _check_c(_c_shape(tcap, cap, threads, warp), tcap, cap,
@@ -499,6 +598,73 @@ def check_compact_launch(launch: CompactLaunch, tcap: int,
     takes, a warp or the block a row, the shared bytes that its rows give
     for ``tcap`` and ``cap``, within the limit."""
     return _check_c(launch, tcap, cap, SMEM_LIMIT)
+
+
+def c1_row_bytes(tcap: int, cap: int) -> int:
+    """Shared bytes of one row in kernel C1 (``csrc/compact_runs.cu::
+    c1_row_bytes``): a row stages at most ``min(cap, tcap)`` kept clauses,
+    an entry (clause index and nibble) and a run start (one more) of 4
+    bytes and a branch id of 1 byte each, in multiples of 16 bytes."""
+    stage = min(cap, tcap)
+    s4 = -(-stage // 4) * 4
+    return 4 * (2 * s4 + 4) + -(-stage // 16) * 16
+
+
+def _c1_shape(tcap, cap, threads, warp) -> CompactLaunch:
+    group = 32 if warp else threads
+    return CompactLaunch(threads, group,
+                         threads // group * c1_row_bytes(tcap, cap))
+
+
+def _check_c1(launch: CompactLaunch, tcap: int, cap: int, smem_limit: int):
+    if (launch.threads not in C_THREADS
+            or launch.group not in (32, launch.threads)
+            or launch != _c1_shape(tcap, cap, launch.threads,
+                                   launch.group == 32)
+            or launch.smem > smem_limit):
+        raise ValueError(f"kernel C1 launch shape {launch} does not fit a "
+                         f"{tcap}-clause tape at cap {cap} ({smem_limit} "
+                         "shared bytes)")
+    return launch
+
+
+@functools.lru_cache(maxsize=256)
+def compact_runs_launch(tcap: int, cap: int, n_rows: int,
+                        smem_limit: int = SMEM_LIMIT, *, warp: bool = None,
+                        threads: int = None) -> CompactLaunch:
+    """Kernel C1's launch shape for a shared tape of ``tcap`` clauses (its
+    code rows ``tcap / 8`` words), output capacity ``cap`` and ``n_rows``
+    rows.
+
+    As kernel C's (:func:`compact_launch`): a tape of at most
+    ``C_WARP_TCAP`` clauses takes a warp a row, up to ``C_WARP_ROWS`` rows
+    a block (fewer where the grid would leave SMs idle or the rows' shared
+    memory would not fit); a longer one takes a block a row, with a thread
+    for each 16-byte load of code words (32 clauses), 128 to
+    ``C_BLOCK_THREADS`` threads.  ``warp`` and ``threads`` force a shape;
+    a forced shape that does not fit raises.  (Kept: the wrapper asks at
+    every launch.)"""
+    if warp is None:
+        warp = tcap <= C_WARP_TCAP
+    if threads is None:
+        if warp:
+            threads = _warp_rows_threads(n_rows, c1_row_bytes(tcap, cap),
+                                         smem_limit)
+        else:
+            loads = -(-tcap // 32)
+            threads = 128
+            while threads < min(C_BLOCK_THREADS, loads):
+                threads *= 2
+    return _check_c1(_c1_shape(tcap, cap, threads, warp), tcap, cap,
+                     smem_limit)
+
+
+def check_compact_runs_launch(launch: CompactLaunch, tcap: int,
+                              cap: int) -> CompactLaunch:
+    """A caller's ``launch`` of kernel C1, checked: threads the kernel
+    takes, a warp or the block a row, the shared bytes that its rows give
+    for ``tcap`` and ``cap``, within the limit."""
+    return _check_c1(launch, tcap, cap, SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------

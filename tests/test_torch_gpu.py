@@ -49,8 +49,8 @@ def cuda():
 def _tape(name):
     if name == "all_ops":
         return Tape.from_arrays(**{k: v for k, v in all_ops_clauses().items()})
-    if name == "stress40":
-        return mpr_tpu_torch.compile_tree(shapes.stress_2d(40))
+    if name.startswith("stress"):
+        return mpr_tpu_torch.compile_tree(shapes.stress_2d(int(name[6:])))
     return mpr_tpu_torch.compile_tree(_RANDOM[int(name[len("random"):])])
 
 
@@ -811,17 +811,16 @@ def test_compact_runs_kernel_matches_plain(cuda, name, cap_div):
         assert torch.equal(got[2][g, :nr], want[2][g, :nr])
 
 
-@pytest.mark.parametrize("name", ["stress40", "all_ops", "random2",
-                                  "random0"])
-def test_pixel_eval_kernel_matches_plain(cuda, name):
-    f = _v1_inputs(_tape(name), 512, cuda)
+def _b1_args(f, cuda, pixels=None):
+    """B1's inputs from C1's tapes of the frame ``f`` (``_v1_inputs``) at
+    cap = the tape's bucket, scattered back to TILE order as B1 reads them;
+    ``pixels``: the first that many pixels of each tile."""
     td, n = f["td"], f["n_amb"]
     cap = td.capacity
     gcap = f["order"].shape[0]
     tw, ti, _, gmeta = tk.compact_runs(
         _cmeta(cuda, n, cap // 8, cap), td.packed, td.imms, f["order"],
         f["remap"], f["codes"], gcap, cap, cap)
-    # B1 reads its tapes by TILE: scatter the group rows back
     tiles = f["order"][:n].long()
     words = torch.zeros_like(tw)
     imms = torch.zeros_like(ti)
@@ -829,7 +828,18 @@ def test_pixel_eval_kernel_matches_plain(cuda, name):
     words[tiles], imms[tiles], lens[tiles] = tw[:n], ti[:n], gmeta[:n, 0]
     nmeta = td.meta()
     nmeta[0] = n
-    args = (nmeta, f["order"], lens, words, imms, f["coords"])
+    coords = f["coords"]
+    if pixels is not None:
+        coords = coords[:, :, :pixels].contiguous()
+    return (nmeta, f["order"], lens, words, imms, coords)
+
+
+@pytest.mark.parametrize("name", ["stress40", "all_ops", "random2",
+                                  "random0"])
+def test_pixel_eval_kernel_matches_plain(cuda, name):
+    f = _v1_inputs(_tape(name), 512, cuda)
+    n = f["n_amb"]
+    args = _b1_args(f, cuda)
     before = tk.pixel_eval.launches
     got = tk.pixel_eval(*args, s_cap=f["s_cap"])
     assert tk.pixel_eval.launches == before + 1
@@ -838,11 +848,172 @@ def test_pixel_eval_kernel_matches_plain(cuda, name):
     assert _same(got[:n], want[:n])
     # and the chain gives the frame's fill on its ambiguous tiles
     img, _ = pipeline2d.render_tile_block(
-        td, torch.eye(3, device=cuda), torch.tensor(0.0, device=cuda), 512)
+        f["td"], torch.eye(3, device=cuda), torch.tensor(0.0, device=cuda),
+        512)
     n_side = 512 // 64
     fill = img.reshape(n_side, 64, n_side, 64).permute(0, 2, 1, 3).reshape(
         n_side * n_side, 4096)
-    assert torch.equal(got[:n] < 0, fill[tiles])
+    assert torch.equal(got[:n] < 0, fill[f["order"][:n].long()])
+
+
+# Forced launch shapes of B1 (launch.pixel_v1_launch's keyword arguments):
+# each home of the register file at K = 1, 2 and 4, P = 1 and more, and no
+# tape staged (every tape read from global memory).
+B1_SHAPES = ([dict(home="local", k=kk) for kk in (1, 2, 4)]
+             + [dict(home="shared", k=kk) for kk in (1, 2, 4)]
+             + [dict(home="local", k=2, parts=p) for p in (1, 4, 32)]
+             + [dict(home="local", k=2, threads=128, parts=16)]
+             + [dict(stage=False), dict(home="shared", k=4, stage=False)])
+
+
+def _b1_forced(args, s_cap, n, kws):
+    """B1 at each forced shape of ``kws`` on ``args``, bit for bit against
+    the plain version on rows below ``n``; returns the shapes run."""
+    from mpr_tpu_torch.ops import launch as ln
+    want = tk.pixel_eval_plain(*args, s_cap=s_cap)
+    cap, gcap, P = args[3].shape[1], args[1].shape[0], args[5].shape[2]
+    ran = []
+    for kw in kws:
+        launch = ln.pixel_v1_launch(s_cap, cap, gcap, P, **kw)
+        got = tk.pixel_eval(*args, s_cap=s_cap, launch=launch)
+        torch.cuda.synchronize()
+        assert _same(got[:n], want[:n]), (kw, launch)
+        ran.append(launch)
+    return ran
+
+
+@pytest.mark.parametrize("name", ["stress40", "all_ops", "random2"])
+def test_pixel_eval_forced_shapes_match_plain(cuda, name):
+    f = _v1_inputs(_tape(name), 512, cuda)
+    ran = _b1_forced(_b1_args(f, cuda), f["s_cap"], f["n_amb"], B1_SHAPES)
+    assert {(sh.home, sh.k) for sh in ran} == {
+        (h, kk) for h in ("shared", "local") for kk in (1, 2, 4)}
+    assert {sh.blocks_per_row for sh in ran} >= {1, 4, 16, 32}
+    assert min(sh.staged for sh in ran) == 0
+
+
+@pytest.mark.parametrize("pixels", [1000, 999, 33])
+def test_pixel_eval_ragged_pixels_match_plain(cuda, pixels):
+    """P that is no multiple of a chunk (or of K): the last chunk of a row
+    is masked, and coordinates come in 4-byte loads where P % K != 0."""
+    f = _v1_inputs(_tape("stress40"), 512, cuda)
+    args = _b1_args(f, cuda, pixels)
+    _b1_forced(args, f["s_cap"], f["n_amb"],
+               [{}, dict(home="local", k=4), dict(home="shared", k=4),
+                dict(home="local", k=1, parts=4), dict(stage=False)])
+    # coordinates and values off 16-byte alignment: 4-byte accesses
+    c = args[5]
+    off = torch.empty(c.numel() + 1, dtype=torch.float32, device=cuda)
+    off[1:] = c.reshape(-1)
+    moved = args[:5] + (off[1:].view(c.shape),)
+    _b1_forced(moved, f["s_cap"], f["n_amb"], [dict(home="local", k=4)])
+
+
+def test_pixel_eval_unstaged_long_tape_matches_plain(cuda):
+    """The full stress_2d(1500) tape (13,365 clauses, past B1_STAGE) as
+    every tile's tape: read from global memory at the picked shape, and
+    staged whole in shared memory at a forced stage size."""
+    from mpr_tpu_torch.ops import launch as ln
+    td = TapeData.from_tape(_tape("stress1500"), device=cuda)
+    assert td.length > ln.B1_STAGE
+    n_tiles, P = 3, 1024
+    words = td.packed[None].expand(n_tiles, -1).contiguous()
+    imms = td.imms[None].expand(n_tiles, -1).contiguous()
+    lens = torch.full((n_tiles,), td.length, dtype=torch.int32, device=cuda)
+    coords = torch.from_numpy(np.random.default_rng(43).uniform(
+        -1, 1, (n_tiles, 3, P)).astype(np.float32)).to(cuda)
+    nmeta = td.meta()
+    nmeta[0] = n_tiles
+    order = torch.tensor([2, 0, 1], dtype=torch.int32, device=cuda)
+    s_cap = max(8, -(-td.num_slots // 8) * 8)
+    ran = _b1_forced((nmeta, order, lens, words, imms, coords), s_cap,
+                     n_tiles, [{}, dict(home="local", k=1),
+                               dict(home="local", stage=td.length)])
+    assert all(sh.staged < td.length for sh in ran[:2])
+    assert ran[2].staged == td.length
+
+
+# Forced launch shapes of C1 (launch.compact_runs_launch's keyword
+# arguments): a warp a row at 1, 8 and 32 rows a block, a block a row at
+# 128 to 1024 threads.
+C1_SHAPES = ([dict(warp=True, threads=t) for t in (32, 256, 1024)]
+             + [dict(warp=False, threads=t) for t in (128, 256, 1024)])
+
+
+def _assert_c1_same(got, want, n, rcap):
+    """C1's outputs against the plain version's over what is specified:
+    gmeta[:, :3], each tape over [0, len), the headers over [0, n_runs)."""
+    gm = got[3][:n]
+    assert torch.equal(gm[:, :3], want[3][:n, :3])
+    k = torch.arange(max(got[0].shape[1], rcap), device=gm.device)
+    m = k[None, :got[0].shape[1]] < gm[:, :1]
+    assert torch.equal(got[0][:n][m], want[0][:n][m])
+    assert torch.equal(got[1][:n].view(torch.int32)[m],
+                       want[1][:n].view(torch.int32)[m])
+    mr = k[None, :rcap] < torch.clamp(gm[:, 1:2], max=rcap)
+    assert torch.equal(got[2][:n][mr], want[2][:n][mr])
+
+
+@pytest.mark.parametrize("name", ["stress40", "stress150", "all_ops"])
+def test_compact_runs_forced_shapes_match_plain(cuda, name):
+    """Every forced shape, on a short tape (a warp a row picked) and a
+    long one (a block a row), at cap = the bucket, at a cap and rcap that
+    are no multiple of 4 (4-byte stores) with cmeta[2] below cap, and at a
+    cap some tapes overflow."""
+    from mpr_tpu_torch.ops import launch as ln
+    f = _v1_inputs(_tape(name), 512, cuda)
+    td, n = f["td"], f["n_amb"]
+    tcap = td.capacity
+    gcap = f["order"].shape[0]
+    picked = ln.compact_runs_launch(tcap, tcap, gcap)
+    assert (picked.group == 32) == (tcap <= ln.C_WARP_TCAP)
+    for cap, capm, rcap in ((tcap, tcap, tcap), (tcap // 4 + 3, tcap // 8,
+                                                  tcap // 4 + 1),
+                            (16, 16, 16)):
+        args = (_cmeta(cuda, n, tcap // 8, capm), td.packed, td.imms,
+                f["order"], f["remap"], f["codes"], gcap, cap, rcap)
+        want = tk.compact_runs_plain(*args)
+        for kw in [{}] + C1_SHAPES:
+            try:
+                launch = ln.compact_runs_launch(tcap, cap, gcap, **kw)
+            except ValueError:
+                # several rows of a long tape a block: past shared memory
+                assert kw["warp"] and kw["threads"] > 32 and tcap > 1024
+                continue
+            got = tk.compact_runs(*args, launch=launch)
+            torch.cuda.synchronize()
+            _assert_c1_same(got, want, n, rcap)
+
+
+def test_compact_runs_unaligned_code_rows_match_plain(cuda):
+    """Code rows of 13 words (no 16-byte loads): seeded random nibbles
+    over the all-ops tape cut to 104 clauses, a tile of exactly cap kept
+    clauses (flagged), at cap = rcap = 40."""
+    from mpr_tpu_torch.ops import launch as ln
+    td = TapeData.from_tape(_tape("all_ops"), device=cuda)
+    tcap, n_tiles, cap = 104, 16, 40
+    words, imms = td.packed[:tcap].contiguous(), td.imms[:tcap].contiguous()
+    rng = np.random.default_rng(44)
+    nib = rng.choice(5, size=(n_tiles, tcap), p=[0.5, 0.2, 0.1, 0.1, 0.1])
+    nz = np.flatnonzero(nib[4])
+    nib[4, nz[cap:]] = 0                               # exactly cap kept
+    nib[4, np.flatnonzero(nib[4] == 0)[:cap - min(cap, nz.size)]] = 1
+    codes = torch.from_numpy(
+        (nib.reshape(n_tiles, tcap // 8, 8) << (4 * np.arange(8))).sum(
+            axis=2).astype(np.uint32).view(np.int32)).to(cuda)
+    order = torch.from_numpy(rng.permutation(n_tiles).astype(np.int32)).to(
+        cuda)
+    _, remap = tk.build_remap(tuple(range(2, 32)))
+    remap_t = torch.as_tensor(remap, device=cuda)
+    args = (_cmeta(cuda, n_tiles, tcap // 8, cap), words, imms, order,
+            remap_t, codes, n_tiles, cap, cap)
+    want = tk.compact_runs_plain(*args)
+    assert want[3][:, 2].any()
+    for kw in [{}] + C1_SHAPES:
+        got = tk.compact_runs(
+            *args, launch=ln.compact_runs_launch(tcap, cap, n_tiles, **kw))
+        torch.cuda.synchronize()
+        _assert_c1_same(got, want, n_tiles, cap)
 
 
 @pytest.mark.parametrize("name", ["stress40", "all_ops", "random2"])

@@ -105,9 +105,11 @@ def _cmeta_c1(n_groups, cap):
     return np.array([n_groups, TW, cap, 0, 0, 0, 0, 0], np.int32)
 
 
-def _c1_both(f, n_groups, order, codes, cap):
-    """C1 through the JAX kernel and through the port, as numpy tuples."""
-    cmeta = _cmeta_c1(n_groups, cap)
+def _c1_both(f, n_groups, order, codes, cap, capm=None):
+    """C1 through the JAX kernel and through the port, as numpy tuples:
+    outputs of ``cap`` entries a row, ``capm`` (default ``cap``) in
+    cmeta[2]."""
+    cmeta = _cmeta_c1(n_groups, cap if capm is None else capm)
     want = jk.compact_runs(jnp.asarray(cmeta), jnp.asarray(f["words"]),
                            jnp.asarray(f["imms"]), jnp.asarray(order),
                            jnp.asarray(ALL_REMAP), jnp.asarray(codes),
@@ -148,6 +150,20 @@ def test_compact_runs_matches_jax(name, cap):
         assert not over.any()
     else:
         assert over.any() and not over.all()
+
+
+@pytest.mark.parametrize("name,cap,capm", [("stress12", TCAP // 4, TCAP // 8),
+                                           ("stress40", TCAP, TCAP // 4)])
+def test_compact_runs_capacity_below_cap_matches_jax(name, cap, capm):
+    """cmeta[2] below the outputs' capacity: each length is min(count,
+    cmeta[2]) and the flag count >= cmeta[2], as in the JAX kernel."""
+    f = _frame(name)
+    n = f["n_amb"]
+    want, got = _c1_both(f, n, f["order"], f["codes"], cap, capm)
+    _assert_c1_equal(want, got, n, capm)
+    over = want[3][:n, 2] == 1
+    assert over.any()
+    assert (want[3][:n, 0][over] == capm).all()
 
 
 def test_compact_runs_random_codes_match_jax():
@@ -253,6 +269,12 @@ def test_pixel_eval_matches_jax(name):
                                     s_cap=S_CAP))[:n]
     got = tk.pixel_eval(*(_t(a) for a in args), s_cap=S_CAP).numpy()[:n]
     assert got.shape == want.shape == (n, 4096) and got.dtype == np.float32
+    _assert_values_match(name, f, got, want)
+
+
+def _assert_values_match(name, f, got, want):
+    """B1's values against the JAX kernel's: bit-equal, or on a tape that
+    runs sin, cos, exp or log within ULPS of the tile's largest value."""
     same = _bits_equal(got, want)
     if set(np.unique(f["tape"].ops).tolist()) & TRANSCENDENTAL_OPS:
         # sin, cos, exp, log: an ulp apart between torch's CPU kernels and
@@ -315,6 +337,70 @@ def test_pixel_eval_runs_opcodes_0_and_1_as_zero():
                                     s_cap=8))
     got = tk.pixel_eval(*(_t(a) for a in args), s_cap=8).numpy()
     assert np.array_equal(got, want) and (got == 2.5).all()
+
+
+@pytest.mark.parametrize("pixels", [1000, 200])
+@pytest.mark.parametrize("name", ["stress40", "random2"])
+def test_pixel_eval_ragged_pixels_match_jax(name, pixels):
+    """P that is no multiple of the kernel's chunks (32 K pixels): the
+    first ``pixels`` of each tile (a multiple of 8, which the JAX kernel's
+    (8, P/8) blocks need), equal to those pixels of the full tile.  The
+    tolerance of :func:`_assert_values_match`."""
+    f = _frame(name)
+    n = f["n_amb"]
+    nmeta, lens, words, imms, _ = _tapes_in_tile_order(f)
+    coords = np.ascontiguousarray(f["coords"][:, :, :pixels])
+    args = (nmeta, f["order"], lens, words, imms, coords)
+    want = np.asarray(jk.pixel_eval(*(jnp.asarray(a) for a in args),
+                                    s_cap=S_CAP))[:n]
+    got = tk.pixel_eval(*(_t(a) for a in args), s_cap=S_CAP).numpy()[:n]
+    assert got.shape == want.shape == (n, pixels)
+    full = tk.pixel_eval(*(_t(a) for a in args[:5]), _t(f["coords"]),
+                         s_cap=S_CAP).numpy()[:n]
+    assert _bits_equal(got, full[:, :pixels]).all()
+    _assert_values_match(name, f, got, want)
+
+
+def test_pixel_eval_opcodes_0_1_and_past_31_inside_the_tape():
+    """Opcodes 0 and 1 inside [0, len) give ``a * 0`` (runs of their own
+    between runs of other opcodes), an opcode past 31 runs the last branch
+    (ADDSQ: a * a + b), at a ragged P (264 pixels); a tile's length past
+    cap is clamped to cap."""
+    def w(op, out, lhs, rhs):
+        return op | out << 8 | lhs << 16 | rhs << 24
+    cap = 12
+    words = np.zeros((2, cap), np.int32)
+    imms = np.zeros((2, cap), np.float32)
+    rows = [[w(14, 4, 1, 2), w(14, 5, 4, 2), w(0, 6, 4, 0), w(1, 6, 6, 0),
+             w(13, 6, 6, 0), w(40, 7, 4, 5), w(255, 7, 7, 6),
+             w(14, 4, 7, 6)],
+            [w(16, 4, 1, 2), w(0, 5, 4, 0), w(0, 5, 5, 0), w(13, 5, 5, 0),
+             w(31, 4, 4, 5), w(1, 6, 5, 0), w(15, 4, 4, 0), w(14, 4, 4, 3),
+             w(33, 4, 4, 4), w(14, 4, 4, 2), w(13, 4, 4, 0), w(14, 4, 4, 1)]]
+    for r, ws in enumerate(rows):
+        words[r, :len(ws)] = np.array(ws, np.int64).astype(np.int32)
+    imms[0, 4] = 1.5
+    imms[1, [3, 6, 10]] = [0.25, -2.0, 0.125]
+    nmeta = np.array([2, 8, 4, 1, 2, 3, 0, 0], np.int32)
+    coords = np.random.default_rng(45).uniform(
+        -1, 1, (2, 3, 264)).astype(np.float32)
+    order = np.array([1, 0], np.int32)
+    args = (nmeta, order, np.array([8, 12], np.int32), words, imms, coords)
+    want = np.asarray(jk.pixel_eval(*(jnp.asarray(a) for a in args),
+                                    s_cap=8))
+    got = tk.pixel_eval(*(_t(a) for a in args), s_cap=8).numpy()
+    assert _bits_equal(got, want).all()
+    # tile 0's walk by hand, in float32
+    x, y = coords[0, 0], coords[0, 1]
+    s4 = x + y
+    s5 = s4 + y
+    s6 = (s4 * np.float32(0)) * np.float32(0) + np.float32(1.5)
+    s7 = s4 * s4 + s5
+    s7 = s7 * s7 + s6
+    assert _bits_equal(got[1], s7 + s6).all()
+    clamped = args[:2] + (np.array([8, 99], np.int32),) + args[3:]
+    assert _bits_equal(
+        tk.pixel_eval(*(_t(a) for a in clamped), s_cap=8).numpy(), got).all()
 
 
 # ---------------------------------------------------------------------------

@@ -561,3 +561,168 @@ def test_forced_b_shapes_are_checked():
                     ln.check_pixel_launch(bad, s_cap, cap, tcap)
     with pytest.raises(ValueError):
         ln.pixel_launch(264, 128, 16, 512, home="local")
+
+
+# ---------------------------------------------------------------------------
+# Launch shapes of kernels B1 and C1
+# ---------------------------------------------------------------------------
+
+def _v1_pixels(launch, pixels):
+    """Pixel index of every (block of the row, chunk, lane, k) below
+    ``pixels``, as kernel B1 computes it: block j takes [j * per, (j+1) *
+    per), per = ceil(P / parts) rounded up to a chunk of 32 K pixels."""
+    span = 32 * launch.k
+    parts = launch.blocks_per_row
+    per = -(-(-(-pixels // parts)) // span) * span
+    j, c, t, k = np.meshgrid(np.arange(parts), np.arange(per // span),
+                             np.arange(32), np.arange(launch.k),
+                             indexing="ij")
+    p = (j * per + c * span + t * launch.k + k).ravel()
+    return p[p < pixels]
+
+
+@pytest.mark.parametrize("cap", [64, 512, 2048, 8192, 16384])
+@pytest.mark.parametrize("s_cap", [8, 16, 32, 64, 128, 176, 256])
+def test_pixel_v1_launch_fits_and_covers_every_pixel(s_cap, cap):
+    for n_rows, pixels in ((1, 4096), (243, 4096), (256, 1000), (16, 33)):
+        b = ln.pixel_v1_launch(s_cap, cap, n_rows, pixels)
+        assert b.smem <= ln.SMEM_LIMIT and b.home in ("shared", "local")
+        assert b.staged == min(cap, ln.B1_STAGE)
+        assert (b.home, b.threads, b.k) in (
+            ("shared",) + ln.B_SHARED, ("local",) + ln.B_LOCAL)
+        if b.home == "shared":
+            assert b.smem <= ln.SM_SHARED // 2 - 1024
+        else:
+            assert b.bucket == ln.local_bucket(s_cap)
+            # a full SM of local-home blocks: staging does not cut it
+            assert ln._resident(b.smem, b.threads) == \
+                ln.SM_THREADS // b.threads
+        assert ln.library("pixel_eval", b) == "main"
+        assert np.array_equal(np.sort(_v1_pixels(b, pixels)),
+                              np.arange(pixels))
+        assert ln.check_pixel_v1_launch(b, s_cap, cap) is b
+    for home in ("shared", "local"):
+        for k in (1, 2, 4):
+            for stage in (True, False):
+                try:
+                    f = ln.pixel_v1_launch(s_cap, cap, 256, 1000, home=home,
+                                           k=k, stage=stage)
+                except ValueError:
+                    assert home == "shared" and s_cap >= 128
+                    continue
+                assert (f.home, f.k) == (home, k)
+                assert f.staged == (min(cap, ln.B1_STAGE) if stage else 0)
+                assert ln.library("pixel_eval", f) == (
+                    "main" if k == (4 if home == "shared" else 2)
+                    else "extra")
+                assert np.array_equal(np.sort(_v1_pixels(f, 1000)),
+                                      np.arange(1000))
+                assert ln.check_pixel_v1_launch(f, s_cap, cap) is f
+
+
+def test_pixel_v1_launch_at_the_kernel_phase():
+    """Phase 9's 1024^2 frame: 243 of 256 tiles, C1's tapes at cap =
+    Tcap, 173 slots: kernel B's shape there, 2048 clauses staged."""
+    b = ln.pixel_v1_launch(176, 8192, 256, 4096)
+    assert (b.home, b.threads, b.k, b.blocks_per_row, b.staged) == (
+        "local", 256, 2, 8, 2048)
+    assert b.smem == ln.SMEM_HEADER + 12 * 2048
+
+
+def test_forced_b1_shapes_are_checked():
+    for s_cap, cap in ((16, 512), (176, 8192)):
+        for kw in (dict(home="local", k=1), dict(home="local", k=4),
+                   dict(home="shared", k=1), dict(home="local", parts=1),
+                   dict(home="local", stage=False),
+                   dict(home="shared", k=4, threads=128)):
+            try:
+                b = ln.pixel_v1_launch(s_cap, cap, 256, 4096, **kw)
+            except ValueError:
+                assert s_cap == 176 and kw["home"] == "shared"
+                continue
+            assert ln.check_pixel_v1_launch(b, s_cap, cap) is b
+            for bad in (replace(b, smem=b.smem + 16),
+                        replace(b, bucket=0 if b.bucket else 16),
+                        replace(b, staged=b.staged + 4),
+                        replace(b, staged=cap + 4),
+                        replace(b, k=3), replace(b, blocks_per_row=3),
+                        replace(b, threads=96),
+                        replace(b, home="split", shared_warps=1)):
+                with pytest.raises(ValueError):
+                    ln.check_pixel_v1_launch(bad, s_cap, cap)
+    # a file that does not fit in shared memory at any thread count
+    with pytest.raises(ValueError):
+        ln.pixel_v1_launch(256, 512, 16, 4096, home="shared", k=4)
+    with pytest.raises(ValueError):
+        ln.pixel_v1_launch(264, 512, 16, 4096, home="local")
+
+
+def test_a_forced_b1_stage_size_stages_past_b1_stage():
+    """An int ``stage`` stages a tape of up to that many clauses, past
+    B1_STAGE where shared memory holds it; more than cap, or more than
+    shared memory holds, raises."""
+    b = ln.pixel_v1_launch(176, 16384, 8, 4096, home="local", stage=13365)
+    assert b.staged == 13365 and b.smem <= ln.SMEM_LIMIT
+    assert ln.check_pixel_v1_launch(b, 176, 16384) is b
+    assert ln.pixel_v1_launch(176, 16384, 8, 4096).staged == ln.B1_STAGE
+    with pytest.raises(ValueError):
+        ln.pixel_v1_launch(176, 8192, 8, 4096, home="local", stage=8196)
+    with pytest.raises(ValueError):
+        ln.pixel_v1_launch(176, 32768, 8, 4096, home="local", stage=20000)
+    with pytest.raises(ValueError):
+        ln.check_pixel_v1_launch(replace(b, staged=16388), 176, 16384)
+
+
+@pytest.mark.parametrize("tcap", [104, 256, 1024, 2048, 8192, 16384])
+@pytest.mark.parametrize("cap_div", [1, 4, 16])
+def test_compact_runs_launch_fits(tcap, cap_div):
+    for cap in (max(1, tcap // cap_div), 16384):
+        for n_rows in (1, 64, 243, 100_000):
+            c = ln.compact_runs_launch(tcap, cap, n_rows)
+            assert c.smem <= ln.SMEM_LIMIT
+            assert c.smem == c.rows * ln.c1_row_bytes(tcap, cap)
+            # short planes a warp a row, long ones a block a row
+            assert (c.group == 32) == (tcap <= ln.C_WARP_TCAP)
+            if c.group == 32:
+                assert c.rows <= ln.C_WARP_ROWS
+            else:
+                assert 128 <= c.threads <= ln.C_BLOCK_THREADS
+                assert c.threads >= min(ln.C_BLOCK_THREADS, -(-tcap // 32))
+            assert ln.check_compact_runs_launch(c, tcap, cap) is c
+
+
+def test_c1_rows_stage_at_most_the_tape():
+    """A row stages min(cap, tcap) clauses at 9 bytes each (an entry, a run
+    start, a branch id), rounded to 16 bytes, plus 16 bytes of starts."""
+    assert ln.c1_row_bytes(8192, 8192) == 9 * 8192 + 16
+    assert ln.c1_row_bytes(256, 16384) == ln.c1_row_bytes(256, 256) \
+        == 9 * 256 + 16
+    assert ln.c1_row_bytes(16384, 40) == 8 * 40 + 16 + 48
+    assert ln.c1_row_bytes(13, 13) == 8 * 16 + 16 + 16
+    for tcap, cap in ((104, 40), (8192, 1023), (16384, 16384)):
+        assert ln.c1_row_bytes(tcap, cap) % 16 == 0
+        assert ln.c1_row_bytes(tcap, cap) <= ln.c_row_bytes(tcap, cap)
+    assert ln.compact_runs_launch(8192, 8192, 243) == ln.CompactLaunch(
+        256, 256, 9 * 8192 + 16)
+
+
+def test_forced_c1_shapes_are_checked():
+    for tcap, cap in ((256, 256), (8192, 1024), (16384, 16384)):
+        for kw in (dict(warp=True, threads=32), dict(warp=True, threads=256),
+                   dict(warp=False, threads=128),
+                   dict(warp=False, threads=1024)):
+            try:
+                c = ln.compact_runs_launch(tcap, cap, 1000, **kw)
+            except ValueError:
+                assert kw["warp"] and tcap == 16384
+                continue
+            assert (c.group == 32) == kw["warp"]
+            assert ln.check_compact_runs_launch(c, tcap, cap) is c
+            for bad in (replace(c, smem=c.smem + 16),
+                        replace(c, threads=96),
+                        replace(c, group=64 if c.group != 64 else 32)):
+                with pytest.raises(ValueError):
+                    ln.check_compact_runs_launch(bad, tcap, cap)
+    # 32 rows of a 16384-clause tape do not fit in shared memory
+    with pytest.raises(ValueError):
+        ln.compact_runs_launch(16384, 16384, 10, warp=True, threads=1024)

@@ -193,13 +193,14 @@ def test_port_imports_neither_jax_nor_mpr_tpu():
 
 
 def test_port_sources_name_no_jax():
-    """No code token of the port, of chip_smoke.py or of chip_frames.py
-    names ``jax`` or ``mpr_tpu`` (comments and docstrings may cite the JAX
-    kernels a port replaces)."""
+    """No code token of the port, of chip_smoke.py, chip_frames.py or
+    chip_phases.py names ``jax`` or ``mpr_tpu`` (comments and docstrings
+    may cite the JAX kernels a port replaces)."""
     import io
     import tokenize
     files = sorted((REPO / "mpr_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "chip_frames.py"]
+        REPO / "chip_smoke.py", REPO / "chip_frames.py",
+        REPO / "chip_phases.py"]
     assert len(files) > 10
     assert REPO / "mpr_tpu_torch" / "viewer.py" in files
     assert REPO / "mpr_tpu_torch" / "native" / "__init__.py" in files
