@@ -862,10 +862,9 @@ def run_2d(ctx, results, launches):
     import torch
     import mpr_tpu_torch
     from mpr_tpu_torch.frontend import shapes
-    from mpr_tpu_torch.ops import build
-    from mpr_tpu_torch.ops import schedule as sch
     from mpr_tpu_torch.ops.tape_data import TapeData
     from mpr_tpu_torch.render import pipeline2d, render2d, render2d_brute
+    from mpr_tpu_torch.utils.trace import COUNTS
     tk, dev, card, recorder = ctx["tk"], ctx["dev"], ctx["card"], ctx["rec"]
 
     tapes = {}
@@ -878,7 +877,7 @@ def run_2d(ctx, results, launches):
               f", compiled in {time.perf_counter() - t0:.2f} s")
     recs = {size: {} for _, size in CASES}
     images = {}
-    builds = sch.tape_levels.builds
+    builds = COUNTS['builds.schedule']
     recorder.reset_counts()
     try:
         for _, size in CASES:
@@ -898,8 +897,8 @@ def run_2d(ctx, results, launches):
               f"{counts[name]} times on the 2D path")
     # each render2d call makes the tape's TapeData, whose schedule its one
     # launch of kernel A builds
-    check(sch.tape_levels.builds - builds == len(CASES),
-          f"{sch.tape_levels.builds - builds} schedules built over "
+    check(COUNTS['builds.schedule'] - builds == len(CASES),
+          f"{COUNTS['builds.schedule'] - builds} schedules built over "
           f"{len(CASES)} 2D frames")
     for n_blobs, size in CASES:
         print_levels(f"stress_2d({n_blobs})",
@@ -936,10 +935,10 @@ def run_2d(ctx, results, launches):
     img = render2d(edited, size=1024)
     check(np.array_equal(img, render2d_brute(edited, size=1024)),
           "edited tape renders wrong")
-    check((build.BuildStats.loads, build.BuildStats.compiles)
+    check((COUNTS['builds.load'], COUNTS['builds.compile'])
           == ctx["builds"], "the edited tape caused a new build")
     print(f"edited tape ({edited.length} clauses, another op set): exact, "
-          f"libraries loaded still {build.BuildStats.loads}")
+          f"libraries loaded still {COUNTS['builds.load']}")
 
     # ---- timing ----------------------------------------------------------------
     for _, size in CASES:
@@ -948,10 +947,10 @@ def run_2d(ctx, results, launches):
         eye = torch.eye(3, device=dev)
         z = torch.tensor(0.0, device=dev)
         pipeline2d.render_tile_block(td, eye, z, size)
-        builds = sch.tape_levels.builds
+        builds = COUNTS['builds.schedule']
         frame_ms = cuda_ms(
             lambda: pipeline2d.render_tile_block(td, eye, z, size), 20, 3)
-        check(sch.tape_levels.builds == builds, "a 2D frame after the "
+        check(COUNTS['builds.schedule'] == builds, "a 2D frame after the "
               "first on one tape built a schedule")
         t0 = time.perf_counter()
         for _ in range(10):
@@ -1042,10 +1041,10 @@ def run_3d(ctx, results, launches):
     import mpr_tpu_torch
     from mpr_tpu_torch.frontend import shapes
     from mpr_tpu_torch.ops import eval_scan
-    from mpr_tpu_torch.ops import schedule as sch
     from mpr_tpu_torch.ops.tape_data import TapeData
     from mpr_tpu_torch.render import (camera, pipeline3d, render3d,
                                       render3d_brute)
+    from mpr_tpu_torch.utils.trace import COUNTS
     tk, tk3, dev, card, recorder = (ctx["tk"], ctx["tk3"], ctx["dev"],
                                     ctx["card"], ctx["rec"])
 
@@ -1066,7 +1065,7 @@ def run_3d(ctx, results, launches):
     try:
         for name, _, _, size in CASES_3D:
             recorder.install(recs[name])
-            builds = sch.tape_levels.builds
+            builds = COUNTS['builds.schedule']
             t0 = time.perf_counter()
             frames[name] = render3d(tapes[name], mat=mats[name], size=size)
             torch.cuda.synchronize()
@@ -1081,10 +1080,10 @@ def run_3d(ctx, results, launches):
             before = now
             # the frame's three launches of kernel A share one schedule
             lvs = [levels_of(k) for _, k, _ in recs[name]["interval_shorten"]]
-            check(sch.tape_levels.builds - builds == 1
-                  and all(lv is lvs[0] for lv in lvs),
-                  f"the {name} frame built {sch.tape_levels.builds - builds}"
-                  " schedules, or its launches of kernel A do not share one")
+            built = COUNTS['builds.schedule'] - builds
+            check(built == 1 and all(lv is lvs[0] for lv in lvs),
+                  f"the {name} frame built {built} schedules, or its "
+                  "launches of kernel A do not share one")
             print_levels(name, lvs[0])
     finally:
         recorder.remove()
@@ -1162,10 +1161,10 @@ def run_3d(ctx, results, launches):
         def frame(normals=True):
             return pipeline3d.render3d_rows(td, mat_t, size, 0, n, normals)
         frame()
-        builds = sch.tape_levels.builds
+        builds = COUNTS['builds.schedule']
         f_ms = cuda_ms(frame, 10, 2)
-        check(sch.tape_levels.builds == builds, "a 3D frame after the first "
-              "on one tape built a schedule")
+        check(COUNTS['builds.schedule'] == builds, "a 3D frame after the "
+              "first on one tape built a schedule")
         f0_ms = cuda_ms(lambda: frame(False), 10, 2)
         t0 = time.perf_counter()
         for _ in range(5):
@@ -4399,6 +4398,7 @@ def main() -> int:
         from mpr_tpu_torch.ops import kernels as tk
         from mpr_tpu_torch.ops import kernels3d as tk3
         from mpr_tpu_torch.ops.tape_data import resolve_device
+        from mpr_tpu_torch.utils.trace import COUNTS
     except ImportError as e:
         print(f"chip_smoke: the mpr_tpu_torch package is missing ({e}); "
               "run from the repository root", file=sys.stderr)
@@ -4416,8 +4416,8 @@ def main() -> int:
     for lib_name in build.LIBRARIES:
         build.lib(lib_name)
         print(f"build {lib_name}: {build.BuildStats.seconds[lib_name]:.1f} s"
-              f" (compiles so far {build.BuildStats.compiles}, loads "
-              f"{build.BuildStats.loads})", flush=True)
+              f" (compiles so far {COUNTS['builds.compile']}, loads "
+              f"{COUNTS['builds.load']})", flush=True)
     source = ""
     for line in build.BuildStats.log["main"].splitlines():
         if line.startswith("=="):
@@ -4433,7 +4433,7 @@ def main() -> int:
 
     ctx = {"tk": tk, "tk3": tk3, "dev": resolve_device(), "card": card,
            "rec": Recorder({"kernels": tk, "kernels3d": tk3}),
-           "builds": (build.BuildStats.loads, build.BuildStats.compiles)}
+           "builds": (COUNTS['builds.load'], COUNTS['builds.compile'])}
     results, launches = {}, {}
     print(f"phase 1 (build): {time.perf_counter() - t_start:.1f} s since "
           "the start", flush=True)

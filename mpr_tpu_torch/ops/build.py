@@ -36,6 +36,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..utils.trace import count
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mpr_tpu_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,12 +69,11 @@ EXTRA_ENTRIES = {"mpr_scan_eval_first": [_P] * 9 + [_I] * 9 + [_P]}
 
 
 class BuildStats:
-    """How this process came by the libraries: ``compiles`` counts nvcc
-    builds, ``loads`` counts libraries loaded; ``seconds`` and ``log`` map
+    """How this process came by the libraries: ``seconds`` and ``log`` map
     a library's name to the time its build or load took and to what nvcc
-    printed for it (registers, spills)."""
-    compiles = 0
-    loads = 0
+    printed for it (registers, spills).  The builds and loads are counted
+    in ``utils/trace.py``'s ``COUNTS["builds.compile"]`` and
+    ``["builds.load"]``."""
     seconds = {}
     log = {}
 
@@ -166,7 +167,7 @@ def lib(name: str = "main") -> ctypes.CDLL:
         else:
             out.parent.mkdir(parents=True, exist_ok=True)
             BuildStats.log[name] = _compile(name, out)
-            BuildStats.compiles += 1
+            count("builds.compile")
         handle = ctypes.CDLL(str(out))
         for src in _sources(name)[0]:
             fn = getattr(handle, "mpr_" + src.stem)
@@ -176,7 +177,7 @@ def lib(name: str = "main") -> ctypes.CDLL:
             if hasattr(handle, entry):
                 getattr(handle, entry).argtypes = sig
                 getattr(handle, entry).restype = ctypes.c_int
-        BuildStats.loads += 1
+        count("builds.load")
         BuildStats.seconds[name] = time.perf_counter() - t0
         _libs[name] = handle
         return handle

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..tape.opcodes import CHOICE_OP_HI, CHOICE_OP_LO, Op
+from ..utils.trace import span
 from . import build, kernels
 from . import launch as ln
 from . import scan_plan as spm
@@ -106,20 +107,24 @@ class _ScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, imms, x, y, z, td):
-        ctx.td = td.replace_imms(imms.detach())
-        ctx.save_for_backward(x, y, z)
-        n = x.shape[0]
-        ctx.store = None
-        if 0 < n <= adj_chunk(ctx.td.vjp_plan()[0], n):
-            ctx.store = k2_store(ctx.td, n)
-        return scan_eval(ctx.td, x, y, z, store=ctx.store)
+        with span("mpr.fit.K2f"):
+            ctx.td = td.replace_imms(imms.detach())
+            ctx.save_for_backward(x, y, z)
+            n = x.shape[0]
+            ctx.store = None
+            if 0 < n <= adj_chunk(ctx.td.vjp_plan()[0], n):
+                ctx.store = k2_store(ctx.td, n)
+            return scan_eval(ctx.td, x, y, z, store=ctx.store)
 
     @staticmethod
     def backward(ctx, g):
-        x, y, z = ctx.saved_tensors
-        grad = scan_adjoint(ctx.td, x, y, z, g, store=ctx.store)
-        ctx.store = None
-        return grad, None, None, None, None
+        # autograd runs this on its own thread for a card's tensors: the
+        # span opens here, on the thread that launches K2
+        with span("mpr.fit.K2"):
+            x, y, z = ctx.saved_tensors
+            grad = scan_adjoint(ctx.td, x, y, z, g, store=ctx.store)
+            ctx.store = None
+            return grad, None, None, None, None
 
 
 def _flat(t):

@@ -42,6 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.trace import count, read_array, upload
 from .launch import A_PLANES, padded_length
 
 # Seed codes of a forward operand (a non-negative code is a position).
@@ -135,8 +136,7 @@ def _levels(deps, T):
 
 
 def _host(a):
-    return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
-            else np.asarray(a))
+    return read_array(a) if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _pack(lo, hi):
@@ -205,14 +205,10 @@ def tape_levels(words, length: int, result_slot: int, axis_slots,
         length=T, n_levels=n_levels,
         widest=int(counts.max()) if T else 0,
         widths=tuple(int(c) for c in counts[:n_levels]),
-        planes=torch.from_numpy(planes).to(dev),
-        offsets=torch.from_numpy(offsets).to(dev),
+        planes=upload(planes, dev), offsets=upload(offsets, dev),
         res_src=int(pos[res_src]) if res_src >= 0 else res_src,
         res_mark=int(pos[res_mark]) if res_mark >= 0 else NO_MARK,
         key=(T, res, sx, sy, sz), seconds=time.perf_counter() - t0,
         host=host)
-    tape_levels.builds += 1
+    count("builds.schedule")
     return out
-
-
-tape_levels.builds = 0

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..tape.tape import Tape
+from ..utils.trace import upload
 
 
 def _round_bucket(n: int, buckets=(256, 512, 1024, 2048, 4096, 8192, 16384)) -> int:
@@ -136,9 +137,7 @@ class TapeData:
         if int(length) > packed.shape[0]:
             raise ValueError(f"tape length {length} exceeds capacity "
                              f"{packed.shape[0]}")
-        return cls(torch.from_numpy(packed).to(dev),
-                   torch.from_numpy(imms).to(dev),
-                   torch.from_numpy(runs).to(dev),
+        return cls(upload(packed, dev), upload(imms, dev), upload(runs, dev),
                    length=length, num_slots=num_slots,
                    axis_slots=axis_slots, result_slot=result_slot,
                    num_choices=num_choices, ops_present=ops_present,
@@ -229,6 +228,6 @@ class TapeData:
         """int32[8] ``[length, num_slots, result_slot, sx, sy, sz, num_runs,
         0]`` on the tape's device — the runtime metadata every kernel
         reads, so a new tape needs no new build."""
-        return torch.tensor([self.length, self.num_slots, self.result_slot,
-                             *self.axis_slots, self.num_runs, 0],
-                            dtype=torch.int32, device=self.device)
+        return upload([self.length, self.num_slots, self.result_slot,
+                       *self.axis_slots, self.num_runs, 0], self.device,
+                      torch.int32)

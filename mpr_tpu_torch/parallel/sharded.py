@@ -39,6 +39,7 @@ from ..ops.tape_data import TapeData, resolve_device
 from ..render import camera
 from ..render.pipeline2d import TILE, render_tile_block
 from ..tape.tape import Tape
+from ..utils.trace import span, upload
 
 
 def _factor2(n: int) -> Tuple[int, int]:
@@ -116,8 +117,8 @@ def _reduce_step(mesh: Mesh, loss, grad, n_px: int):
 
 
 def _mask(grad_mask, dev):
-    return None if grad_mask is None else torch.as_tensor(
-        np.asarray(grad_mask, np.float32), device=dev)
+    return None if grad_mask is None else upload(
+        np.asarray(grad_mask, np.float32), dev)
 
 
 def _apply(imms, grad, mask, lr: float):
@@ -235,8 +236,7 @@ def _leaf(imms, dev):
 def _mat_z(mat, z, ident, dev):
     """The camera (``ident()`` by default) and z as f32 tensors on dev."""
     mat = ident() if mat is None else mat
-    return (torch.as_tensor(mat, dtype=torch.float32, device=dev),
-            torch.as_tensor(z, dtype=torch.float32, device=dev))
+    return (upload(mat, dev, torch.float32), upload(z, dev, torch.float32))
 
 
 def make_fit_step(size: int, mesh: Optional[Mesh] = None, lr: float = 1e-2,
@@ -260,18 +260,20 @@ def make_fit_step(size: int, mesh: Optional[Mesh] = None, lr: float = 1e-2,
 
     def step(td: TapeData, target, mat=None, z: float = 0.0):
         dev = td.device
-        mat_t, z_t = _mat_z(mat, z, camera.identity2, dev)
-        x, y, zz = _block_coords(size, rows, cols, mat_t, z_t, i0, j0)
-        tgt = torch.as_tensor(target, dtype=torch.float32, device=dev)[
-            i0:i0 + rows, j0:j0 + cols]
-        imms = _leaf(td.imms, dev)
+        with span("mpr.fit.inputs"):
+            mat_t, z_t = _mat_z(mat, z, camera.identity2, dev)
+            x, y, zz = _block_coords(size, rows, cols, mat_t, z_t, i0, j0)
+            tgt = upload(target, dev, torch.float32)[
+                i0:i0 + rows, j0:j0 + cols]
+            imms = _leaf(td.imms, dev)
         with torch.enable_grad():
             v = eval_scan.eval_f(td.replace_imms(imms), x, y, zz)
             loss = ((_soft_fill(v, sharpness) - tgt) ** 2).sum()
             grad, = torch.autograd.grad(loss, imms)
-        loss, grad = _reduce_step(mesh, loss, grad, size * size)
-        return loss, td.replace_imms(_apply(td.imms, grad,
-                                            _mask(grad_mask, dev), lr))
+        with span("mpr.fit.apply"):
+            loss, grad = _reduce_step(mesh, loss, grad, size * size)
+            return loss, td.replace_imms(_apply(td.imms, grad,
+                                                _mask(grad_mask, dev), lr))
 
     return step
 

@@ -31,6 +31,7 @@ from ..ops import kernels
 from ..ops.kernels import ST_AMBIG
 from ..ops.tape_data import TapeData, resolve_device
 from ..tape.tape import Tape
+from ..utils.trace import span, upload
 from . import camera
 
 TILE = 64
@@ -131,20 +132,21 @@ def _shorten_prepass(codes, words, imms, length, remap, rows: int = 8):
     L = codes.shape[0]
     tcap = words.shape[0]
     dev = codes.device
-    nib = kernels.unpack_codes(codes, tcap)
-    t_idx = torch.arange(tcap, dtype=torch.int32, device=dev)
-    nib = torch.where(t_idx[None, :] < length, nib, 0)
-    keep = nib > 0
-    new_op, body, imm_bits = kernels.rewrite_clauses(nib, words, imms)
-    wrw = torch.where(keep, remap[new_op.long()] | body, 0)
-    irw = torch.where(keep, imm_bits, 0)
-    incl = torch.cumsum(keep.to(torch.int32), dim=1, dtype=torch.int32)
-    rem = torch.where(keep, t_idx[None, :] - (incl - 1), 0)
-    lens = incl[:, -1].contiguous()
-    wr = tcap // rows
-    return (wrw.to(torch.int32).reshape(L, rows, wr),
-            irw.to(torch.int32).reshape(L, rows, wr),
-            rem.to(torch.int32).reshape(L, rows, wr), lens)
+    with span("mpr.prepass"):
+        nib = kernels.unpack_codes(codes, tcap)
+        t_idx = torch.arange(tcap, dtype=torch.int32, device=dev)
+        nib = torch.where(t_idx[None, :] < length, nib, 0)
+        keep = nib > 0
+        new_op, body, imm_bits = kernels.rewrite_clauses(nib, words, imms)
+        wrw = torch.where(keep, remap[new_op.long()] | body, 0)
+        irw = torch.where(keep, imm_bits, 0)
+        incl = torch.cumsum(keep.to(torch.int32), dim=1, dtype=torch.int32)
+        rem = torch.where(keep, t_idx[None, :] - (incl - 1), 0)
+        lens = incl[:, -1].contiguous()
+        wr = tcap // rows
+        return (wrw.to(torch.int32).reshape(L, rows, wr),
+                irw.to(torch.int32).reshape(L, rows, wr),
+                rem.to(torch.int32).reshape(L, rows, wr), lens)
 
 
 def render_tile_block(td: TapeData, mat, z, size: int, row0=0,
@@ -166,41 +168,48 @@ def render_tile_block(td: TapeData, mat, z, size: int, row0=0,
     s_cap = max(8, -(-td.num_slots // 8) * 8)
     meta = td.meta()
     branch_ops, remap = kernels.build_remap(td.ops_present)
-    remap_t = torch.as_tensor(remap, device=dev)
+    remap_t = upload(remap, dev)
     # full-tape run headers with the op byte remapped to branch ids
     runs_full = remap_t[(td.runs & 0xFF).long()] | (td.runs & ~0xFF)
     widen = _config.get().widen_intervals
-    boxes = _tile_boxes_2d(n_side, mat, z, row0, n_rows, col0, n_cols)
-    status, codes = kernels.interval_shorten(meta, td.packed, td.imms, boxes,
-                                             s_cap=s_cap, widen=widen,
-                                             levels=td.levels)
+    with span("mpr.2d.A"):
+        boxes = _tile_boxes_2d(n_side, mat, z, row0, n_rows, col0, n_cols)
+        status, codes = kernels.interval_shorten(
+            meta, td.packed, td.imms, boxes, s_cap=s_cap, widen=widen,
+            levels=td.levels)
 
-    amb = status == ST_AMBIG
-    order = torch.argsort((~amb).to(torch.int32), stable=True).to(torch.int32)
-    n_amb = amb.sum(dtype=torch.int32)
+    with span("mpr.2d.order"):
+        amb = status == ST_AMBIG
+        order = torch.argsort((~amb).to(torch.int32),
+                              stable=True).to(torch.int32)
+        n_amb = amb.sum(dtype=torch.int32)
+        sorted_codes = codes[order.long()]
 
     # Per-tile cap: small images shorten less per tile (each tile covers
     # more of the shape), so they get Tcap/4; large images Tcap/8.
     cap = td.capacity // (8 if n_side >= 16 else 4)
-    wrw, irw, rem, lens = _shorten_prepass(codes[order.long()], td.packed,
-                                           td.imms, meta[0], remap_t)
-    cmeta = torch.zeros(8, dtype=torch.int32, device=dev)
-    cmeta[0] = n_amb
-    cmeta[1] = cap
-    cmeta[2] = cap
-    tw, ti_bits, runs, gmeta = kernels.compact_bitshift_batched(
-        cmeta, lens, wrw, irw, rem, cap=cap)
-    ti = ti_bits.view(torch.float32)
+    wrw, irw, rem, lens = _shorten_prepass(sorted_codes, td.packed, td.imms,
+                                           meta[0], remap_t)
+    with span("mpr.2d.C"):
+        cmeta = torch.zeros(8, dtype=torch.int32, device=dev)
+        cmeta[0] = n_amb
+        cmeta[1] = cap
+        cmeta[2] = cap
+        tw, ti_bits, runs, gmeta = kernels.compact_bitshift_batched(
+            cmeta, lens, wrw, irw, rem, cap=cap)
+        ti = ti_bits.view(torch.float32)
 
-    nmeta = meta.clone()
-    nmeta[0] = n_amb
-    coords = _pixel_coords_2d(n_side, mat, z, row0, n_rows, col0, n_cols)
-    fill = kernels.pixel_eval_runs(nmeta, order, status, td.packed, td.imms,
-                                   runs_full, branch_ops, tw, ti, runs,
-                                   gmeta, coords, s_cap=s_cap)
-    img = (fill > 0).reshape(n_rows, n_cols, TILE, TILE)
-    img = img.permute(0, 2, 1, 3)
-    return img.reshape(n_rows * TILE, n_cols * TILE), status
+    with span("mpr.2d.B"):
+        nmeta = meta.clone()
+        nmeta[0] = n_amb
+        coords = _pixel_coords_2d(n_side, mat, z, row0, n_rows, col0,
+                                  n_cols)
+        fill = kernels.pixel_eval_runs(nmeta, order, status, td.packed,
+                                       td.imms, runs_full, branch_ops, tw,
+                                       ti, runs, gmeta, coords, s_cap=s_cap)
+        img = (fill > 0).reshape(n_rows, n_cols, TILE, TILE)
+        img = img.permute(0, 2, 1, 3)
+        return img.reshape(n_rows * TILE, n_cols * TILE), status
 
 
 def render2d(tape: Tape, mat=None, z: float = 0.0, size: int = 256,

@@ -46,6 +46,7 @@ from ..ops import transcendental as tc
 from ..ops.kernels import ST_AMBIG, ST_FILLED
 from ..ops.tape_data import TapeData, resolve_device
 from ..tape.tape import Tape
+from ..utils.trace import read_int, span, upload
 from . import camera
 from .pipeline2d import _iv_mul_scalar, _shorten_prepass
 
@@ -134,7 +135,7 @@ def _amb_first(amb):
     """Stable order with the ambiguous lanes first, and their count (one
     read back to the host)."""
     order = torch.argsort((~amb).to(torch.int32), stable=True)
-    return order.to(torch.int32), int(amb.sum())
+    return order.to(torch.int32), read_int(amb.sum())
 
 
 def _row_tapes(td, codes_sel, remap_t, cap):
@@ -152,8 +153,7 @@ def _row_tapes(td, codes_sel, remap_t, cap):
                                td.length, remap_t)
         for dst, src in zip(planes + [lens], out):
             dst[g0:g0 + chunk] = src
-    cmeta = torch.tensor([G, cap, cap, 0, 0, 0, 0, 0], dtype=torch.int32,
-                         device=dev)
+    cmeta = upload([G, cap, cap, 0, 0, 0, 0, 0], dev, torch.int32)
     tw, ti_bits, runs, gmeta = kernels.compact_bitshift_batched(
         cmeta, lens, *planes, cap=cap)
     return tw, ti_bits.view(torch.float32), runs, gmeta
@@ -181,7 +181,7 @@ def render3d_rows(td: TapeData, mat, size: int, row0: int, n_rows: int,
     if s_cap is None:
         s_cap = max(8, -(-td.num_slots // 8) * 8)
     branch_ops, remap = kernels.build_remap(td.ops_present)
-    remap_t = torch.as_tensor(remap, device=dev)
+    remap_t = upload(remap, dev)
     runs_full = remap_t[(td.runs & 0xFF).long()] | (td.runs & ~0xFF)
     meta = td.meta()
     matf = mat.reshape(16).contiguous()
@@ -195,97 +195,112 @@ def render3d_rows(td: TapeData, mat, size: int, row0: int, n_rows: int,
                                         widen=widen, levels=td.levels)
 
     # ---- stage A: 64^3 tiles, full tape ---------------------------------
-    status0, _ = stage(_tile_boxes_3d(n, mat, row0, n_rows))
-    st0 = status0.reshape(n, n_rows, n)                    # [tz, ty_l, tx]
-    tz_idx = torch.arange(n, dtype=torch.int32, device=dev)[:, None, None]
-    h0 = torch.where(st0 == ST_FILLED, (tz_idx + 1) * TILE, 0).amax(dim=0)
+    with span("mpr.3d.A"):
+        status0, _ = stage(_tile_boxes_3d(n, mat, row0, n_rows))
+        st0 = status0.reshape(n, n_rows, n)                # [tz, ty_l, tx]
+        tz_idx = torch.arange(n, dtype=torch.int32, device=dev)[:, None,
+                                                                None]
+        h0 = torch.where(st0 == ST_FILLED, (tz_idx + 1) * TILE,
+                         0).amax(dim=0)
 
-    # occlusion cull of ambiguous tiles fully at/below the filled height
-    t_all = torch.arange(n * n_rows * n, dtype=torch.int32, device=dev)
-    top0 = (t_all // (n * n_rows) + 1) * TILE
-    amb0 = (status0 == ST_AMBIG) & (top0 > h0.reshape(-1)[
-        ((t_all // n) % n_rows * n + t_all % n).long()])
-    order0, n_amb0 = _amb_first(amb0)
-    parents = order0[:n_amb0].contiguous()
+        # occlusion cull of ambiguous tiles fully at/below the filled height
+        t_all = torch.arange(n * n_rows * n, dtype=torch.int32, device=dev)
+        top0 = (t_all // (n * n_rows) + 1) * TILE
+        amb0 = (status0 == ST_AMBIG) & (top0 > h0.reshape(-1)[
+            ((t_all // n) % n_rows * n + t_all % n).long()])
+        order0, n_amb0 = _amb_first(amb0)
+        parents = order0[:n_amb0].contiguous()
 
-    # 16-px-granular heightmap: filled parents upsampled
-    h16 = h0.repeat_interleave(4, 0).repeat_interleave(4, 1)  # (4*n_rows, 4n)
-    n_amb1 = 0
-    if n_amb0:
-        # ---- stage B: 16^3 children of ambiguous parents ----------------
-        status1, codes1 = stage(_child_boxes_3d(n, mat, parents, row0,
-                                                n_rows))
-        gx16, gy16, gz16 = _child_cells(n, parents, 0, n_rows)  # y local
-        top1 = (gz16 + 1) * 16
-        cell = (gy16 * (4 * n) + gx16).long()
-        # ... plus filled children (max is order-independent)
-        h16 = h16.reshape(-1).scatter_reduce(
-            0, cell, torch.where(status1 == ST_FILLED, top1, 0),
-            "amax").reshape(4 * n_rows, 4 * n)
-        amb1 = (status1 == ST_AMBIG) & (top1 > h16.reshape(-1)[cell])
-        order1, n_amb1 = _amb_first(amb1)
-        order1 = order1[:n_amb1].contiguous()
+    with span("mpr.3d.B"):
+        # 16-px-granular heightmap: filled parents upsampled
+        h16 = h0.repeat_interleave(4, 0).repeat_interleave(4, 1)
+        n_amb1 = 0
+        if n_amb0:
+            # ---- stage B: 16^3 children of ambiguous parents ------------
+            status1, codes1 = stage(_child_boxes_3d(n, mat, parents, row0,
+                                                    n_rows))
+            gx16, gy16, gz16 = _child_cells(n, parents, 0, n_rows)  # y local
+            top1 = (gz16 + 1) * 16
+            cell = (gy16 * (4 * n) + gx16).long()
+            # ... plus filled children (max is order-independent)
+            h16 = h16.reshape(-1).scatter_reduce(
+                0, cell, torch.where(status1 == ST_FILLED, top1, 0),
+                "amax").reshape(4 * n_rows, 4 * n)
+            amb1 = (status1 == ST_AMBIG) & (top1 > h16.reshape(-1)[cell])
+            order1, n_amb1 = _amb_first(amb1)
+            order1 = order1[:n_amb1].contiguous()
+        depth = h16.repeat_interleave(16, 0).repeat_interleave(16, 1)
 
-    depth = h16.repeat_interleave(16, 0).repeat_interleave(16, 1)
     if n_amb1:
         # ---- per-cell tapes, then stage C: voxel evaluation --------------
-        sel1 = order1.long()
-        tw, ti, runsC, gmetaC = _row_tapes(td, codes1[sel1], remap_t, cap)
+        with span("mpr.3d.tapes"):
+            sel1 = order1.long()
+            tw, ti, runsC, gmetaC = _row_tapes(td, codes1[sel1], remap_t,
+                                               cap)
         del codes1
-        nmeta = meta.clone()
-        nmeta[0] = n_amb1
-        nmeta[7] = row0
-        vals = kernels3d.voxel_eval_3d(nmeta, order1, parents, matf,
-                                       td.packed, td.imms, runs_full,
-                                       branch_ops, tw, ti, runsC, gmetaC,
-                                       n_side=n, n_rows=n_rows, s_cap=s_cap)
+        with span("mpr.3d.V"):
+            nmeta = meta.clone()
+            nmeta[0] = n_amb1
+            nmeta[7] = row0
+            vals = kernels3d.voxel_eval_3d(nmeta, order1, parents, matf,
+                                           td.packed, td.imms, runs_full,
+                                           branch_ops, tw, ti, runsC, gmetaC,
+                                           n_side=n, n_rows=n_rows,
+                                           s_cap=s_cap)
         del tw, ti, runsC, gmetaC
 
-        # ---- depth composition (slab-local image) -------------------------
-        v = vals.reshape(n_amb1, 16, 16, 16)                # [vz, vy, vx]
-        k16 = torch.arange(16, dtype=torch.int32, device=dev)
-        cz0 = (gz16[sel1] * 16)[:, None, None, None]
-        hit = torch.where(v < 0.0, cz0 + k16[None, :, None, None] + 1, 0)
-        dep_c = hit.amax(dim=1)                             # (n_amb1, 16, 16)
-        py = (gy16[sel1] * 16)[:, None, None] + k16[None, :, None]
-        px = (gx16[sel1] * 16)[:, None, None] + k16[None, None, :]
-        flat = (py * size + px).reshape(-1).long()
-        depth = depth.reshape(-1).scatter_reduce(
-            0, flat, dep_c.reshape(-1), "amax").reshape(h_px, size)
-        del vals, v, hit
-    depth = depth.to(torch.int32).contiguous()
+    with span("mpr.3d.compose"):
+        if n_amb1:
+            # ---- depth composition (slab-local image) ---------------------
+            v = vals.reshape(n_amb1, 16, 16, 16)            # [vz, vy, vx]
+            k16 = torch.arange(16, dtype=torch.int32, device=dev)
+            cz0 = (gz16[sel1] * 16)[:, None, None, None]
+            hit = torch.where(v < 0.0, cz0 + k16[None, :, None, None] + 1,
+                              0)
+            dep_c = hit.amax(dim=1)                         # (n_amb1, 16, 16)
+            py = (gy16[sel1] * 16)[:, None, None] + k16[None, :, None]
+            px = (gx16[sel1] * 16)[:, None, None] + k16[None, None, :]
+            flat = (py * size + px).reshape(-1).long()
+            depth = depth.reshape(-1).scatter_reduce(
+                0, flat, dep_c.reshape(-1), "amax").reshape(h_px, size)
+            del vals, v, hit
+        depth = depth.to(torch.int32).contiguous()
     counts = {"n_amb0": n_amb0, "n_amb1": n_amb1, "n_act": None}
     if not with_normals:
         return depth, None, counts
 
     # ---- normals: column tapes + kernel D ---------------------------------
-    n_cols = n_rows * n
-    _, codesD = stage(_column_boxes(n, mat, row0, n_rows))
-    blocks = depth.reshape(n_rows, TILE, n, TILE).permute(0, 2, 1, 3)
-    blocks = blocks.reshape(n_cols, TILE * TILE).contiguous()
-    orderD, n_act = _amb_first(blocks.amax(dim=1) > 0)
-    counts["n_act"] = n_act
-    all_blocks = torch.zeros(n_cols, 4, TILE * TILE, dtype=torch.float32,
-                             device=dev)
-    if n_act:
-        rowsD = orderD[:n_act].long()
-        twD, tiD, runsD, gmetaD = _row_tapes(td, codesD[rowsD], remap_t, cap)
-        nmetaD = meta.clone()
-        nmetaD[0] = n_act
-        nmetaD[7] = row0
-        out = kernels3d.deriv_eval_3d(nmetaD, orderD, matf, td.packed,
-                                      td.imms, runs_full, branch_ops, twD,
-                                      tiD, runsD, gmetaD, blocks, n_side=n,
-                                      n_rows=n_rows, s_cap=s_cap)
-        # rows back to tile order
-        all_blocks[rowsD] = out
-    grad = all_blocks[:, 1:4]                              # (n_cols, 3, 4096)
-    norm = tc.sqrt((grad * grad).sum(dim=1, keepdim=True))
-    grad = grad / torch.clamp_min(norm, 1e-12)
-    img = grad.reshape(n_rows, n, 3, TILE, TILE).permute(0, 3, 1, 4, 2)
-    img = img.reshape(h_px, size, 3)
-    img = torch.where((depth > 0)[:, :, None], img, 0.0)
-    return depth, img, counts
+    with span("mpr.3d.normals"):
+        n_cols = n_rows * n
+        _, codesD = stage(_column_boxes(n, mat, row0, n_rows))
+        blocks = depth.reshape(n_rows, TILE, n, TILE).permute(0, 2, 1, 3)
+        blocks = blocks.reshape(n_cols, TILE * TILE).contiguous()
+        orderD, n_act = _amb_first(blocks.amax(dim=1) > 0)
+        counts["n_act"] = n_act
+        all_blocks = torch.zeros(n_cols, 4, TILE * TILE,
+                                 dtype=torch.float32, device=dev)
+        if n_act:
+            with span("mpr.3d.tapes"):
+                rowsD = orderD[:n_act].long()
+                twD, tiD, runsD, gmetaD = _row_tapes(td, codesD[rowsD],
+                                                     remap_t, cap)
+            nmetaD = meta.clone()
+            nmetaD[0] = n_act
+            nmetaD[7] = row0
+            out = kernels3d.deriv_eval_3d(nmetaD, orderD, matf, td.packed,
+                                          td.imms, runs_full, branch_ops,
+                                          twD, tiD, runsD, gmetaD, blocks,
+                                          n_side=n, n_rows=n_rows,
+                                          s_cap=s_cap)
+            # rows back to tile order
+            all_blocks[rowsD] = out
+        grad = all_blocks[:, 1:4]                          # (n_cols, 3, 4096)
+        norm = tc.sqrt((grad * grad).sum(dim=1, keepdim=True))
+        grad = grad / torch.clamp_min(norm, 1e-12)
+        img = grad.reshape(n_rows, n, 3, TILE, TILE).permute(0, 3, 1, 4, 2)
+        img = img.reshape(h_px, size, 3)
+        img = torch.where((depth > 0)[:, :, None], img, 0.0)
+        return depth, img, counts
 
 
 def render3d(tape: Tape, mat=None, size: int = 256, with_normals: bool = True,

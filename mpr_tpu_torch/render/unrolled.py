@@ -58,6 +58,7 @@ from ..ops import transcendental as tc
 from ..ops import unrolled_eval as ue
 from ..ops.tape_data import resolve_device
 from ..tape.tape import Tape
+from ..utils.trace import read_ids, span
 from . import camera
 from .pipeline2d import _iv_mul_scalar
 from .pipeline3d import _mat4_interval
@@ -81,12 +82,6 @@ def _classify(lo, hi, delta: float = 0.0):
         lo, hi = lo - delta, hi + delta
     return torch.where(lo > 0.0, ST_EMPTY,
                        torch.where(hi < 0.0, ST_FILLED, ST_AMBIG))
-
-
-def _ids(mask):
-    """Lane ids where ``mask``, ascending (stable compaction); the count
-    is read back to the host."""
-    return torch.nonzero(mask).flatten()
 
 
 def _axis_box(idx, ngrid: int):
@@ -160,7 +155,7 @@ def _stages2d(fi, mat, z, size: int, imms, delta: float = 0.0, r0: int = 0,
     zc = z.expand_as(bxl)
     lo, hi = fi(bxl, bxh, byl, byh, zc, zc, imms=imms)
     st64 = _classify(lo, hi, delta)
-    ids64 = _ids(st64 == ST_AMBIG)
+    ids64 = read_ids(st64 == ST_AMBIG)
 
     c = torch.arange(64, dtype=torch.int64, device=dev)
     gx8 = ((ids64 % n64)[:, None] * 8 + (c % 8)[None, :]).reshape(-1)
@@ -171,7 +166,7 @@ def _stages2d(fi, mat, z, size: int, imms, delta: float = 0.0, r0: int = 0,
     zc = z.expand_as(bxl)
     lo, hi = fi(bxl, bxh, byl, byh, zc, zc, imms=imms)
     st8c = _classify(lo, hi, delta)
-    ids8 = _ids(st8c == ST_AMBIG)
+    ids8 = read_ids(st8c == ST_AMBIG)
     return st64, ids64, st8c, ids8, gx8, gy8
 
 
@@ -291,33 +286,35 @@ def _stages3d(fi, mat, size: int, skip4: bool, imms, r0: int = 0,
     i64 = torch.int64
 
     # ---- stage A: 64^3 tiles, t = (tz*rows + tyl)*n + tx -------------------
-    t = torch.arange(n * rows * n, dtype=i64, device=dev)
-    tx, tyl, tz = t % n, (t // n) % rows, t // (n * rows)
-    lo, hi = fi(*_cell_boxes_3d(mat, tx, tyl + r0, tz, n), imms=imms)
-    st0 = _classify(lo, hi)
-    # heightmap (tyl, tx) of filled tiles' tops: (tz + 1) * 64
-    h0 = torch.where((st0 == ST_FILLED).reshape(n, rows, n),
-                     (torch.arange(n, dtype=i64, device=dev) + 1)[:, None,
-                                                                  None] * 64,
-                     0).amax(dim=0)
-    cell64 = tyl * n + tx
-    surv0 = (st0 == ST_AMBIG) & ((tz + 1) * 64 > h0.reshape(-1)[cell64])
-    ids0 = _ids(surv0)
+    with span("mpr.u3d.A"):
+        t = torch.arange(n * rows * n, dtype=i64, device=dev)
+        tx, tyl, tz = t % n, (t // n) % rows, t // (n * rows)
+        lo, hi = fi(*_cell_boxes_3d(mat, tx, tyl + r0, tz, n), imms=imms)
+        st0 = _classify(lo, hi)
+        # heightmap (tyl, tx) of filled tiles' tops: (tz + 1) * 64
+        h0 = torch.where((st0 == ST_FILLED).reshape(n, rows, n),
+                         (torch.arange(n, dtype=i64, device=dev)
+                          + 1)[:, None, None] * 64, 0).amax(dim=0)
+        cell64 = tyl * n + tx
+        surv0 = (st0 == ST_AMBIG) & ((tz + 1) * 64 > h0.reshape(-1)[cell64])
+        ids0 = read_ids(surv0)
     if stop == "A":
         return Stages3d(*[None] * 10, counts=(int(ids0.shape[0]),))
 
     # ---- stage B: 16^3 children of the surviving tiles ---------------------
-    g16x, g16y, g16z = _children_of_cells(ids0 % n, (ids0 // n) % rows + r0,
-                                          ids0 // (n * rows))
-    lo, hi = fi(*_cell_boxes_3d(mat, g16x, g16y, g16z, 4 * n), imms=imms)
-    st1 = _classify(lo, hi)
-    top1 = (g16z + 1) * 16
-    cell16 = (g16y - 4 * r0) * (4 * n) + g16x
-    h16 = _up(h0, 4).reshape(-1).scatter_reduce(
-        0, cell16, torch.where(st1 == ST_FILLED, top1, 0), "amax")
-    surv1 = (st1 == ST_AMBIG) & (top1 > h16[cell16])
-    ids1 = _ids(surv1)
-    c16 = (g16x[ids1], g16y[ids1], g16z[ids1])
+    with span("mpr.u3d.B"):
+        g16x, g16y, g16z = _children_of_cells(
+            ids0 % n, (ids0 // n) % rows + r0, ids0 // (n * rows))
+        lo, hi = fi(*_cell_boxes_3d(mat, g16x, g16y, g16z, 4 * n),
+                    imms=imms)
+        st1 = _classify(lo, hi)
+        top1 = (g16z + 1) * 16
+        cell16 = (g16y - 4 * r0) * (4 * n) + g16x
+        h16 = _up(h0, 4).reshape(-1).scatter_reduce(
+            0, cell16, torch.where(st1 == ST_FILLED, top1, 0), "amax")
+        surv1 = (st1 == ST_AMBIG) & (top1 > h16[cell16])
+        ids1 = read_ids(surv1)
+        c16 = (g16x[ids1], g16y[ids1], g16z[ids1])
     counts = (int(ids0.shape[0]), int(ids1.shape[0]))
     if stop == "B":
         return Stages3d(*[None] * 10, counts=counts)
@@ -326,18 +323,20 @@ def _stages3d(fi, mat, size: int, skip4: bool, imms, r0: int = 0,
                         None, None, counts + (0,))
 
     # ---- stage B': 4^3 children of the surviving 16^3 cells ----------------
-    g4x, g4y, g4z = _children_of_cells(*c16)
-    lo, hi = fi(*_cell_boxes_3d(mat, g4x, g4y, g4z, 16 * n), imms=imms)
-    st2 = _classify(lo, hi)
-    top2 = (g4z + 1) * 4
-    cell4 = (g4y - 16 * r0) * (16 * n) + g4x
-    h4 = _up(h16.reshape(4 * rows, 4 * n), 4).reshape(-1).scatter_reduce(
-        0, cell4, torch.where(st2 == ST_FILLED, top2, 0), "amax")
-    surv2 = (st2 == ST_AMBIG) & (top2 > h4[cell4])
-    ids2 = _ids(surv2)
-    return Stages3d(cell64, surv0, cell16, surv1, h16, c16, cell4, surv2, h4,
-                    (g4x[ids2], g4y[ids2], g4z[ids2]),
-                    counts + (int(ids2.shape[0]),))
+    with span("mpr.u3d.Bp"):
+        g4x, g4y, g4z = _children_of_cells(*c16)
+        lo, hi = fi(*_cell_boxes_3d(mat, g4x, g4y, g4z, 16 * n), imms=imms)
+        st2 = _classify(lo, hi)
+        top2 = (g4z + 1) * 4
+        cell4 = (g4y - 16 * r0) * (16 * n) + g4x
+        h4 = _up(h16.reshape(4 * rows, 4 * n), 4).reshape(-1)
+        h4 = h4.scatter_reduce(
+            0, cell4, torch.where(st2 == ST_FILLED, top2, 0), "amax")
+        surv2 = (st2 == ST_AMBIG) & (top2 > h4[cell4])
+        ids2 = read_ids(surv2)
+        return Stages3d(cell64, surv0, cell16, surv1, h16, c16, cell4,
+                        surv2, h4, (g4x[ids2], g4y[ids2], g4z[ids2]),
+                        counts + (int(ids2.shape[0]),))
 
 
 def _voxel_hits(f, mat, gx, gy, gz, size: int, imms):
@@ -369,23 +368,24 @@ def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms, r0: int = 0,
     ``depth`` (rows*64*size,: the slab at tile row ``r0``).  Returns the
     depth."""
     cx, cy, cz = cells
-    vv = torch.arange(k ** 3, dtype=torch.int64, device=depth.device)
-    vx, vy, vz = vv % k, (vv // k) % k, vv // (k * k)
-    step = max(1, VOXEL_LANES // k ** 3)
-    for c0 in range(0, int(cx.shape[0]), step):
-        bx, by, bz = (g[c0:c0 + step] for g in (cx, cy, cz))
-        gvx = (bx[:, None] * k + vx[None, :]).reshape(-1)
-        gvy = (by[:, None] * k + vy[None, :]).reshape(-1)
-        gvz = (bz[:, None] * k + vz[None, :]).reshape(-1)
-        hit = _voxel_hits(f, mat, gvx, gvy, gvz, size, imms)
-        patch = hit.reshape(-1, k, k * k).amax(dim=1)      # max over vz
-        pix = ((gvy.reshape(-1, k, k * k)[:, 0] - 64 * r0) * size
-               + gvx.reshape(-1, k, k * k)[:, 0])
-        depth = depth.scatter_reduce(0, pix.reshape(-1), patch.reshape(-1),
-                                     "amax")
-        if first_only:
-            break
-    return depth
+    with span("mpr.u3d.voxel"):
+        vv = torch.arange(k ** 3, dtype=torch.int64, device=depth.device)
+        vx, vy, vz = vv % k, (vv // k) % k, vv // (k * k)
+        step = max(1, VOXEL_LANES // k ** 3)
+        for c0 in range(0, int(cx.shape[0]), step):
+            bx, by, bz = (g[c0:c0 + step] for g in (cx, cy, cz))
+            gvx = (bx[:, None] * k + vx[None, :]).reshape(-1)
+            gvy = (by[:, None] * k + vy[None, :]).reshape(-1)
+            gvz = (bz[:, None] * k + vz[None, :]).reshape(-1)
+            hit = _voxel_hits(f, mat, gvx, gvy, gvz, size, imms)
+            patch = hit.reshape(-1, k, k * k).amax(dim=1)  # max over vz
+            pix = ((gvy.reshape(-1, k, k * k)[:, 0] - 64 * r0) * size
+                   + gvx.reshape(-1, k, k * k)[:, 0])
+            depth = depth.scatter_reduce(0, pix.reshape(-1),
+                                         patch.reshape(-1), "amax")
+            if first_only:
+                break
+        return depth
 
 
 def _take(cells, ids):
@@ -411,7 +411,7 @@ def _two_phase(f, mat, s: Stages3d, size: int, depth, imms, r0: int,
                       device=gx.device).scatter_reduce(0, col, gz + 1,
                                                        "amax")
     is_top = gz + 1 == top[col]
-    ida = _ids(is_top)
+    ida = read_ids(is_top)
     counts = s.counts + (int(ida.shape[0]),)
     if stop == "Bp":
         return None, counts
@@ -419,7 +419,7 @@ def _two_phase(f, mat, s: Stages3d, size: int, depth, imms, r0: int,
     if stop == "V":
         return None, counts
     least = depth.reshape(16 * rows, 4, 16 * n, 4).amin(dim=(1, 3))
-    idb = _ids(~is_top & ((gz + 1) * 4 > least.reshape(-1)[col]))
+    idb = read_ids(~is_top & ((gz + 1) * 4 > least.reshape(-1)[col]))
     depth = _voxel_stage(f, mat, _take(s.c4, idb), 4, size, depth, imms, r0)
     return depth, counts + (int(idb.shape[0]),)
 
@@ -437,28 +437,30 @@ def _refine2(fi, f, mat, s: Stages3d, size: int, depth, imms, r0: int,
     if stop == "Bp":
         return None, s.counts
     n = size // 64
-    kk = torch.arange(8, dtype=torch.int64, device=depth.device)
-    kx, ky, kz = kk % 2, (kk // 2) % 2, kk // 4
-    top2 = torch.zeros(1024 * rows * n, dtype=torch.int64,
-                       device=depth.device)
-    amb = []
-    step = max(1, VOXEL_LANES // 8)
-    for c0 in range(0, int(s.c4[0].shape[0]), step):
-        bx, by, bz = (g[c0:c0 + step] for g in s.c4)
-        g2x = (bx[:, None] * 2 + kx[None, :]).reshape(-1)
-        g2y = (by[:, None] * 2 + ky[None, :]).reshape(-1)
-        g2z = (bz[:, None] * 2 + kz[None, :]).reshape(-1)
-        lo, hi = fi(*_cell_boxes_3d(mat, g2x, g2y, g2z, 32 * n), imms=imms)
-        st3 = _classify(lo, hi)
-        top2 = top2.scatter_reduce(
-            0, (g2y - 32 * r0) * (32 * n) + g2x,
-            torch.where(st3 == ST_FILLED, (g2z + 1) * 2, 0), "amax")
-        amb.append(_take((g2x, g2y, g2z), _ids(st3 == ST_AMBIG)))
-    if amb:
-        amb = tuple(torch.cat(g) for g in zip(*amb))
-    else:
-        amb = tuple(torch.zeros(0, dtype=torch.int64, device=depth.device)
-                    for _ in range(3))
+    with span("mpr.u3d.R"):
+        kk = torch.arange(8, dtype=torch.int64, device=depth.device)
+        kx, ky, kz = kk % 2, (kk // 2) % 2, kk // 4
+        top2 = torch.zeros(1024 * rows * n, dtype=torch.int64,
+                           device=depth.device)
+        amb = []
+        step = max(1, VOXEL_LANES // 8)
+        for c0 in range(0, int(s.c4[0].shape[0]), step):
+            bx, by, bz = (g[c0:c0 + step] for g in s.c4)
+            g2x = (bx[:, None] * 2 + kx[None, :]).reshape(-1)
+            g2y = (by[:, None] * 2 + ky[None, :]).reshape(-1)
+            g2z = (bz[:, None] * 2 + kz[None, :]).reshape(-1)
+            lo, hi = fi(*_cell_boxes_3d(mat, g2x, g2y, g2z, 32 * n),
+                        imms=imms)
+            st3 = _classify(lo, hi)
+            top2 = top2.scatter_reduce(
+                0, (g2y - 32 * r0) * (32 * n) + g2x,
+                torch.where(st3 == ST_FILLED, (g2z + 1) * 2, 0), "amax")
+            amb.append(_take((g2x, g2y, g2z), read_ids(st3 == ST_AMBIG)))
+        if amb:
+            amb = tuple(torch.cat(g) for g in zip(*amb))
+        else:
+            amb = tuple(torch.zeros(0, dtype=torch.int64,
+                                    device=depth.device) for _ in range(3))
     counts = s.counts + (int(amb[0].shape[0]), 0)
     if stop == "R":
         return None, counts
@@ -547,24 +549,27 @@ def _normals_pass(fd, mat, depth, size: int, imms, r0: int = 0):
     n = size // 64
     rows = depth.shape[0] // TILE
     dev = depth.device
-    blocks = depth.reshape(rows, TILE, n, TILE).permute(0, 2, 1, 3).reshape(
-        rows * n, TILE * TILE)
-    idsN = _ids(blocks.amax(dim=1) > 0)
-    pp = torch.arange(TILE * TILE, dtype=torch.int64, device=dev)
-    gpx = ((idsN % n)[:, None] * TILE + (pp % TILE)[None, :]).reshape(-1)
-    gpy = ((idsN // n)[:, None] * TILE + (pp // TILE)[None, :]).reshape(-1)
-    d = blocks[idsN].reshape(-1)
-    zi = torch.clamp_max(d, size - 1)
-    wx, wy, wz = camera.transform3(mat, _center(gpx, size),
-                                   _center(gpy + TILE * r0, size),
-                                   _center(zi, size))
-    _, dx, dy, dz = fd(wx, wy, wz, imms=imms)
-    norm = tc.sqrt(dx * dx + dy * dy + dz * dz)
-    inv = torch.where(d > 0, torch.div(1.0, torch.clamp_min(norm, 1e-12)),
-                      0.0)
-    img = torch.zeros(rows * TILE, size, 3, dtype=torch.float32, device=dev)
-    img[gpy, gpx] = torch.stack([dx * inv, dy * inv, dz * inv], dim=-1)
-    return img, int(idsN.shape[0])
+    with span("mpr.u3d.normals"):
+        blocks = depth.reshape(rows, TILE, n, TILE).permute(
+            0, 2, 1, 3).reshape(rows * n, TILE * TILE)
+        idsN = read_ids(blocks.amax(dim=1) > 0)
+        pp = torch.arange(TILE * TILE, dtype=torch.int64, device=dev)
+        gpx = ((idsN % n)[:, None] * TILE + (pp % TILE)[None, :]).reshape(-1)
+        gpy = ((idsN // n)[:, None] * TILE
+               + (pp // TILE)[None, :]).reshape(-1)
+        d = blocks[idsN].reshape(-1)
+        zi = torch.clamp_max(d, size - 1)
+        wx, wy, wz = camera.transform3(mat, _center(gpx, size),
+                                       _center(gpy + TILE * r0, size),
+                                       _center(zi, size))
+        _, dx, dy, dz = fd(wx, wy, wz, imms=imms)
+        norm = tc.sqrt(dx * dx + dy * dy + dz * dz)
+        inv = torch.where(d > 0,
+                          torch.div(1.0, torch.clamp_min(norm, 1e-12)), 0.0)
+        img = torch.zeros(rows * TILE, size, 3, dtype=torch.float32,
+                          device=dev)
+        img[gpy, gpx] = torch.stack([dx * inv, dy * inv, dz * inv], dim=-1)
+        return img, int(idsN.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -706,8 +711,9 @@ class UnrolledRenderer:
             skip4 = self._skip4_decide(key)
         two = (self.two_phase if two_phase is None else two_phase) \
             and not skip4
-        self._ready(dev, [self.fi, self.f] + ([self.fd] if with_normals
-                                              else []))
+        with span("mpr.u3d.ready"):
+            self._ready(dev, [self.fi, self.f] + ([self.fd] if with_normals
+                                                  else []))
         depth, normals, cnt = _render3d_impl(
             self.fi, self.f, self.fd, mat, size, with_normals, skip4,
             self._imms_arg(imms, dev), two_phase=two)
@@ -774,8 +780,9 @@ class UnrolledRenderer:
         if skip4 is None:
             skip4 = self._skip4_decide(key)
         two = self.two_phase and not skip4
-        self._ready(dev, [self.fi, self.f] + ([self.fd] if with_normals
-                                              else []))
+        with span("mpr.u3d.ready"):
+            self._ready(dev, [self.fi, self.f] + ([self.fd] if with_normals
+                                                  else []))
         depth, normals, cnt = _render3d_impl(
             self.fi, self.f, self.fd, torch.as_tensor(mat, device=dev),
             size, with_normals, skip4, self._imms_arg(imms, dev),

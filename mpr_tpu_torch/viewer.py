@@ -68,6 +68,7 @@ from .io.png import encode_png
 from .ops.tape_data import TapeData, resolve_device
 from .render import effects, pipeline2d, pipeline3d, unrolled
 from .tape.tape import compile_tree
+from .utils.trace import span
 
 _PAGE = b"""<!doctype html>
 <title>mpr_tpu_torch viewer</title>
@@ -440,7 +441,8 @@ def frame3d(tape, mat, size: int, engine: str = "interp"):
         r = unrolled.get_renderer(tape, imm_inputs=bool(tape.params))
         depth, normals, _ = r.frame3d(mat, size, True)
     else:
-        td = TapeData.from_tape(tape, device=mat.device)
+        with span("mpr.3d.tapedata"):
+            td = TapeData.from_tape(tape, device=mat.device)
         depth, normals, _ = pipeline3d.render3d_rows(
             td, mat, size, 0, size // pipeline3d.TILE, True)
     return depth, normals

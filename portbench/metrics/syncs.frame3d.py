@@ -1,0 +1,12 @@
+"""syncs.frame3d: the program's reads back to the host and uploads a
+3D frame (counters ``host_reads`` and ``uploads`` over the window);
+moves frame_ms."""
+
+from portbench import spans
+
+WATCH = (spans.program,)
+SYNCS = ("host_reads", "uploads")
+
+
+def read(t):
+    return spans.per_frame(t, spans.delta(SYNCS))

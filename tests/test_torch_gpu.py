@@ -439,24 +439,24 @@ def test_a_second_frame_builds_no_schedule(cuda):
     """The schedule is built at the first launch of kernel A on a tape and
     kept on its TapeData: a second frame, 2D or 3D, builds none, and a 3D
     frame's three launches share one."""
-    from mpr_tpu_torch.ops import schedule as sch
+    from mpr_tpu_torch.utils.trace import COUNTS
     td = TapeData.from_tape(mpr_tpu_torch.compile_tree(shapes.stress_2d(40)),
                             device=cuda)
     eye, z = torch.eye(3, device=cuda), torch.tensor(0.0, device=cuda)
-    before = sch.tape_levels.builds
+    before = COUNTS["builds.schedule"]
     pipeline2d.render_tile_block(td, eye, z, 256)
-    assert sch.tape_levels.builds == before + 1
+    assert COUNTS["builds.schedule"] == before + 1
     pipeline2d.render_tile_block(td, eye, z, 512)
-    assert sch.tape_levels.builds == before + 1
+    assert COUNTS["builds.schedule"] == before + 1
     td3 = TapeData.from_tape(mpr_tpu_torch.compile_tree(
         shapes.two_spheres()), device=cuda)
     mat = torch.as_tensor(camera.gui3d_view(), device=cuda)
     a_before = tk.interval_shorten.launches
     pipeline3d.render3d_rows(td3, mat, 128, 0, 2)
     assert tk.interval_shorten.launches == a_before + 3
-    assert sch.tape_levels.builds == before + 2
+    assert COUNTS["builds.schedule"] == before + 2
     pipeline3d.render3d_rows(td3, mat, 128, 0, 2)
-    assert sch.tape_levels.builds == before + 2
+    assert COUNTS["builds.schedule"] == before + 2
 
 
 _TRAP_B = """

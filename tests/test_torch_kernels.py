@@ -279,11 +279,11 @@ def test_build_remap_matches_jax():
 def test_cpu_inputs_take_the_plain_versions():
     """CPU tensors run the plain versions: no launch is counted and no
     kernel library is built."""
-    from mpr_tpu_torch.ops import build
+    from mpr_tpu_torch.utils.trace import COUNTS
     before = (tk.interval_shorten.launches,
               tk.compact_bitshift_batched.launches,
-              tk.pixel_eval_runs.launches, build.BuildStats.compiles,
-              build.BuildStats.loads)
+              tk.pixel_eval_runs.launches, COUNTS["builds.compile"],
+              COUNTS["builds.load"])
     jt, a = _fill_case("stress40", TCAP // 4, 4)
     tk.pixel_eval_runs(*(_t(a[k]) for k in ("nmeta", "order", "status",
                                             "words", "imms", "runs_full")),
@@ -295,8 +295,8 @@ def test_cpu_inputs_take_the_plain_versions():
                            torch.eye(3), torch.tensor(0.0), 256)
     after = (tk.interval_shorten.launches,
              tk.compact_bitshift_batched.launches,
-             tk.pixel_eval_runs.launches, build.BuildStats.compiles,
-             build.BuildStats.loads)
+             tk.pixel_eval_runs.launches, COUNTS["builds.compile"],
+             COUNTS["builds.load"])
     assert after == before
 
 

@@ -221,9 +221,9 @@ def test_plain_versions_work_in_chunks(monkeypatch):
 def test_cpu_inputs_take_the_plain_versions():
     """CPU tensors run the plain versions: no launch is counted and no
     kernel library is built."""
-    from mpr_tpu_torch.ops import build
+    from mpr_tpu_torch.utils.trace import COUNTS
     before = (tk3.voxel_eval_3d.launches, tk3.deriv_eval_3d.launches,
-              build.BuildStats.compiles, build.BuildStats.loads)
+              COUNTS["builds.compile"], COUNTS["builds.load"])
     _, _, seen = _frame("two_spheres")
     for w in ("voxel_eval_3d", "deriv_eval_3d"):
         a, k = seen[w]
@@ -240,4 +240,4 @@ def test_cpu_inputs_take_the_plain_versions():
         want = getattr(tk3, w + "_plain")(*a, **{**k, "s_cap": S_CAP})
         assert torch.equal(got, want)
     assert (tk3.voxel_eval_3d.launches, tk3.deriv_eval_3d.launches,
-            build.BuildStats.compiles, build.BuildStats.loads) == before
+            COUNTS["builds.compile"], COUNTS["builds.load"]) == before

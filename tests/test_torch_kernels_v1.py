@@ -35,11 +35,11 @@ from mpr_tpu.render import pipeline2d as jp2d
 from mpr_tpu.tape.tape import Tape as JTape
 
 from mpr_tpu_torch import oracle as toracle
-from mpr_tpu_torch.ops import build
 from mpr_tpu_torch.ops import kernels as tk
 from mpr_tpu_torch.render import pipeline2d as tp2d
 from mpr_tpu_torch.tape.opcodes import Op
 from mpr_tpu_torch.tape.tape import Tape as TTape
+from mpr_tpu_torch.utils.trace import COUNTS
 
 from torch_port_cases import (FILL_BAND, TRANSCENDENTAL_OPS,  # noqa: F401
                               all_ops_clauses, one_torch_thread,
@@ -459,8 +459,8 @@ def test_v1_cpu_inputs_take_the_plain_versions():
     kernel library is built."""
     def counts():
         return (tk.pixel_eval.launches, tk.compact_runs.launches,
-                tk.compact_bitshift.launches, build.BuildStats.compiles,
-                build.BuildStats.loads)
+                tk.compact_bitshift.launches, COUNTS["builds.compile"],
+                COUNTS["builds.load"])
     before = counts()
     f = _frame("stress12")
     nmeta, lens, words, imms, _ = _tapes_in_tile_order(f)

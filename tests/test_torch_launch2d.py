@@ -40,6 +40,7 @@ from mpr_tpu_torch.ops import launch as ln
 from mpr_tpu_torch.ops import schedule as sch
 from mpr_tpu_torch.ops.tape_data import TapeData
 from mpr_tpu_torch.render import pipeline2d as tp2d
+from mpr_tpu_torch.utils.trace import COUNTS
 
 from torch_port_cases import (all_ops_clauses, one_torch_thread,  # noqa: F401
                               random_boxes, random_trees, unpack_codes)
@@ -244,11 +245,11 @@ def test_levels_are_built_once_a_tape_and_never_on_the_cpu_path():
     it; a frame on the CPU (plain versions) never asks for it."""
     td = TapeData.from_tape(mpr_tpu_torch.compile_tree(
         tshapes.stress_2d(12)), device="cpu")
-    before = sch.tape_levels.builds
+    before = COUNTS["builds.schedule"]
     tp2d.render_tile_block(td, torch.eye(3), torch.tensor(0.0), 256)
-    assert sch.tape_levels.builds == before and td._levels is None
+    assert COUNTS["builds.schedule"] == before and td._levels is None
     lv = td.levels()
-    assert td.levels() is lv and sch.tape_levels.builds == before + 1
+    assert td.levels() is lv and COUNTS["builds.schedule"] == before + 1
 
 
 def test_a_chain_tape_takes_one_level_a_clause():

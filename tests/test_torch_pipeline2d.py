@@ -149,15 +149,15 @@ def test_edited_tapes_render_with_no_build():
     """Tapes of other lengths and op sets render through the same code:
     the kernels read the tape at run time, so no edit ever builds (here
     on the CPU nothing builds at all)."""
-    from mpr_tpu_torch.ops import build
-    before = build.BuildStats.compiles, build.BuildStats.loads
+    from mpr_tpu_torch.utils.trace import COUNTS
+    before = COUNTS["builds.compile"], COUNTS["builds.load"]
     for t in (shapes.circle(0.7),
               shapes.union(shapes.circle(0.5, cx=-0.3),
                            shapes.rectangle(0.1, 0.6, -0.2, 0.4))):
         tape = mpr_tpu_torch.compile_tree(t)
         f = _field(tape, 128)
         _assert_image(render2d(tape, size=128, device="cpu"), f < 0, tape, f)
-    assert (build.BuildStats.compiles, build.BuildStats.loads) == before
+    assert (COUNTS["builds.compile"], COUNTS["builds.load"]) == before
 
 
 def test_no_device_and_no_card_raises():
