@@ -216,6 +216,16 @@ seconds on the host clock are printed after it):
      (events, median of 10), its generated kernels' and other device
      time and busy share (torch.profiler), and its ms at each
      ``debug_stage`` stop;
+ 18. (run after phase 17) the unrolled voxel stage's glue kernels
+     (``ops/csrc/voxel_glue.cu``, ``render.unrolled.voxel_centers`` and
+     ``voxel_columns``) at the gyroid 1024^3 skip4 frame: its chunks
+     counted (``COUNTS["voxel.kernels"]`` and each kernel's launches
+     against ``voxel_launches``); on its first chunk's recorded cells each
+     kernel bit for bit against its plain version on the card, timed
+     beside its bytes bound and the plain version, with ptxas's registers
+     and spills of every instantiation (a spill fails the run); the
+     chunk's glue and float launch and the skip4 frame timed with the
+     kernels and with the plain glue in the same run, the depths equal;
  12. print the kernel times of the previous designs of A, B, C, C2, V, D,
      K1, K2 and the generated float and interval kernels (recorded,
      labelled as such; not measured here), the unrolled sweep and the
@@ -223,7 +233,8 @@ seconds on the host clock are printed after it):
      line, one
      JSON line of phase 16's compile and frame times, one
      JSON ``kernels`` line (the eight TPU kernels' rows, then the three
-     generated kernels' and K1, K2 and K2f, marked ``port_kernel``), and
+     generated kernels', the two voxel glue kernels' and K1, K2 and K2f,
+     marked ``port_kernel``), and
      last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present and when run outside the
@@ -1727,7 +1738,8 @@ def ptxas_rows(log):
     for a warp a row, 0 for a block a row; bucket 0) and of K2f (the walk
     ``scan_walk_kernel``: K its lanes a thread, bucket 1 where it stores
     the plan for K2, 0 for the plain walk; its first design
-    ``scan_eval_first_kernel``: K 1 storing, 0 not; bucket 0)."""
+    ``scan_eval_first_kernel``: K 1 storing, 0 not; bucket 0) and of the
+    voxel glue kernels (K the cell edge; bucket 0)."""
     import re
     rows, cur = [], None
     for line in log.splitlines():
@@ -1746,6 +1758,11 @@ def ptxas_rows(log):
                       r"ILi(\d+)ELb(\d)E", line)
         if m:
             cur = [m.group(1), int(m.group(2)), int(m.group(3))]
+            continue
+        m = re.search(r"Function properties for \S*?(voxel_centers_kernel|"
+                      r"voxel_columns_kernel)ILi(\d+)E", line)
+        if m:
+            cur = [m.group(1), int(m.group(2)), 0]
             continue
         m = re.search(r"Function properties for \S*?(interval_shorten_kernel|"
                       r"compact_kernel|compact_order_kernel|"
@@ -1772,7 +1789,8 @@ def ptxas_rows(log):
 
 def print_ptxas(tk3, logs):
     """Registers, stack frame and spills of every instantiation of A, B,
-    B1, C, C2, C1, V, D, K2f and K2 in the libraries' nvcc logs
+    B1, C, C2, C1, V, D, K2f, K2 and the voxel glue kernels in the
+    libraries' nvcc logs
     (``{library: log}``; bucket 0: the files in shared memory; else local,
     or for D split by warps), each named with its shape and library.
     Every (kernel, K, bucket) of B, B1, V, D and K2 must be built, those
@@ -1780,7 +1798,7 @@ def print_ptxas(tk3, logs):
     without widening), C's, C2's and C1's (a warp or a block a row)
     and K2f's walk at every K of ``launch.SCAN_SWEEP``, storing the plan
     or not, in the main library (its first design, both ways, in the
-    extra one).
+    extra one), and the glue kernels at each k of ``GLUE_KS`` in main.
     Returns the instantiations that spill: the run fails on them once every
     phase has run."""
     names = {"pixel_eval_kernel": "pixel_eval_runs",
@@ -1799,6 +1817,8 @@ def print_ptxas(tk3, logs):
             elif kern == "scan_eval_first_kernel":
                 shape = "first design, " + ("storing the plan" if k
                                             else "plain walk")
+            elif kern.startswith("voxel_c"):
+                shape = f"k={k}"
             elif kern == "scan_walk_kernel":
                 shape = f"K={k} " + ("storing the plan" if bucket
                                      else "plain walk")
@@ -1835,6 +1855,11 @@ def print_ptxas(tk3, logs):
         check("extra" in built.get(("scan_eval_first_kernel", store, 0), ()),
               f"K2f's first design (store {store}) is not in the extra "
               "library")
+    from mpr_tpu_torch.render.unrolled import GLUE_KS
+    for kern in ("voxel_centers_kernel", "voxel_columns_kernel"):
+        for k in GLUE_KS:
+            check("main" in built.get((kern, k, 0), ()),
+                  f"{kern} k={k} is not in the main library")
     return spills
 
 
@@ -2884,6 +2909,159 @@ def run_options(ctx, results, launches):
         row["launches_options"] = {k: v[row["name"]]
                                    for k, v in per_frame.items()}
     results["unrolled_options"] = out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the unrolled voxel stage's glue kernels
+# ---------------------------------------------------------------------------
+
+GLUE_SOURCE = "mpr_tpu_torch/ops/csrc/voxel_glue.cu"
+GLUE_REPS = 10
+# float operations a lane of the centers kernel: the z centre (add,
+# division, product, difference), three terms of each of the four rows
+# (product, two sums) and three divisions; the x and y centres and the
+# rows' first two terms are a column's, k lanes
+GLUE_CENTER_OPS = 4 + 4 * 3 + 3
+
+
+def run_voxel_glue(ctx, results):
+    """Phase 18: the voxel stage's glue kernels (csrc/voxel_glue.cu) at the
+    gyroid 1024^3 skip4 frame: the frame's chunks counted
+    (``COUNTS["voxel.kernels"]`` and each kernel's launches against
+    ``voxel_launches``), its first chunk's cells recorded; on them each
+    kernel bit for bit against its plain version on the card, timed
+    (device ms, torch.profiler) beside its bytes bound and its plain
+    version's ms (events), with its registers and spills (phase 1 checks
+    them); the chunk's glue and float launch, and the skip4 frame
+    (events, median of ``GLUE_REPS``), with the kernels and with the plain
+    glue in the same run, their depths equal."""
+    import torch
+    import mpr_tpu_torch
+    from mpr_tpu_torch.frontend import shapes
+    from mpr_tpu_torch.ops import build
+    from mpr_tpu_torch.render import camera, unrolled
+    from mpr_tpu_torch.utils.trace import COUNTS
+    card, dev = ctx["card"], ctx["dev"]
+    cell, make, view, size = CASES_3D[0]
+    r = unrolled.UnrolledRenderer(mpr_tpu_torch.compile_tree(make(shapes)))
+    mat_t = torch.as_tensor(camera.gui3d_view(*view), device=dev)
+    r.frame3d(mat_t, size, skip4=True)    # builds the generated kernels
+    torch.cuda.synchronize()
+    seen, real = [], unrolled.voxel_centers
+
+    def recording(mat, bx, by, bz, k, sz):
+        if not seen:
+            seen.append((bx.clone(), by.clone(), bz.clone(), k))
+        return real(mat, bx, by, bz, k, sz)
+    before = (COUNTS["voxel.kernels"], unrolled.voxel_centers.launches,
+              unrolled.voxel_columns.launches)
+    unrolled.voxel_centers = recording
+    try:
+        depth, _, cnt = r.frame3d(mat_t, size, skip4=True)
+        torch.cuda.synchronize()
+    finally:
+        unrolled.voxel_centers = real
+    got = tuple(a - b for a, b in zip(
+        (COUNTS["voxel.kernels"], unrolled.voxel_centers.launches,
+         unrolled.voxel_columns.launches), before))
+    chunks = unrolled.voxel_launches(cnt[1], 16)
+    print(f"voxel glue {cell} @{size} skip4: {cnt[1]} 16^3 cells, {chunks} "
+          f"chunks; voxel.kernels, centers and columns launches {got}")
+    check(got == (chunks,) * 3, f"the skip4 frame's glue: {got}, "
+          f"{chunks} chunks")
+    bx, by, bz, k = seen[0]
+    cells = int(bx.shape[0])
+    lanes = cells * k ** 3
+    wxyz = unrolled.voxel_centers(mat_t, bx, by, bz, k, size)
+    pw = unrolled.voxel_centers_plain(mat_t, bx, by, bz, k, size)
+    bad_w = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                for a, b in zip(wxyz, pw))
+    del pw
+    val = r.f(*wxyz)
+    d0 = torch.zeros(size * size, dtype=torch.int64, device=dev)
+    dk = unrolled.voxel_columns(val, bx, by, bz, k, size, d0.clone())
+    dp = unrolled.voxel_columns_plain(val, bx, by, bz, k, size, d0)
+    filled = int((val.reshape(-1, k, k * k) < 0.0).any(dim=1).sum())
+    bad_d = int((dk != dp).sum())
+    del dk, dp
+    print(f"  first chunk: {cells} cells, {lanes} lanes, {filled} filled "
+          f"columns; centers: {bad_w} values whose bits differ from the "
+          f"plain version's; columns: {bad_d} pixels differ")
+    check(bad_w == 0 and bad_d == 0, f"the glue kernels differ from their "
+          f"plain versions: centers {bad_w}, columns {bad_d}")
+    regs = [x[:2] + x[3:] for x in ptxas_rows(build.BuildStats.log.get(
+        "main", "")) if x[0].startswith("voxel_c")]
+    coords = cells * 24
+    todo = (("voxel_centers", "voxel_centers_kernel",
+             lambda: unrolled.voxel_centers(mat_t, bx, by, bz, k, size),
+             lambda: unrolled.voxel_centers_plain(mat_t, bx, by, bz, k,
+                                                  size),
+             lanes * 12 + coords + 64, lanes * GLUE_CENTER_OPS),
+            ("voxel_columns", "voxel_columns_kernel",
+             lambda: unrolled.voxel_columns(val, bx, by, bz, k, size,
+                                            d0.clone()),
+             lambda: unrolled.voxel_columns_plain(val, bx, by, bz, k, size,
+                                                  d0),
+             lanes * 4 + coords + filled * 8, 0))
+    rows = []
+    for name, kname, fn, plain, nbytes, ops in todo:
+        dms = device_ms(fn, GLUE_REPS, name=kname, tries=3)
+        ms = cuda_ms(fn, GLUE_REPS)
+        pms = plain_ms(plain)
+        b_ms, by_ = bound({"bytes": nbytes, "ops": ops})
+        reg = [x for x in regs if x[0] == kname and x[1] == k]
+        row = {"name": name, "route": "cuda", "source": GLUE_SOURCE,
+               "replaces": "none: the plain glue of render/unrolled.py "
+                           "(XLA fuses it into the JAX package's evaluation)",
+               "port_kernel": True, "launches": chunks,
+               "at": f"{cell} {size}^3 skip4, first chunk ({lanes} lanes)",
+               "device_ms": dms, "ms": round(ms, 4),
+               "plain_ms": round(pms, 4), "bound_ms": round(b_ms, 5),
+               "bound_by": by_, "bytes": nbytes,
+               "registers": reg[0][2] if reg else None,
+               "spills": [x[3:] for x in reg], "library_ms": None}
+        rows.append(row)
+        print(f"  {name} K {k}: dev {dms} ms, events {ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({by_}, {nbytes} B"
+              + (f", {100 * b_ms / dms:.1f}% of it" if dms else "")
+              + f"); plain glue {pms:.3f} ms; ptxas "
+              f"{reg[0][2] if reg else '?'} registers, stack/spills "
+              f"{reg[0][3:] if reg else '?'}  [{card}]")
+
+    def chunk(centers, columns):
+        return lambda: columns(r.f(*centers(mat_t, bx, by, bz, k, size)),
+                               bx, by, bz, k, size, d0.clone())
+    chain = {"kernels": cuda_ms(chunk(unrolled.voxel_centers,
+                                      unrolled.voxel_columns), GLUE_REPS),
+             "plain": cuda_ms(chunk(unrolled.voxel_centers_plain,
+                                    unrolled.voxel_columns_plain),
+                              GLUE_REPS)}
+    del wxyz, val
+    torch.cuda.empty_cache()
+    frame = {"kernels": cuda_ms(lambda: r.frame3d(mat_t, size, skip4=True),
+                                GLUE_REPS)}
+    unrolled.voxel_centers = unrolled.voxel_centers_plain
+    unrolled.voxel_columns = unrolled.voxel_columns_plain
+    try:
+        frame["plain"] = cuda_ms(lambda: r.frame3d(mat_t, size, skip4=True),
+                                 GLUE_REPS)
+        dplain = r.frame3d(mat_t, size, skip4=True)[0]
+        torch.cuda.synchronize()
+    finally:
+        unrolled.voxel_centers = real
+        unrolled.voxel_columns = unrolled._voxel_columns
+    off = int((dplain != depth).sum())
+    print(f"  the chunk (centers, float launch, columns): kernels "
+          f"{chain['kernels']:.4f} ms, plain glue {chain['plain']:.4f} ms; "
+          f"the skip4 frame: kernels {frame['kernels']:.3f} ms, plain glue "
+          f"{frame['plain']:.3f} ms (events, median of {GLUE_REPS}); depth "
+          f"{off} pixels differ  [{card}]")
+    check(off == 0, f"the skip4 frame's depth differs with the plain glue "
+          f"in {off} pixels")
+    for row in rows:
+        row.update(chunk_ms=chain, frame_ms=frame)
+    results["voxel_glue"] = rows
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4427,7 +4605,7 @@ def main() -> int:
                 n in source for n in ("voxel_eval", "deriv_eval",
                                       "pixel_eval", "interval_shorten",
                                       "compact", "scan_adjoint",
-                                      "scan_eval")):
+                                      "scan_eval", "voxel_glue")):
             print("  " + line.strip())
     spills = print_ptxas(tk3, build.BuildStats.log)
 
@@ -4444,6 +4622,7 @@ def main() -> int:
               ("cli", run_cli, (launches,)), ("effects", run_effects, ()),
               ("unrolled", run_unrolled, (results, launches, pre)),
               ("options", run_options, (results, launches)),
+              ("voxel glue", run_voxel_glue, (results,)),
               ("native", run_native, (results,)),
               ("viewer", run_viewer, (results, launches)),
               ("fit", run_fit, (results, launches, pre14)))
@@ -4454,8 +4633,8 @@ def main() -> int:
             effect_rows = got
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    check(not spills, f"kernel A, B, B1, C, C2, C1, V, D, K2f or K2 spills "
-          f"registers: {spills}")
+    check(not spills, f"kernel A, B, B1, C, C2, C1, V, D, K2f, K2 or a voxel "
+          f"glue kernel spills registers: {spills}")
     check(not results["k1_spills"], f"kernel K1 spills registers: "
           f"{results['k1_spills']}")
     # every generated evaluator this run built, those built at first use
@@ -4563,6 +4742,7 @@ def main() -> int:
             "at": at, **extra,
         })
     rows.extend(results["unrolled"])
+    rows.extend(results["voxel_glue"])
     rows.extend(results["fit_rows"])
     k2f = next(r for r in rows if r["name"] == "scan_eval")
     k2f["per_launch"] = results["k2f"]

@@ -63,9 +63,11 @@ SIGNATURES = {
     "mpr_compact_order": [_P] * 10 + [_I] * 7 + [_P],
     "mpr_scan_adjoint": [_P] * 9 + [_I] * 14 + [_P],
     "mpr_scan_eval": [_P] * 7 + [_I] * 14 + [_P],
+    "mpr_voxel_glue": [_P] * 7 + [_I] * 3 + [_P],
 }
 # further entry points of a source, beside ``mpr_<stem>``
-EXTRA_ENTRIES = {"mpr_scan_eval_first": [_P] * 9 + [_I] * 9 + [_P]}
+EXTRA_ENTRIES = {"mpr_scan_eval_first": [_P] * 9 + [_I] * 9 + [_P],
+                 "mpr_voxel_glue_columns": [_P] * 5 + [_I] * 5 + [_P]}
 
 
 class BuildStats:

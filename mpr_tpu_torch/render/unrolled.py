@@ -30,7 +30,11 @@ memory and no retry.  The boxes, classification, occlusion heightmaps,
 index arithmetic, upsampling and scatters are plain PyTorch; the
 evaluations are the generated kernels (two interval launches, one float
 launch a 2D frame; two or three interval launches, one float, one deriv a
-3D frame with normals).
+3D frame with normals).  On the card the voxel stage's glue, the voxels'
+centers and their columns' top into the depth, is two hand-written
+kernels around each float launch (csrc/voxel_glue.cu,
+:func:`voxel_centers`, :func:`voxel_columns`); on the CPU it is their
+plain versions.
 
 The ladders also run on a slab of 64px tile rows ``[r0, r0 + rows)``
 (``r0`` / ``rows64`` in 2D, ``r0`` / ``rows`` in 3D): tiles have no
@@ -53,12 +57,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import build
 from ..ops import interval_math as im
 from ..ops import transcendental as tc
 from ..ops import unrolled_eval as ue
+from ..ops.kernels import _check, _launch, _on_cuda, _stream
 from ..ops.tape_data import resolve_device
 from ..tape.tape import Tape
-from ..utils.trace import read_ids, span
+from ..utils.trace import count, read_ids, span
 from . import camera
 from .pipeline2d import _iv_mul_scalar
 from .pipeline3d import _mat4_interval
@@ -339,15 +345,101 @@ def _stages3d(fi, mat, size: int, skip4: bool, imms, r0: int = 0,
                         counts + (int(ids2.shape[0]),))
 
 
-def _voxel_hits(f, mat, gx, gy, gz, size: int, imms):
-    """``gz + 1`` where the voxel (gx, gy, gz) is filled, else 0.  The
-    centers are gathered from a table of the ``size`` values
-    :func:`_center` gives (one gather a lane instead of five full-size
-    operations)."""
-    cen = _center(torch.arange(size, device=gx.device), size)
-    wx, wy, wz = camera.transform3(mat, cen[gx], cen[gy], cen[gz])
-    val = f(wx, wy, wz, imms=imms)
-    return torch.where(val < 0.0, gz + 1, 0)
+# ---------------------------------------------------------------------------
+# The voxel stage's glue: plain versions and their kernels
+# (csrc/voxel_glue.cu), one on each side of the float launch
+# ---------------------------------------------------------------------------
+
+# the cell edges the glue kernels are built for (the ladder's 2, 4 and 16)
+GLUE_KS = (2, 4, 16)
+
+
+def voxel_centers_plain(mat, bx, by, bz, k: int, size: int):
+    """World coordinates (wx, wy, wz) of every voxel of the ``k``^3 cells
+    (bx, by, bz) (int64, in the grid of ``k``-voxel cells), lane ``c*k^3
+    + (vz*k + vy)*k + vx``: the centers gathered from a table of the
+    ``size`` values :func:`_center` gives, then :func:`camera.transform3`
+    by ``mat``."""
+    vv = torch.arange(k ** 3, dtype=torch.int64, device=bx.device)
+    cen = _center(torch.arange(size, device=bx.device), size)
+    return camera.transform3(mat, *(
+        cen[(g[:, None] * k + off[None, :]).reshape(-1)]
+        for g, off in ((bx, vv % k), (by, (vv // k) % k),
+                       (bz, vv // (k * k)))))
+
+
+def voxel_columns_plain(val, bx, by, bz, k: int, size: int, depth,
+                        r0: int = 0):
+    """``depth`` (int64, the slab of 64px tile rows from ``r0``, ``size``
+    pixels a row) with the top filled voxel of each (cell, vy, vx) column
+    of ``val`` (the values on :func:`voxel_centers_plain`'s lanes; below 0
+    is filled, NaN is not), ``cz*k + vz + 1``, max-reduced in: a new
+    tensor."""
+    dev = val.device
+    vz = torch.arange(k, dtype=torch.int64, device=dev)
+    top = torch.where(val.reshape(-1, k, k * k) < 0.0,
+                      (bz[:, None] * k + vz + 1)[:, :, None], 0).amax(dim=1)
+    c = torch.arange(k * k, dtype=torch.int64, device=dev)
+    pix = ((by[:, None] * k + c // k - 64 * r0) * size
+           + bx[:, None] * k + c % k)
+    return depth.scatter_reduce(0, pix.reshape(-1), top.reshape(-1), "amax")
+
+
+def _check_cells(bx, by, bz, k: int) -> int:
+    if k not in GLUE_KS:
+        raise ValueError(f"k {k}: the voxel glue kernels take {GLUE_KS}")
+    for name, g in (("bx", bx), ("by", by), ("bz", bz)):
+        _check(g, name, torch.int64, (bx.shape[0],))
+    return int(bx.shape[0])
+
+
+def voxel_centers(mat, bx, by, bz, k: int, size: int):
+    """:func:`voxel_centers_plain` on CUDA tensors as the centers kernel
+    (``mat`` (4, 4) f32 read on the device), equal bit for bit; the plain
+    version for CPU tensors.  ``voxel_centers.launches`` counts the
+    launches."""
+    if not _on_cuda(mat, bx, by, bz):
+        return voxel_centers_plain(mat, bx, by, bz, k, size)
+    cells = _check_cells(bx, by, bz, k)
+    _check(mat, "mat", torch.float32, (4, 4))
+    out = [torch.empty(cells * k ** 3, dtype=torch.float32, device=bx.device)
+           for _ in range(3)]
+    if cells:
+        with torch.cuda.device(bx.device):
+            _launch(build.lib().mpr_voxel_glue, mat.data_ptr(),
+                    bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
+                    *(w.data_ptr() for w in out), cells, k, size, _stream())
+        _voxel_centers.launches += 1
+    return tuple(out)
+
+
+voxel_centers.launches = 0
+# the counter's home, kept if the module attribute is rebound (a recorder)
+_voxel_centers = voxel_centers
+
+
+def voxel_columns(val, bx, by, bz, k: int, size: int, depth, r0: int = 0):
+    """:func:`voxel_columns_plain` on CUDA tensors as the columns kernel,
+    which updates ``depth`` in place (a 64-bit atomic max a filled column)
+    and returns it, equal bit for bit; the plain version for CPU tensors.
+    ``voxel_columns.launches`` counts the launches."""
+    if not _on_cuda(val, bx, by, bz, depth):
+        return voxel_columns_plain(val, bx, by, bz, k, size, depth, r0)
+    cells = _check_cells(bx, by, bz, k)
+    _check(val, "val", torch.float32, (cells * k ** 3,))
+    _check(depth, "depth", torch.int64, (depth.shape[0],))
+    if cells:
+        with torch.cuda.device(val.device):
+            _launch(build.lib().mpr_voxel_glue_columns, val.data_ptr(),
+                    bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
+                    depth.data_ptr(), cells, k, int(depth.shape[0]), size,
+                    r0, _stream())
+        _voxel_columns.launches += 1
+    return depth
+
+
+voxel_columns.launches = 0
+_voxel_columns = voxel_columns
 
 
 def voxel_launches(cells: int, k: int) -> int:
@@ -362,27 +454,23 @@ def voxel_launches(cells: int, k: int) -> int:
 def _voxel_stage(f, mat, cells, k: int, size: int, depth, imms, r0: int = 0,
                  first_only: bool = False):
     """The voxel stage: every voxel of the ``k``^3 cells ``cells`` (gx,
-    gy, gz in the grid of ``k``-voxel cells), a float launch for each
-    chunk of at most VOXEL_LANES lanes (the first chunk alone under
-    ``first_only``); the top filled voxel of each column max-reduced into
-    ``depth`` (rows*64*size,: the slab at tile row ``r0``).  Returns the
-    depth."""
-    cx, cy, cz = cells
+    gy, gz in the grid of ``k``-voxel cells), a chunk of at most
+    VOXEL_LANES lanes at a time (the first chunk alone under
+    ``first_only``): the centers (:func:`voxel_centers`), a float launch,
+    and the top filled voxel of each column max-reduced into ``depth``
+    (rows*64*size, int64: the slab at tile row ``r0``;
+    :func:`voxel_columns`).  On the card the glue is two kernels, counted
+    in ``COUNTS["voxel.kernels"]`` a chunk, and ``depth`` is updated in
+    place.  Returns the depth."""
     with span("mpr.u3d.voxel"):
-        vv = torch.arange(k ** 3, dtype=torch.int64, device=depth.device)
-        vx, vy, vz = vv % k, (vv // k) % k, vv // (k * k)
         step = max(1, VOXEL_LANES // k ** 3)
-        for c0 in range(0, int(cx.shape[0]), step):
-            bx, by, bz = (g[c0:c0 + step] for g in (cx, cy, cz))
-            gvx = (bx[:, None] * k + vx[None, :]).reshape(-1)
-            gvy = (by[:, None] * k + vy[None, :]).reshape(-1)
-            gvz = (bz[:, None] * k + vz[None, :]).reshape(-1)
-            hit = _voxel_hits(f, mat, gvx, gvy, gvz, size, imms)
-            patch = hit.reshape(-1, k, k * k).amax(dim=1)  # max over vz
-            pix = ((gvy.reshape(-1, k, k * k)[:, 0] - 64 * r0) * size
-                   + gvx.reshape(-1, k, k * k)[:, 0])
-            depth = depth.scatter_reduce(0, pix.reshape(-1),
-                                         patch.reshape(-1), "amax")
+        on_card = depth.device.type == "cuda"
+        for c0 in range(0, int(cells[0].shape[0]), step):
+            bx, by, bz = (g[c0:c0 + step] for g in cells)
+            val = f(*voxel_centers(mat, bx, by, bz, k, size), imms=imms)
+            depth = voxel_columns(val, bx, by, bz, k, size, depth, r0)
+            if on_card:
+                count("voxel.kernels")
             if first_only:
                 break
         return depth

@@ -17,7 +17,10 @@ writes them into its Chrome trace.
 * ``builds.schedule``: kernel A's dependency schedules built
   (``ops/schedule.py::tape_levels``);
 * ``builds.compile`` / ``builds.load``: kernel libraries compiled by
-  nvcc and loaded (``ops/build.py::lib``).
+  nvcc and loaded (``ops/build.py::lib``);
+* ``voxel.kernels``: chunks of the unrolled voxel stage whose glue ran
+  as the two kernels of ``ops/csrc/voxel_glue.cu``
+  (``render/unrolled.py::_voxel_stage``; none on the CPU).
 
 The hot paths read and upload only through :func:`read_int`,
 :func:`read_ids`, :func:`read_array` and :func:`upload`.

@@ -1849,6 +1849,124 @@ def test_unrolled_option_on_card_equals_the_cpu_frame(cuda, option,
     assert float((normals.cpu() - cn).abs().max()) <= 1e-4
 
 
+# ---- the unrolled voxel stage's glue kernels (csrc/voxel_glue.cu) ------------
+
+from mpr_tpu_torch.utils.trace import COUNTS  # noqa: E402
+
+_GYROID = shapes.intersection(shapes.gyroid(0.4, 0.08), shapes.sphere(0.85))
+# case: (k, first_only, r0, rows of the slab, VOXEL_LANES or None, cells)
+_GLUE = {"k2": (2, False, 0, 4, None, 6000),
+         "k4": (4, False, 0, 4, None, 3000),
+         "k16": (16, False, 0, 4, None, 400),
+         "first_only": (4, True, 0, 4, 64 * 500, 3000),
+         "slab": (16, False, 1, 2, None, 300),
+         "chunked": (4, False, 0, 4, 64 * 1000, 3000),
+         "empty": (4, False, 0, 4, None, 0),
+         "nan": (4, False, 0, 4, None, 3000)}
+
+
+def _glue_counts():
+    return (COUNTS["voxel.kernels"], unrolled.voxel_centers.launches,
+            unrolled.voxel_columns.launches, ue.unrolled_float.launches)
+
+
+@pytest.mark.parametrize("case", sorted(_GLUE))
+def test_voxel_stage_glue_kernels_equal_the_plain_glue(cuda, case,
+                                                       monkeypatch):
+    """_voxel_stage with the centers and columns kernels: its depth equals
+    the plain glue's on the card bit for bit (the same float launches in
+    between), the centers too, and each chunk launches each kernel once."""
+    k, first_only, r0, rows, lanes, n = _GLUE[case]
+    size = 256
+    tree = (shapes.sphere(0.7) + T.sqrt(T.x()) * 1e-3 if case == "nan"
+            else _GYROID)
+    r = unrolled.UnrolledRenderer(mpr_tpu_torch.compile_tree(tree))
+    rng = np.random.default_rng(sorted(_GLUE).index(case))
+    g, y0 = size // k, 64 * r0 // k
+    flat = rng.choice(g * g * (64 * rows // k), n, replace=False)
+    cells = tuple(torch.as_tensor(a, device=cuda) for a in (
+        flat % g, (flat // g) % (64 * rows // k) + y0,
+        flat // (g * 64 * rows // k)))
+    mat = torch.as_tensor(camera.gui3d_view(), device=cuda)
+    depth0 = torch.as_tensor(rng.integers(0, size // 2, rows * 64 * size),
+                             device=cuda)
+    if lanes:
+        monkeypatch.setattr(unrolled, "VOXEL_LANES", lanes)
+    before = _glue_counts()
+    got = unrolled._voxel_stage(r.f, mat, cells, k, size, depth0.clone(),
+                                None, r0, first_only)
+    torch.cuda.synchronize()
+    chunks = min(1, n) if first_only else unrolled.voxel_launches(n, k)
+    assert chunks == (0 if case == "empty" else 1 if first_only else
+                      3 if case == "chunked" else 1)
+    assert tuple(a - b for a, b in zip(_glue_counts(), before)) == \
+        (chunks,) * 4
+    if n:
+        step = max(1, unrolled.VOXEL_LANES // k ** 3)
+        part = tuple(c[:step] for c in cells)
+        wxyz = unrolled.voxel_centers(mat, *part, k, size)
+        _bits_equal(wxyz, unrolled.voxel_centers_plain(mat, *part, k, size))
+        if case == "nan":
+            assert bool(torch.isnan(r.f(*wxyz)).any())
+        assert bool((got != depth0).any())
+    else:
+        assert torch.equal(got, depth0)
+    monkeypatch.setattr(unrolled, "voxel_centers",
+                        unrolled.voxel_centers_plain)
+    monkeypatch.setattr(unrolled, "voxel_columns",
+                        unrolled.voxel_columns_plain)
+    want = unrolled._voxel_stage(r.f, mat, cells, k, size, depth0.clone(),
+                                 None, r0, first_only)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["full", "skip4", "two_phase", "refine2"])
+def test_unrolled_frame_on_the_glue_kernels_equals_brute(cuda, mode,
+                                                         monkeypatch):
+    """Whole unrolled frames on the card, their voxel stages in several
+    chunks: the depth equals render3d_brute's, and COUNTS["voxel.kernels"]
+    and each glue kernel's launches equal voxel_launches(...) of the
+    frame's counts."""
+    tape = mpr_tpu_torch.compile_tree(_GYROID)
+    mat = camera.gui3d_view()
+    size = 256
+    r = unrolled.UnrolledRenderer(tape)
+    monkeypatch.setattr(unrolled, "VOXEL_LANES", 4096 * 16)
+    before = _glue_counts()
+    depth, normals, cnt = unrolled._render3d_impl(
+        r.fi, r.f, r.fd, torch.as_tensor(mat, device=cuda), size, True,
+        skip4=mode == "skip4", two_phase=mode == "two_phase",
+        refine2=mode == "refine2")
+    torch.cuda.synchronize()
+    vl = unrolled.voxel_launches
+    want = {"full": vl(cnt[2], 4), "skip4": vl(cnt[1], 16),
+            "two_phase": vl(cnt[3], 4) + vl(cnt[4], 4),
+            "refine2": vl(cnt[3], 2)}[mode]
+    assert want > 1
+    assert tuple(a - b for a, b in zip(_glue_counts(), before)) == \
+        (want,) * 4
+    assert np.array_equal(depth.cpu().numpy(),
+                          brute.render3d_brute(tape, mat=mat, size=size))
+    assert normals is not None
+
+
+def test_voxel_glue_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """For CUDA tensors the glue wrappers launch or raise: a cell edge
+    without a kernel, int32 coordinates, a value plane of the wrong
+    length; no fallback to the plain glue."""
+    cells = tuple(torch.zeros(5, dtype=torch.int64, device=cuda)
+                  for _ in range(3))
+    mat = torch.eye(4, device=cuda)
+    depth = torch.zeros(64 * 64, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="k 8"):
+        unrolled.voxel_centers(mat, *cells, 8, 64)
+    with pytest.raises(TypeError, match="bx"):
+        unrolled.voxel_centers(mat, cells[0].int(), *cells[1:], 4, 64)
+    with pytest.raises(ValueError, match="val"):
+        unrolled.voxel_columns(torch.zeros(5 * 63, device=cuda), *cells, 4,
+                               64, depth)
+
+
 # ---- the viewer on the card --------------------------------------------------
 
 from mpr_tpu_torch import viewer  # noqa: E402

@@ -537,3 +537,100 @@ def test_voxel_stage_in_chunks_equals_one_pass(monkeypatch, skip4):
     assert want > 2 and len(calls) == want
     assert np.array_equal(depth, one[0])
     assert np.array_equal(normals, one[1])
+
+
+# ---- the voxel stage's glue: the plain steps (the kernels' yardstick) -------
+
+def _center32(i, size):
+    f32 = np.float32
+    return (f32(i) + f32(0.5)) / f32(size) * f32(2.0) - f32(1.0)
+
+
+@pytest.mark.parametrize("r0", [0, 1])
+@pytest.mark.parametrize("k", [2, 4, 16])
+def test_voxel_glue_plain_steps_equal_a_loop_over_the_voxels(k, r0):
+    """voxel_centers_plain and voxel_columns_plain against a NumPy loop
+    over the voxels of three random cells of a slab: the centers and the
+    transform in float32 in the same order of operations (bit for bit),
+    and the top filled voxel of each column (below 0; NaN is not filled)
+    max-reduced into the depth."""
+    rng = np.random.default_rng(10 * k + r0)
+    size, rows, n = 128, 1, 3
+    g = size // k
+    cells = [rng.integers(0, g, n), rng.integers(64 * r0 // k,
+                                                  64 * (r0 + rows) // k, n),
+             rng.integers(0, g, n)]
+    bx, by, bz = (torch.from_numpy(c) for c in cells)
+    mat = camera.gui3d_view()
+    got_w = unrolled.voxel_centers_plain(torch.as_tensor(mat), bx, by, bz, k,
+                                         size)
+    val = rng.uniform(-1.0, 1.0, n * k ** 3).astype(np.float32)
+    val[rng.random(val.shape[0]) < 0.2] = np.nan
+    val[k ** 3:2 * k ** 3] = np.abs(val[k ** 3:2 * k ** 3])   # no hit
+    depth0 = rng.integers(0, size // 2, rows * 64 * size)
+    got_d = unrolled.voxel_columns_plain(torch.from_numpy(val), bx, by, bz,
+                                         k, size, torch.from_numpy(depth0),
+                                         r0)
+    want_w = np.zeros((3, n * k ** 3), np.float32)
+    want_d = depth0.copy()
+    for c in range(n):
+        gx0, gy0, gz0 = (int(a[c]) * k for a in cells)
+        for vz in range(k):
+            for vy in range(k):
+                for vx in range(k):
+                    lane = ((c * k + vz) * k + vy) * k + vx
+                    f = (_center32(gx0 + vx, size), _center32(gy0 + vy, size),
+                         _center32(gz0 + vz, size))
+                    row = [((mat[i, 0] * f[0] + mat[i, 1] * f[1])
+                            + mat[i, 2] * f[2]) + mat[i, 3] for i in range(4)]
+                    want_w[:, lane] = [row[i] / row[3] for i in range(3)]
+                    if val[lane] < 0.0:
+                        pix = (gy0 + vy - 64 * r0) * size + gx0 + vx
+                        want_d[pix] = max(want_d[pix], gz0 + vz + 1)
+    for a, b in zip(got_w, want_w):
+        assert a.dtype == torch.float32
+        assert np.array_equal(a.numpy().view(np.int32), b.view(np.int32))
+    assert got_d.dtype == torch.int64
+    assert np.array_equal(got_d.numpy(), want_d)
+    assert not np.array_equal(want_d, depth0)
+
+
+def test_voxel_stage_on_the_cpu_takes_the_plain_glue(monkeypatch):
+    """On CPU tensors the voxel stage runs the plain glue, once a chunk,
+    launches no glue kernel and counts no COUNTS["voxel.kernels"]."""
+    from mpr_tpu_torch.utils.trace import COUNTS
+    tape = mpr_tpu_torch.compile_tree(shapes.two_spheres())
+    calls = []
+    for name in ("voxel_centers_plain", "voxel_columns_plain"):
+        real = getattr(unrolled, name)
+        monkeypatch.setattr(unrolled, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    monkeypatch.setattr(unrolled, "VOXEL_LANES", 4096 * 4)
+    before = (COUNTS["voxel.kernels"], unrolled.voxel_centers.launches,
+              unrolled.voxel_columns.launches)
+    r = unrolled.UnrolledRenderer(tape)
+    depth, _ = r.render3d(mat=camera.gui3d_view(), size=128, device="cpu",
+                          skip4=True)
+    n1 = r._obs[("3d", 128)][1]
+    chunks = unrolled.voxel_launches(n1, 16)
+    assert chunks > 1
+    assert calls == ["voxel_centers_plain", "voxel_columns_plain"] * chunks
+    assert (COUNTS["voxel.kernels"], unrolled.voxel_centers.launches,
+            unrolled.voxel_columns.launches) == before
+    assert np.array_equal(depth, brute.render3d_brute(
+        tape, mat=camera.gui3d_view(), size=128, device="cpu"))
+
+
+@pytest.mark.parametrize("bad", ["k", "dtype", "length"])
+def test_voxel_glue_checks_refuse_what_the_kernels_do_not_take(bad):
+    """The glue kernels' input checks (run before a launch): a cell edge
+    they are not built for, coordinates that are not int64, coordinate
+    vectors of different lengths."""
+    cells = [torch.zeros(5, dtype=torch.int64) for _ in range(3)]
+    k = 8 if bad == "k" else 4
+    if bad == "dtype":
+        cells[1] = cells[1].int()
+    if bad == "length":
+        cells[2] = cells[2][:4]
+    with pytest.raises((ValueError, TypeError)):
+        unrolled._check_cells(*cells, k)
